@@ -1,0 +1,366 @@
+#!/usr/bin/env python3
+"""Drive the merge_spmv_tpu_torch main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, one line of output each (any failure exits non-zero and prints no
+"ok" line):
+
+1. build   — compile the package's CUDA source with nvcc (sm_90a); print
+             the seconds and the compiler's register report.
+2. cases   — the merge kernels against their plain PyTorch versions and the
+             sequential gold SpMV on the corner cases of the JAX package's
+             tests (tile-spanning hub row, empty rows, duplicates, a row
+             ending on a tile boundary, alpha/beta, signed values, nnz = 0,
+             one column), in float32, then float64 and bfloat16 on two cases.
+3. determinism — two calls on the same input give the same bits.
+4. main    — the user path at full size: grid3d(100) (1M rows, 5.94M
+             nonzeros, float32) through build_operator / op(x) /
+             op(x, y_in, alpha, beta) / op.mm(X), verified against gold,
+             with the launch counters read around exactly that run; then
+             op(x) timed (device time from CUDA-graph replay, and per eager
+             call), each kernel timed beside its plain version, its bound
+             and its PyTorch library counterpart (cuSPARSE for the tile
+             kernel, index_add_ for the fix-up).  Kernel and library times
+             are CUDA-graph replays; the plain versions synchronise inside,
+             so they are timed eagerly.
+5. skew    — the uniform / power-law pair at 2^19 rows and 4,194,304
+             nonzeros sharing one column stream (bench.py:179-221):
+             verified and timed; the per-nonzero ratio is the paper's claim
+             that the time does not depend on row-length skew.
+6. the kernels line, nvidia-smi's name and power limit, and the last line.
+"""
+
+import json
+import sys
+import time
+import warnings
+
+TILE_ITEMS_CASES = 1024   # the JAX package's kernel tests use 1024-item tiles
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+
+    import numpy as np
+
+    from merge_spmv_tpu_torch.formats.coo import CooMatrix
+    from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+    from merge_spmv_tpu_torch.ops import csrmv_cuda as K
+    from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
+    from merge_spmv_tpu_torch.ops.operator import build_operator
+    from merge_spmv_tpu_torch.utils.compare import compare_results
+    from merge_spmv_tpu_torch.utils.cuda_build import build_library
+    from merge_spmv_tpu_torch.utils.device import (PEAK_FP32_GFLOPS,
+                                                   device_info)
+    from merge_spmv_tpu_torch.utils.timers import chained_rate_ms, event_ms
+
+    dev = torch.device("cuda")
+    warnings.filterwarnings("ignore", message=".*[Ss]parse.*")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ------------------------------------------------------------ 1 build
+    t0 = time.perf_counter()
+    log = build_library(K.KERNEL_SOURCE)
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in log.splitlines()
+             if "registers" in ln or "Compiling entry" in ln]
+    info = device_info()
+    print(f"build: {build_s:.2f} s; {' | '.join(ptxas) or 'cached'}")
+    print(f"device: {info['device_kind']} x{info['num_devices']}; "
+          f"nvidia-smi: {info['nvidia_smi']}")
+
+    # ------------------------------------------------------------ 2 cases
+    def to_dev(a):
+        return None if a is None else torch.from_numpy(np.asarray(a)).to(dev)
+
+    def run_case(csr, x, y_in, alpha, beta, tile_items, dtype):
+        v, re_, ci = csr.to_device(dtype=dtype, device=dev)
+        tr, tn = merge_tile_coordinates(re_, csr.num_nonzeros, tile_items)
+        xk, yk = to_dev(x).to(dtype), to_dev(y_in)
+        yk = None if yk is None else yk.to(dtype)
+        got = K.merge_csrmv(v, ci, re_, xk, tr, tn, tile_items, yk,
+                            alpha, beta)
+        plain = K.merge_csrmv_plain(v, ci, re_, xk, tr, tn, tile_items, yk,
+                                    alpha, beta)
+        torch.cuda.synchronize()
+        return got.cpu().numpy(), plain.cpu().numpy()
+
+    cases = {
+        "grid2d_small": lambda: CooMatrix.grid2d(6),
+        "grid2d": lambda: CooMatrix.grid2d(20),
+        "wheel_single_tile": lambda: CooMatrix.wheel(100),
+        "wheel_hub_spans_tiles": lambda: CooMatrix.wheel(3000),
+        "empty_rows": lambda: CooMatrix(900, 64, rows=[5, 5, 850],
+                                        cols=[0, 63, 3], vals=[1., 2., 3.]),
+        "leading_trailing_empty": lambda: CooMatrix(
+            2100, 32, rows=[1050], cols=[7], vals=[2.0]),
+        "duplicates": lambda: CooMatrix(4, 4, rows=[1, 1, 1], cols=[2, 2, 2],
+                                        vals=[1., 2., 3.]),
+        "powerlaw": lambda: CooMatrix.random_powerlaw(800, 700, 6000,
+                                                      seed=3),
+        "dense_rows": lambda: CooMatrix.dense(50, 60),
+        "multi_chunk_cols": lambda: CooMatrix.random_uniform(300, 6000, 8,
+                                                             seed=9),
+        "tile_boundary": lambda: CooMatrix.random_uniform(256, 128, 8,
+                                                          seed=1),
+        "nnz0": lambda: CooMatrix(700, 9, rows=[], cols=[], vals=[]),
+        "one_col": lambda: CooMatrix(6, 1, rows=[0, 2, 2, 5],
+                                     cols=[0, 0, 0, 0], vals=[1., 2., 3., 4.]),
+    }
+    # (case, alpha, beta, with y_in, signed values)
+    runs = [(name, 1.0, 0.0, False, False) for name in cases]
+    runs += [("powerlaw", 2.5, -0.75, True, False),
+             ("powerlaw", 1.0, 0.0, False, True)]
+    failures = []
+    worst = 0.0
+    for i, (name, alpha, beta, with_y, signed) in enumerate(runs):
+        csr = CsrMatrix.from_coo(cases[name]())
+        rs = np.random.RandomState(i)
+        lo = -1.0 if signed else 0.1
+        csr.values = rs.uniform(lo, 1, csr.num_nonzeros).astype(np.float32)
+        x = rs.uniform(lo, 1, csr.num_cols).astype(np.float32)
+        y_in = (rs.uniform(lo, 1, csr.num_rows).astype(np.float32)
+                if with_y else None)
+        got, plain = run_case(csr, x, y_in, alpha, beta, TILE_ITEMS_CASES,
+                              torch.float32)
+        gold = csr.spmv_gold(x, y_in, alpha=alpha, beta=beta)
+        bound = csr.spmv_abs_bound(x, y_in, alpha=alpha, beta=beta)
+        for what, a, b in (("kernel/gold", got, gold),
+                           ("plain/gold", plain, gold),
+                           ("kernel/plain", got, plain)):
+            if compare_results(a, b, verbose=False, abs_bound=bound) is not None:
+                failures.append(f"{name}[{i}] {what}")
+        if got.size:
+            worst = max(worst, float(np.abs(got - plain).max()))
+    for name in ("wheel_hub_spans_tiles", "powerlaw"):
+        csr = CsrMatrix.from_coo(cases[name]())
+        rs = np.random.RandomState(7)
+        csr.values = rs.uniform(0.1, 1, csr.num_nonzeros)
+        x = rs.uniform(0.1, 1, csr.num_cols)
+        got, plain = run_case(csr, x, None, 1.0, 0.0, TILE_ITEMS_CASES,
+                              torch.float64)
+        gold = csr.spmv_gold(x)   # float64 gold, positive data
+        for what, a in (("kernel", got), ("plain", plain)):
+            if a.dtype != np.float64 or not np.allclose(a, gold, rtol=1e-12,
+                                                        atol=0.0):
+                failures.append(f"{name} float64 {what}")
+        # bfloat16: values and x rounded to bf16, float32 arithmetic, the
+        # result rounded to bf16 (relative rounding 2^-9, checked at 2^-7)
+        csr16 = CsrMatrix.from_coo(cases[name]())
+        csr16.values = rs.uniform(0.1, 1, csr16.num_nonzeros).astype(
+            np.float32)
+        op = build_operator(csr16, dtype="bfloat16",
+                            tile_items=TILE_ITEMS_CASES)
+        xb = torch.from_numpy(rs.uniform(0.1, 1, csr16.num_cols).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+        yb = op(xb)
+        rounded = csr16.astype(np.float32)
+        rounded.values = op.values.cpu().numpy()
+        want = rounded.spmv_gold(xb.float().cpu().numpy())
+        if yb.dtype != torch.bfloat16 or not np.allclose(
+                yb.float().cpu().numpy(), want, rtol=2.0**-7, atol=0.0):
+            failures.append(f"{name} bfloat16")
+    print(f"cases: {len(runs)} float32 runs + float64/bfloat16 on 2 cases; "
+          f"max |kernel - plain| = {worst:.3e}; failures: {failures or 'none'}")
+    if failures:
+        return 1
+
+    # ------------------------------------------------------------ 3 determinism
+    csr = CsrMatrix.from_coo(CooMatrix.wheel(3000)).astype(np.float32)
+    csr.values = np.random.RandomState(3).uniform(
+        -1, 1, csr.num_nonzeros).astype(np.float32)
+    op = build_operator(csr, tile_items=256)
+    xw = torch.from_numpy(np.random.RandomState(4).uniform(
+        -1, 1, csr.num_cols).astype(np.float32)).to(dev)
+    y1, y2 = op(xw), op(xw)
+    same = bool(torch.equal(y1, y2))
+    print(f"determinism: wheel(3000), {op.plan.num_tiles} tiles, two calls "
+          f"bitwise equal: {same}")
+    if not same:
+        return 1
+
+    # ------------------------------------------------------------ 4 main path
+    rs = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    csr = CsrMatrix.from_coo(CooMatrix.grid3d(100)).astype(np.float32)
+    csr.values = rs.uniform(0.5, 1.5, csr.num_nonzeros).astype(np.float32)
+    n, nnz = csr.num_rows, csr.num_nonzeros
+    x1 = np.ones(n, np.float32)
+    y_in = rs.uniform(-1, 1, n).astype(np.float32)
+    X = rs.uniform(0.1, 1, (n, 4)).astype(np.float32)
+    host_s = time.perf_counter() - t0
+
+    K.reset_launches()
+    op = build_operator(csr, dtype="float32")
+    y = op(torch.from_numpy(x1).to(dev))
+    y_ab = op(torch.from_numpy(x1).to(dev), y_in=torch.from_numpy(y_in).to(dev),
+              alpha=2.0, beta=1.0)
+    Y = op.mm(torch.from_numpy(X).to(dev))
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+
+    checks = {
+        "op(x)": (y, csr.spmv_gold(x1), csr.spmv_abs_bound(x1)),
+        "op(x,y_in,2,1)": (y_ab, csr.spmv_gold(x1, y_in, 2.0, 1.0),
+                           csr.spmv_abs_bound(x1, y_in, 2.0, 1.0)),
+    }
+    for k in range(X.shape[1]):
+        checks[f"mm[:, {k}]"] = (Y[:, k], csr.spmv_gold(X[:, k]),
+                                 csr.spmv_abs_bound(X[:, k]))
+    bad = [name for name, (got, gold, bound) in checks.items()
+           if got.shape != (n,) or not bool(torch.isfinite(got).all())
+           or compare_results(got.cpu().numpy(), gold, verbose=False,
+                              abs_bound=bound) is not None]
+    print(f"main: grid3d(100) {n} rows {nnz} nnz float32, {op.describe()}, "
+          f"host build {host_s:.1f} s, setup_s {op.setup_s}, launches "
+          f"{launches}, verified {len(checks) - len(bad)}/{len(checks)}"
+          f"{' FAILED ' + str(bad) if bad else ''}")
+    if bad or min(launches.values()) < 1:
+        return 1
+
+    plan = op.plan
+    peak_gbps = info["peak_hbm_gbps"]
+    xd = torch.from_numpy(x1).to(dev)
+    op_ms = chained_rate_ms(op, xd)
+    op_eager_ms = chained_rate_ms(op, xd, graph=False)
+    ref_bound_ms = plan.bytes_accessed() / peak_gbps / 1e6
+    print(f"main timing: op(x) {op_ms:.4f} ms on the device (CUDA graph), "
+          f"{op_eager_ms:.4f} ms per eager call, "
+          f"{2 * nnz / op_ms / 1e6:.2f} GFLOP/s, "
+          f"{plan.bytes_accessed() / op_ms / 1e6:.1f} GB/s effective "
+          f"({plan.bytes_accessed()} B reference byte model), "
+          f"{100 * ref_bound_ms / op_ms:.1f}% of the "
+          f"{ref_bound_ms:.4f} ms bound at {peak_gbps:.0f} GB/s")
+
+    # each kernel on the main path's inputs: time, plain time, bound, library
+    vals, cols, rowends = op.values, op.col_indices, op.row_end_offsets
+    tr, tn, T = op.tile_rows, op.tile_nnz, plan.tile_items
+    yk, crk, cvk = K.merge_tile(vals, cols, rowends, xd, tr, tn, T)
+    yp, crp, cvp = K.merge_tile_plain(vals, cols, rowends, xd, tr, tn, T)
+    absv = vals.abs()
+    ya, _, cva = K.merge_tile_plain(absv, cols, rowends, xd.abs(), tr, tn, T)
+    tile_err = max(float((yk - yp).abs().max()),
+                   float((cvk - cvp).abs().max()))
+    tile_ok = (torch.equal(crk, crp)
+               and compare_results(yk.cpu().numpy(), yp.cpu().numpy(),
+                                   verbose=False,
+                                   abs_bound=ya.cpu().numpy()) is None
+               and compare_results(cvk.cpu().numpy(), cvp.cpu().numpy(),
+                                   verbose=False,
+                                   abs_bound=cva.cpu().numpy()) is None)
+    fk = K.carry_fixup(yk.clone(), crk, cvk, 1.0)
+    fp = K.carry_fixup_plain(yk.clone(), crk, cvk, 1.0)
+    fix_err = float((fk - fp).abs().max())
+    fix_ok = compare_results(fk.cpu().numpy(), fp.cpu().numpy(),
+                             verbose=False) is None
+    print(f"kernel vs plain on the main path: merge_tile max|err| "
+          f"{tile_err:.3e} ok={tile_ok}; carry_fixup max|err| {fix_err:.3e} "
+          f"ok={fix_ok}")
+    if not (tile_ok and fix_ok):
+        return 1
+
+    tile_ms = event_ms(lambda: K.merge_tile(vals, cols, rowends, xd, tr, tn,
+                                            T))
+    # the plain versions synchronise (data-dependent sizes): timed eagerly
+    tile_plain_ms = event_ms(lambda: K.merge_tile_plain(
+        vals, cols, rowends, xd, tr, tn, T), iters=5, graph=False)
+    # int32 offsets and columns, the index width the tile kernel streams
+    csr_t = torch.sparse_csr_tensor(
+        torch.from_numpy(csr.row_offsets.astype(np.int32)).to(dev),
+        cols, vals, size=(n, csr.num_cols))
+    assert csr_t.crow_indices().dtype == torch.int32
+    assert csr_t.col_indices().dtype == torch.int32
+    cusparse_ms = event_ms(lambda: torch.mv(csr_t, xd))
+    ycopy = yk.clone()
+    fix_ms = event_ms(lambda: K.carry_fixup(ycopy, crk, cvk, 1.0))
+    fix_plain_ms = event_ms(lambda: K.carry_fixup_plain(ycopy, crk, cvk, 1.0),
+                            graph=False)
+    ypad = torch.zeros(n + 1, dtype=ycopy.dtype, device=dev)
+    index_add_ms = event_ms(lambda: ypad.index_add_(0, crk.long(), cvk,
+                                                    alpha=1.0))
+
+    # bound: each input read once, each output written once, at the
+    # published HBM rate; operations at the published fp32 rate
+    vs = 4
+    tiles = plan.num_tiles
+    tile_bytes = (nnz * (vs + 4) + n * 4 + csr.num_cols * vs
+                  + 2 * (tiles + 1) * 4 + n * vs + tiles * (4 + vs))
+    tile_bound = max(tile_bytes / peak_gbps / 1e6,
+                     2 * nnz / PEAK_FP32_GFLOPS / 1e6)
+    fix_rows = int(torch.unique(crk[crk < n]).numel())
+    fix_bytes = tiles * (4 + vs) + 2 * fix_rows * vs
+    fix_bound = max(fix_bytes / peak_gbps / 1e6,
+                    (tiles + fix_rows) / PEAK_FP32_GFLOPS / 1e6)
+    print(f"kernel timing: merge_tile {tile_ms:.4f} ms (plain "
+          f"{tile_plain_ms:.4f}, cuSPARSE {cusparse_ms:.4f}, bound "
+          f"{tile_bound:.4f} for {tile_bytes} B); carry_fixup {fix_ms:.4f} ms "
+          f"(plain {fix_plain_ms:.4f}, index_add_ {index_add_ms:.4f}, bound "
+          f"{fix_bound:.6f} for {fix_bytes} B)")
+
+    # ------------------------------------------------------------ 5 skew pair
+    del csr, op, csr_t, X, Y
+    nk, deg = 1 << 19, 8
+    nnz_k = nk * deg
+    centers = (np.arange(nnz_k, dtype=np.int64) * nk) // nnz_k
+    cols_k = np.clip(centers + rs.randint(-2048, 2048, nnz_k), 0, nk - 1)
+    ones = np.ones(nnz_k, np.float32)
+    rows_u = np.repeat(np.arange(nk, dtype=np.int64), deg)
+    raw = rs.pareto(1.6, nk) + 1.0
+    degs = np.maximum(1, (raw * (nnz_k / raw.sum())).astype(np.int64))
+    diff = int(nnz_k - degs.sum())
+    if diff > 0:
+        degs[np.argsort(-degs)[:diff]] += 1
+    elif diff < 0:
+        shrinkable = np.flatnonzero(degs > 1)
+        degs[shrinkable[np.argsort(-degs[shrinkable])[:-diff]]] -= 1
+    rows_p = np.repeat(np.arange(nk, dtype=np.int64), degs)
+    skew = {}
+    for name, rows in (("uniform", rows_u), ("powerlaw", rows_p)):
+        c = CsrMatrix.from_coo(CooMatrix(nk, nk, rows, cols_k, ones)
+                               ).astype(np.float32)
+        o = build_operator(c)
+        xo = torch.ones(nk, dtype=torch.float32, device=dev)
+        ok = compare_results(o(xo).cpu().numpy(), c.spmv_gold(np.ones(nk)),
+                             verbose=False,
+                             abs_bound=c.spmv_abs_bound(np.ones(nk))) is None
+        skew[name] = (chained_rate_ms(o, xo), ok,
+                      int(np.diff(c.row_offsets).max()))
+        del c, o
+    (ms_u, ok_u, max_u), (ms_p, ok_p, max_p) = skew["uniform"], skew["powerlaw"]
+    print(f"skew: {nk} rows {nnz_k} nnz, uniform {ms_u:.4f} ms (max row "
+          f"{max_u}, verified {ok_u}), powerlaw {ms_p:.4f} ms (max row "
+          f"{max_p}, verified {ok_p}), per-nnz ratio uniform/powerlaw "
+          f"{ms_u / ms_p:.3f}")
+    if not (ok_u and ok_p):
+        return 1
+
+    # ------------------------------------------------------------ 6 report
+    src = "merge_spmv_tpu_torch/csrc/merge_csrmv.cu"
+    kernels = [
+        {"name": "merge_tile", "route": "cuda", "source": src,
+         "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
+         "launches": launches["merge_tile"], "max_abs_err": tile_err,
+         "ms": tile_ms, "plain_ms": tile_plain_ms, "bound_ms": tile_bound,
+         "bound_by": "bytes", "library_ms": cusparse_ms},
+        {"name": "carry_fixup", "route": "cuda", "source": src,
+         "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:919",
+         "launches": launches["carry_fixup"], "max_abs_err": fix_err,
+         "ms": fix_ms, "plain_ms": fix_plain_ms, "bound_ms": fix_bound,
+         "bound_by": "bytes", "library_ms": index_add_ms},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(info["nvidia_smi"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

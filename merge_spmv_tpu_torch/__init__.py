@@ -1,0 +1,43 @@
+"""merge_spmv_tpu_torch — the merge-path sparse linear-algebra framework on
+PyTorch and CUDA for one NVIDIA H100.
+
+The port of merge_spmv_tpu (JAX / Pallas on a TPU), module for module:
+
+* formats/ — COO/CSR containers, Matrix Market ingest, generators, graph
+  statistics and the sequential gold SpMV (NumPy, on the host),
+* ops/ — the merge-path search, the plan, the segment-sum oracle
+  (csrmv_torch), the CUDA merge kernels and their plain versions
+  (csrmv_cuda, csrc/merge_csrmv.cu), the public csrmv/csrmm API and the
+  SpmvOperator,
+* utils/ — the ULP comparator, host RNG helpers, device table, kernel
+  build and timers on the card.
+
+Entry points run on the card unless the caller passes ``device="cpu"``.
+Nothing here imports jax or merge_spmv_tpu, and importing the package
+compiles nothing: the kernels are built by nvcc at first launch.
+"""
+
+from merge_spmv_tpu_torch.formats.coo import CooMatrix
+from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+from merge_spmv_tpu_torch.formats.stats import GraphStats
+from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
+from merge_spmv_tpu_torch.ops.csrmv import csrmv, csrmm
+from merge_spmv_tpu_torch.ops.operator import SpmvOperator, build_operator
+from merge_spmv_tpu_torch.ops.merge_path import (merge_path_search,
+                                                 merge_tile_coordinates)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CooMatrix",
+    "CsrMatrix",
+    "GraphStats",
+    "SpmvPlan",
+    "SpmvOperator",
+    "build_operator",
+    "make_plan",
+    "csrmv",
+    "csrmm",
+    "merge_path_search",
+    "merge_tile_coordinates",
+]

@@ -1,0 +1,22 @@
+"""Device compute path.
+
+* merge_path.py — the 2D merge-path diagonal search, host + device
+  (reference: cpu_spmv.cpp:223-245, cub/thread/thread_search.cuh:53-84).
+* plan.py — plan contract: tile counts, the Hopper tile policy, backend.
+* csrmv_torch.py — segment-sum formulation; the "torch" backend and oracle.
+* csrmv_cuda.py — the merge-path CUDA kernels (csrc/merge_csrmv.cu): tile
+  kernel + carry fix-up, with their plain PyTorch versions.
+* csrmv.py — public API dispatch (reference: DeviceSpmv::CsrMV,
+  cub/device/device_spmv.cuh:129-164).
+* operator.py — SpmvOperator: device-resident matrix + plan + tiles.
+"""
+
+from merge_spmv_tpu_torch.ops.merge_path import (merge_path_search,
+                                                 merge_tile_coordinates)
+from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
+from merge_spmv_tpu_torch.ops.csrmv import csrmv, csrmm
+from merge_spmv_tpu_torch.ops.operator import SpmvOperator, build_operator
+
+__all__ = ["merge_path_search", "merge_tile_coordinates",
+           "SpmvPlan", "make_plan", "csrmv", "csrmm",
+           "SpmvOperator", "build_operator"]

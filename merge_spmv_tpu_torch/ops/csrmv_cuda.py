@@ -1,0 +1,255 @@
+"""Merge-path CsrMV on the card: wrappers of the CUDA kernels in
+csrc/merge_csrmv.cu, and their plain PyTorch versions.
+
+Replaces ``merge_spmv_tpu/ops/csrmv_pallas.py::_spmv_kernel``.  That TPU
+kernel walks the merge tiles in order and carries the open row's partial in
+SMEM (csrmv_pallas.py:919-929).  On Hopper the tiles run in parallel, so
+the computation goes back to the reference's three steps:
+
+* search: ``merge_tile_coordinates`` (ops/merge_path.py), once per matrix;
+* ``merge_tile``: one thread block per merge tile writes every row that
+  ends in the tile and leaves one carry pair (row, partial) per tile;
+* ``carry_fixup``: adds alpha times each row's carries into y in tile
+  order, without floating-point atomics, so repeated calls are bitwise
+  equal.
+
+What bounds it: HBM bytes (``SpmvPlan.bytes_accessed()``: a value, a
+column index and a gathered x element per nonzero, a row end and a y write
+per row).  The tile kernel reads values and columns once through the
+read-only cache, stages only the tile's row ends in shared memory and
+writes each y once; the fix-up touches one word per tile.
+
+Each wrapper runs the kernel for CUDA tensors and the plain version for CPU
+tensors, and raises on anything else.  ``LAUNCHES`` counts kernel launches
+(never plain-version calls) so a run can show that it went through the
+kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from merge_spmv_tpu_torch.ops.csrmv_torch import row_ids_from_offsets
+from merge_spmv_tpu_torch.ops.merge_path import num_merge_tiles
+from merge_spmv_tpu_torch.ops.plan import (ITEMS_PER_THREAD, MAX_TILE_ITEMS,
+                                           MIN_TILE_ITEMS)
+from merge_spmv_tpu_torch.utils.cuda_build import load_library
+
+__all__ = ["merge_tile", "carry_fixup", "merge_csrmv", "merge_tile_plain",
+           "carry_fixup_plain", "merge_csrmv_plain", "LAUNCHES",
+           "reset_launches", "KERNEL_SOURCE"]
+
+KERNEL_SOURCE = "merge_csrmv"
+LAUNCHES = {"merge_tile": 0, "carry_fixup": 0}
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    lib = load_library(KERNEL_SOURCE)
+    if not getattr(lib, "_typed", False):
+        for sfx in _SUFFIX.values():
+            f = getattr(lib, f"merge_tile_{sfx}")
+            f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _D, _D, _P, _P, _P, _I,
+                          _I, _P]
+            f.restype = _I
+            f = getattr(lib, f"carry_fixup_{sfx}")
+            f.argtypes = [_P, _P, _I, _I, _D, _P, _P]
+            f.restype = _I
+        lib.merge_csrmv_error_string.argtypes = [_I]
+        lib.merge_csrmv_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _raise_on(lib, rc: int, what: str):
+    if rc != 0:
+        msg = lib.merge_csrmv_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}: {msg}")
+
+
+def _is_cpu(*tensors) -> bool:
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cpu"
+
+
+def _check(name, t, dtype, shape=None):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+
+
+def _check_tile_items(tile_items: int):
+    if (tile_items % MIN_TILE_ITEMS or not
+            MIN_TILE_ITEMS <= tile_items <= MAX_TILE_ITEMS):
+        raise ValueError(f"tile_items must be a multiple of {MIN_TILE_ITEMS} "
+                         f"in [{MIN_TILE_ITEMS}, {MAX_TILE_ITEMS}], "
+                         f"got {tile_items}")
+
+
+# ---------------------------------------------------------------------- #
+# Plain versions: the same decomposition in PyTorch
+# ---------------------------------------------------------------------- #
+
+def merge_tile_plain(values, col_indices, row_end_offsets, x, tile_rows,
+                     tile_nnz, tile_items, y_in=None, alpha=1.0, beta=0.0):
+    """Per-tile completed-row sums and carry pairs, as the tile kernel
+    computes them.  Returns (y, carry_row, carry_val): y holds
+    ``alpha * (the row's sum within the tile that completes it) + beta *
+    y_in`` and tile t leaves the partial of row ``tile_rows[t + 1]`` inside
+    tile t."""
+    num_rows = row_end_offsets.shape[0]
+    num_tiles = tile_rows.shape[0] - 1
+    items = torch.diff(tile_rows) + torch.diff(tile_nnz)
+    if num_tiles and int(items.max()) > tile_items:
+        raise ValueError("a tile holds more than tile_items merge items")
+    nnz = values.shape[0]
+    j = torch.arange(nnz, device=values.device)
+    row_of = row_ids_from_offsets(row_end_offsets, nnz)
+    tile_of = torch.searchsorted(tile_nnz.long(), j, right=True) - 1
+    open_row = tile_rows[1:].long()[tile_of]
+    done = row_of < open_row
+    products = values * x[col_indices.long()]
+    sums = torch.zeros(num_rows, dtype=values.dtype, device=values.device)
+    sums.index_add_(0, row_of[done], products[done])
+    carry_val = torch.zeros(num_tiles, dtype=values.dtype,
+                            device=values.device)
+    carry_val.index_add_(0, tile_of[~done], products[~done])
+    y = alpha * sums
+    if y_in is not None:
+        y = y + beta * y_in
+    return y, tile_rows[1:].clone(), carry_val
+
+
+def carry_fixup_plain(y, carry_row, carry_val, alpha=1.0):
+    """y[r] += alpha * (sum of row r's carries, in tile order), in place."""
+    valid = carry_row < y.shape[0]
+    rows, seg = torch.unique_consecutive(carry_row[valid],
+                                         return_inverse=True)
+    sums = torch.zeros(rows.shape[0], dtype=carry_val.dtype,
+                       device=carry_val.device)
+    sums.index_add_(0, seg, carry_val[valid])
+    y.index_add_(0, rows.long(), sums, alpha=alpha)
+    return y
+
+
+def merge_csrmv_plain(values, col_indices, row_end_offsets, x, tile_rows,
+                      tile_nnz, tile_items, y_in=None, alpha=1.0, beta=0.0):
+    """y = alpha * A @ x + beta * y_in through the tile/carry/fix-up
+    decomposition, in plain PyTorch."""
+    y, carry_row, carry_val = merge_tile_plain(
+        values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
+        tile_items, y_in, alpha, beta)
+    return carry_fixup_plain(y, carry_row, carry_val, alpha)
+
+
+# ---------------------------------------------------------------------- #
+# Kernel wrappers
+# ---------------------------------------------------------------------- #
+
+def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
+               tile_items, y_in=None, alpha=1.0, beta=0.0):
+    """Tile kernel: (y, carry_row, carry_val) as merge_tile_plain returns
+    them.  ``tile_items`` fixes the block size (tile_items /
+    ITEMS_PER_THREAD threads); tile_rows/tile_nnz must come from
+    ``merge_tile_coordinates`` at the same tile_items.  The wrapper checks
+    the tile count without a sync; the kernel never indexes shared memory
+    past the tile, whatever the coordinates."""
+    num_rows = row_end_offsets.shape[0]
+    num_tiles = tile_rows.shape[0] - 1
+    want_tiles = num_merge_tiles(num_rows, values.shape[0], tile_items)
+    if num_tiles != want_tiles:
+        raise ValueError(f"{num_tiles} tiles given, {want_tiles} at "
+                         f"tile_items={tile_items}: the tile coordinates "
+                         "were searched at another tile size")
+    if _is_cpu(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
+               y_in):
+        return merge_tile_plain(values, col_indices, row_end_offsets, x,
+                                tile_rows, tile_nnz, tile_items, y_in,
+                                alpha, beta)
+    dtype = values.dtype
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the kernel takes float32 or float64, got {dtype}")
+    _check_tile_items(tile_items)
+    _check("values", values, dtype)
+    _check("col_indices", col_indices, torch.int32, values.shape)
+    _check("row_end_offsets", row_end_offsets, torch.int32)
+    _check("x", x, dtype)
+    _check("tile_rows", tile_rows, torch.int32)
+    _check("tile_nnz", tile_nnz, torch.int32, tile_rows.shape)
+    if values.dim() != 1 or x.dim() != 1 or num_tiles < 1:
+        raise ValueError("values and x must be vectors, tile_rows non-empty")
+    if y_in is not None:
+        _check("y_in", y_in, dtype, (num_rows,))
+    dev = values.device
+    y = torch.empty(num_rows, dtype=dtype, device=dev)
+    carry_row = torch.empty(num_tiles, dtype=torch.int32, device=dev)
+    carry_val = torch.empty(num_tiles, dtype=dtype, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, f"merge_tile_{_SUFFIX[dtype]}")(
+            values.data_ptr(), col_indices.data_ptr(),
+            row_end_offsets.data_ptr(), x.data_ptr(),
+            None if y_in is None else y_in.data_ptr(),
+            tile_rows.data_ptr(), tile_nnz.data_ptr(), float(alpha),
+            float(beta), y.data_ptr(), carry_row.data_ptr(),
+            carry_val.data_ptr(), num_tiles, tile_items // ITEMS_PER_THREAD,
+            stream)
+    _raise_on(lib, rc, "merge_tile")
+    LAUNCHES["merge_tile"] += 1
+    return y, carry_row, carry_val
+
+
+def carry_fixup(y, carry_row, carry_val, alpha=1.0):
+    """Fix-up kernel: y[r] += alpha * (sum of row r's carries in tile
+    order), in place; returns y."""
+    if _is_cpu(y, carry_row, carry_val):
+        return carry_fixup_plain(y, carry_row, carry_val, alpha)
+    dtype = y.dtype
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the kernel takes float32 or float64, got {dtype}")
+    _check("y", y, dtype)
+    _check("carry_row", carry_row, torch.int32)
+    _check("carry_val", carry_val, dtype, carry_row.shape)
+    num_tiles = carry_row.shape[0]
+    if num_tiles < 1:
+        raise ValueError("carry_row must be non-empty")
+    lib = _lib()
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        rc = getattr(lib, f"carry_fixup_{_SUFFIX[dtype]}")(
+            carry_row.data_ptr(), carry_val.data_ptr(), num_tiles,
+            y.shape[0], float(alpha), y.data_ptr(), stream)
+    _raise_on(lib, rc, "carry_fixup")
+    LAUNCHES["carry_fixup"] += 1
+    return y
+
+
+def merge_csrmv(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
+                tile_items, y_in=None, alpha=1.0, beta=0.0):
+    """y = alpha * A @ x + beta * y_in: the tile kernel, then the fix-up
+    (their plain versions for CPU tensors)."""
+    y, carry_row, carry_val = merge_tile(
+        values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
+        tile_items, y_in, alpha, beta)
+    return carry_fixup(y, carry_row, carry_val, alpha)

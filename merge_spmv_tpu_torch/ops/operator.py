@@ -1,0 +1,128 @@
+"""SpmvOperator — the user-facing handle bundling a device-resident CSR
+matrix with its execution plan and tile coordinates.
+
+Counterpart of merge_spmv_tpu/ops/operator.py.  The reference's lifecycle
+is query/allocate/run (SURVEY.md §3.3): build once (plan, copy to the
+device, tile search), then every ``op(x)`` launches the merge kernels
+directly.
+
+    op = build_operator(csr, dtype="float32")      # on the card
+    y = op(x)                                      # y = A @ x
+    y = op(x, y_in=y0, alpha=2.0, beta=1.0)
+    Y = op.mm(X)                                   # SpMM, one launch pair per column
+
+The operator always runs the merge-path decomposition: the CUDA kernels for
+a matrix on the card, their plain PyTorch versions for a matrix on the CPU
+(``device="cpu"``, the tests' route).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from merge_spmv_tpu_torch.ops.csrmv import (_csrmv_merge,
+                                            check_matrix_operands,
+                                            compute_dtype)
+from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
+from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
+from merge_spmv_tpu_torch.utils.device import resolve_device, torch_dtype
+
+__all__ = ["SpmvOperator", "build_operator"]
+
+
+class SpmvOperator:
+    """Device-resident CSR SpMV/SpMM operator (two-phase contract, phase 2).
+
+    ``values`` are held in the compute dtype (float32 for a bfloat16 plan,
+    after rounding to bfloat16, as the JAX operator upcasts its bf16
+    values); ``tile_rows``/``tile_nnz`` are the merge-tile coordinates,
+    searched once.
+    """
+
+    def __init__(self, plan: SpmvPlan, values, row_end_offsets, col_indices,
+                 tile_rows, tile_nnz, ignored: Optional[dict] = None):
+        self.plan = plan
+        self.values = values
+        self.row_end_offsets = row_end_offsets
+        self.col_indices = col_indices
+        self.tile_rows = tile_rows
+        self.tile_nnz = tile_nnz
+        self.ignored = dict(ignored or {})
+        self.device = values.device
+        self.setup_s: dict = {}
+
+    def _vec(self, v):
+        return None if v is None else torch.as_tensor(v, device=self.device)
+
+    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
+        return _csrmv_merge(self.plan, self.values, self.row_end_offsets,
+                            self.col_indices, self._vec(x), self._vec(y_in),
+                            alpha, beta, (self.tile_rows, self.tile_nnz))
+
+    def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, method: str = "auto"):
+        """SpMM, one merge-kernel pass per column of X (the strategy of
+        csrmm_column_loop, csrmv_pallas.py:1376-1406).  ``method="wide"``
+        (the retired multi-RHS kernel of the JAX package) raises."""
+        if method == "wide":
+            raise ValueError(
+                "method='wide' is retired: the multi-RHS kernel measured "
+                "~0.3x the per-column loop on the TPU (BENCH_SPMM.json).  "
+                "Use method='auto' (column loop).")
+        if method not in ("auto", "column"):
+            raise ValueError(f"unknown method {method!r}")
+        X = self._vec(X)
+        Y_in = self._vec(Y_in)
+        check_matrix_operands(self.plan, X, Y_in)
+        return torch.stack([
+            self(X[:, k], None if Y_in is None else Y_in[:, k], alpha, beta)
+            for k in range(X.shape[1])], dim=1)
+
+    def describe(self) -> str:
+        knobs = ", ".join(f"{k}={v!r}" for k, v in self.ignored.items())
+        return (f"{self.plan.describe()} [ignored TPU knobs: {knobs}; "
+                "accepted for signature parity with merge_spmv_tpu, no "
+                "effect here]")
+
+
+def build_operator(csr, dtype="float32", backend: str = "auto",
+                   tile_items: Optional[int] = None,
+                   autotune: bool = False,
+                   runtime_skip: Optional[bool] = None,
+                   gather_group: int = 1,
+                   gather_cluster=None,
+                   device=None) -> SpmvOperator:
+    """Build the operator from a host CsrMatrix (formats/csr.py).
+
+    ``device=None`` means the card, and raises when there is none;
+    ``device="cpu"`` runs the kernels' plain versions.  ``backend`` must
+    agree with the device ("cuda" on the card, "torch" on the CPU).
+    ``autotune``, ``runtime_skip``, ``gather_group`` and ``gather_cluster``
+    are the TPU package's tuning knobs: accepted and ignored, and
+    ``describe()`` says so.
+    """
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    plan = make_plan(csr.num_rows, csr.num_cols, csr.num_nonzeros,
+                     dtype=dtype, tile_items=tile_items, backend=backend,
+                     device=dev)
+    t1 = time.perf_counter()
+    values, rowends, cols = csr.to_device(dtype=torch_dtype(plan.dtype),
+                                          device=dev)
+    values = values.to(compute_dtype(plan.dtype))
+    tile_rows, tile_nnz = merge_tile_coordinates(rowends, csr.num_nonzeros,
+                                                 plan.tile_items)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    ignored = {"autotune": autotune, "runtime_skip": runtime_skip,
+               "gather_group": gather_group, "gather_cluster": gather_cluster}
+    op = SpmvOperator(plan, values, rowends, cols, tile_rows, tile_nnz,
+                      ignored=ignored)
+    # setup-cost attribution (gpu_spmv.cu:114-134 reports conversion setup
+    # apart from run time): plan = policy; prepare = copy to the device +
+    # the tile search
+    op.setup_s = {"plan": round(t1 - t0, 3), "prepare": round(t2 - t1, 3)}
+    return op

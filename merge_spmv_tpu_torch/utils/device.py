@@ -1,0 +1,103 @@
+"""Device resolution, dtype names and the published-peak table.
+
+Counterpart of merge_spmv_tpu/utils/device.py.  The reference computes its
+GPU peak GB/s from bus width x memory clock (utils.h:451-515); here the
+published per-card HBM bandwidth is keyed on ``torch.cuda.get_device_name``
+and is the denominator of every "% of peak" the port reports.  A card may
+be set below its full power limit, so every measurement also records what
+``nvidia-smi`` says of the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import numpy as np
+import torch
+
+__all__ = ["resolve_device", "torch_dtype", "dtype_name", "itemsize",
+           "peak_hbm_bandwidth", "PEAK_HBM_GBPS", "PEAK_FP32_GFLOPS",
+           "nvidia_smi_name_power", "device_info"]
+
+# Published peak HBM bandwidth, GB/s, matched as lower-case substrings of
+# the CUDA device name in this order ("NVIDIA H100 80GB HBM3" is the SXM
+# part, "NVIDIA H100 PCIe" the PCIe part).
+PEAK_HBM_GBPS = (
+    ("h100 pcie", 2000.0),
+    ("h100", 3350.0),
+)
+
+# Published dense fp32 rate outside the tensor cores (H100 SXM data sheet).
+PEAK_FP32_GFLOPS = 67_000.0
+
+_TORCH_DTYPES = {
+    "float32": torch.float32,
+    "float64": torch.float64,
+    "bfloat16": torch.bfloat16,
+}
+
+_ITEMSIZE = {"float32": 4, "float64": 8, "bfloat16": 2}
+
+
+def dtype_name(dtype) -> str:
+    """Canonical name ("float32", "float64", "bfloat16") of a torch dtype,
+    a numpy dtype or a string."""
+    if isinstance(dtype, torch.dtype):
+        for name, dt in _TORCH_DTYPES.items():
+            if dt == dtype:
+                return name
+        raise ValueError(f"unsupported dtype {dtype}")
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    if name not in _TORCH_DTYPES:
+        raise ValueError(f"unsupported dtype {dtype!r}")
+    return name
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    return _TORCH_DTYPES[dtype_name(dtype)]
+
+
+def itemsize(dtype) -> int:
+    return _ITEMSIZE[dtype_name(dtype)]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card.  Raises when CUDA is asked for and absent:
+    an entry point never drops to the CPU unless the caller says so."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path")
+    return dev
+
+
+def peak_hbm_bandwidth(device=None) -> float:
+    """Published HBM GB/s of the card behind ``device`` (default cuda:0)."""
+    name = torch.cuda.get_device_name(resolve_device(device)).lower()
+    for key, gbps in PEAK_HBM_GBPS:
+        if key in name:
+            return gbps
+    raise ValueError(f"no published HBM bandwidth for {name!r}")
+
+
+def nvidia_smi_name_power() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` for the first card, as
+    the tool prints it (e.g. "NVIDIA H100 80GB HBM3, 700.00 W")."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def device_info(device=None) -> dict:
+    """Card name, count, published peak and nvidia-smi's name and power
+    limit for ``device`` (default cuda:0)."""
+    dev = resolve_device(device)
+    return {
+        "device_kind": torch.cuda.get_device_name(dev),
+        "num_devices": torch.cuda.device_count(),
+        "peak_hbm_gbps": peak_hbm_bandwidth(dev),
+        "nvidia_smi": nvidia_smi_name_power(),
+    }

@@ -1,0 +1,171 @@
+"""The merge-path CUDA kernels against their plain PyTorch versions, on the
+card.  Every test needs an NVIDIA GPU with nvcc and skips without one;
+run them there with
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(--noconftest: tests/conftest.py configures JAX, which the card's machine
+need not have; this file imports only the port).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from merge_spmv_tpu_torch.formats.coo import CooMatrix
+from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+from merge_spmv_tpu_torch.ops import csrmv_cuda as K
+from merge_spmv_tpu_torch.ops.csrmv import csrmv
+from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
+from merge_spmv_tpu_torch.ops.operator import build_operator
+from merge_spmv_tpu_torch.ops.plan import make_plan
+from merge_spmv_tpu_torch.utils.compare import compare_results
+
+pytestmark = pytest.mark.cuda
+
+CASES = {
+    "grid2d_small": lambda: CooMatrix.grid2d(6),
+    "grid2d": lambda: CooMatrix.grid2d(20),
+    "wheel_single_tile": lambda: CooMatrix.wheel(100),
+    "wheel_hub_spans_tiles": lambda: CooMatrix.wheel(3000),
+    "empty_rows": lambda: CooMatrix(900, 64, rows=[5, 5, 850],
+                                    cols=[0, 63, 3], vals=[1., 2., 3.]),
+    "leading_trailing_empty": lambda: CooMatrix(2100, 32, rows=[1050],
+                                                cols=[7], vals=[2.0]),
+    "duplicates": lambda: CooMatrix(4, 4, rows=[1, 1, 1], cols=[2, 2, 2],
+                                    vals=[1., 2., 3.]),
+    "powerlaw": lambda: CooMatrix.random_powerlaw(800, 700, 6000, seed=3),
+    "dense_rows": lambda: CooMatrix.dense(50, 60),
+    "multi_chunk_cols": lambda: CooMatrix.random_uniform(300, 6000, 8,
+                                                         seed=9),
+    "tile_boundary": lambda: CooMatrix.random_uniform(600, 128, 8, seed=1),
+    "nnz0": lambda: CooMatrix(700, 9, rows=[], cols=[], vals=[]),
+    "one_col": lambda: CooMatrix(6, 1, rows=[0, 2, 2, 5], cols=[0, 0, 0, 0],
+                                 vals=[1., 2., 3., 4.]),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (and nvcc to build the kernels)")
+    return torch.device("cuda")
+
+
+def _setup(name, dev, tile_items, dtype=torch.float32, signed=False,
+           seed=0):
+    csr = CsrMatrix.from_coo(CASES[name]())
+    rs = np.random.RandomState(seed)
+    lo = -1.0 if signed else 0.1
+    csr.values = rs.uniform(lo, 1, csr.num_nonzeros)
+    x = rs.uniform(lo, 1, csr.num_cols)
+    y_in = rs.uniform(lo, 1, csr.num_rows)
+    v, re_, ci = csr.to_device(dtype=dtype, device=dev)
+    tr, tn = merge_tile_coordinates(re_, csr.num_nonzeros, tile_items)
+    as_t = lambda a: torch.from_numpy(a).to(dev, dtype)  # noqa: E731
+    return csr, (v, ci, re_), as_t(x), as_t(y_in), (tr, tn), x, y_in
+
+
+@pytest.mark.parametrize("tile_items", [256, 1024, 2304])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_vs_plain_and_gold(card, name, tile_items):
+    csr, arrs, x, y_in, tiles, xh, yh = _setup(name, card, tile_items,
+                                               signed=True)
+    args = (*arrs, x, *tiles, tile_items, y_in, 2.5, -0.75)
+    got = K.merge_csrmv(*args)
+    plain = K.merge_csrmv_plain(*args)
+    torch.cuda.synchronize()
+    gold = csr.astype(np.float32).spmv_gold(xh.astype(np.float32),
+                                            yh.astype(np.float32), 2.5, -0.75)
+    bound = csr.spmv_abs_bound(xh, yh, 2.5, -0.75)
+    for other in (plain.cpu().numpy(), gold):
+        assert compare_results(got.cpu().numpy(), other, verbose=False,
+                               abs_bound=bound) is None
+
+
+@pytest.mark.parametrize("name", ["wheel_hub_spans_tiles", "powerlaw",
+                                  "leading_trailing_empty"])
+def test_tile_kernel_carries_match_plain(card, name):
+    _, arrs, x, _, tiles, _, _ = _setup(name, card, 256)
+    yk, rk, vk = K.merge_tile(*arrs, x, *tiles, 256)
+    yp, rp, vp = K.merge_tile_plain(*arrs, x, *tiles, 256)
+    assert torch.equal(rk, rp)
+    torch.testing.assert_close(vk, vp, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(yk, yp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["wheel_hub_spans_tiles", "powerlaw"])
+def test_float64_kernel(card, name):
+    csr, arrs, x, _, tiles, xh, _ = _setup(name, card, 1024,
+                                           dtype=torch.float64, seed=7)
+    y = K.merge_csrmv(*arrs, x, *tiles, 1024)
+    assert y.dtype == torch.float64
+    np.testing.assert_allclose(y.cpu().numpy(), csr.spmv_gold(xh),
+                               rtol=1e-12, atol=0)
+
+
+def test_repeat_calls_bitwise_equal(card):
+    _, arrs, x, _, tiles, _, _ = _setup("wheel_hub_spans_tiles", card, 256,
+                                        signed=True)
+    a = K.merge_csrmv(*arrs, x, *tiles, 256)
+    b = K.merge_csrmv(*arrs, x, *tiles, 256)
+    assert torch.equal(a, b)
+
+
+def test_operator_counts_launches(card):
+    csr = CsrMatrix.from_coo(CooMatrix.grid2d(40)).astype(np.float32)
+    op = build_operator(csr)
+    K.reset_launches()
+    y = op(torch.ones(csr.num_cols, device=card))
+    Y = op.mm(torch.ones(csr.num_cols, 3, device=card))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"merge_tile": 4, "carry_fixup": 4}
+    gold = csr.spmv_gold(np.ones(csr.num_cols, np.float32))
+    np.testing.assert_array_equal(y.cpu().numpy(), gold)
+    np.testing.assert_array_equal(Y[:, 2].cpu().numpy(), gold)
+
+
+def test_operator_bfloat16(card):
+    csr = CsrMatrix.from_coo(CooMatrix.grid2d(30))
+    op = build_operator(csr, dtype="bfloat16")
+    y = op(torch.ones(csr.num_cols, dtype=torch.bfloat16, device=card))
+    assert y.dtype == torch.bfloat16
+    gold = csr.astype(np.float32).spmv_gold(np.ones(csr.num_cols,
+                                                    np.float32))
+    assert np.max(np.abs(y.float().cpu().numpy() - gold)) == 0.0
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(card):
+    _, (v, ci, re_), x, _, (tr, tn), _, _ = _setup("powerlaw", card, 1024)
+    with pytest.raises(TypeError):
+        K.merge_tile(v, ci.long(), re_, x, tr, tn, 1024)
+    with pytest.raises(TypeError):
+        K.merge_tile(v.to(torch.bfloat16), ci, re_, x.to(torch.bfloat16),
+                     tr, tn, 1024)
+    with pytest.raises(ValueError):
+        K.merge_tile(v, ci, re_, x, tr, tn, 1000)
+    with pytest.raises(ValueError):
+        K.merge_tile(v, ci, re_, torch.stack([x, x], 1)[:, 0], tr, tn, 1024)
+    with pytest.raises(ValueError):
+        K.merge_tile(v, ci, re_, x.cpu(), tr, tn, 1024)
+
+
+def test_plain_route_and_short_operands_refused_on_the_card(card):
+    csr = CsrMatrix.from_coo(CooMatrix.grid2d(20)).astype(np.float32)
+    v, re_, ci = csr.to_device(dtype=torch.float32, device=card)
+    x = torch.ones(csr.num_cols, device=card)
+    with pytest.raises(ValueError, match="does not run"):
+        make_plan(csr.num_rows, csr.num_cols, csr.num_nonzeros,
+                  backend="torch", device=card)
+    plan = make_plan(csr.num_rows, csr.num_cols, csr.num_nonzeros,
+                     device="cpu")
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        csrmv(plan, v, re_, ci, x)
+    op = build_operator(csr)
+    K.reset_launches()
+    with pytest.raises(ValueError, match="x must have shape"):
+        op(x[:-1])
+    tr, tn = merge_tile_coordinates(re_, csr.num_nonzeros, 256)
+    with pytest.raises(ValueError, match="another tile size"):
+        K.merge_tile(v, ci, re_, x, tr, tn, 1024)
+    assert K.LAUNCHES == {"merge_tile": 0, "carry_fixup": 0}
