@@ -8,7 +8,10 @@ The port of merge_spmv_tpu (JAX / Pallas on a TPU), module for module:
 * ops/ — the merge-path search, the plan, the segment-sum oracle
   (csrmv_torch), the CUDA merge kernels and their plain versions
   (csrmv_cuda, csrc/merge_csrmv.cu), the public csrmv/csrmm API and the
-  SpmvOperator,
+  SpmvOperator; the DIA split operator (dia) with its CUDA kernel
+  (dia_cuda, csrc/dia_matvec.cu),
+* bench/ and cli.py — the verify-then-time benchmark driver and its CLI,
+* tools/ — the op-class throughput probe (sm_ceiling, csrc/sm_ceiling.cu),
 * utils/ — the ULP comparator, host RNG helpers, device table, kernel
   build and timers on the card.
 
@@ -23,6 +26,7 @@ from merge_spmv_tpu_torch.formats.stats import GraphStats
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.ops.csrmv import csrmv, csrmm
 from merge_spmv_tpu_torch.ops.operator import SpmvOperator, build_operator
+from merge_spmv_tpu_torch.ops.dia import DiaSpmvOperator, build_dia_operator
 from merge_spmv_tpu_torch.ops.merge_path import (merge_path_search,
                                                  merge_tile_coordinates)
 
@@ -35,6 +39,8 @@ __all__ = [
     "SpmvPlan",
     "SpmvOperator",
     "build_operator",
+    "DiaSpmvOperator",
+    "build_dia_operator",
     "make_plan",
     "csrmv",
     "csrmm",

@@ -9,6 +9,10 @@
 * csrmv.py — public API dispatch (reference: DeviceSpmv::CsrMV,
   cub/device/device_spmv.cuh:129-164).
 * operator.py — SpmvOperator: device-resident matrix + plan + tiles.
+* split.py — host helpers of the format splits (row ids, CSR subsets).
+* dia_cuda.py — the DIA matvec CUDA kernel (csrc/dia_matvec.cu) and its
+  plain PyTorch version.
+* dia.py — DiaSpmvOperator: dense diagonals + leftover merge operator.
 """
 
 from merge_spmv_tpu_torch.ops.merge_path import (merge_path_search,
@@ -16,7 +20,9 @@ from merge_spmv_tpu_torch.ops.merge_path import (merge_path_search,
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.ops.csrmv import csrmv, csrmm
 from merge_spmv_tpu_torch.ops.operator import SpmvOperator, build_operator
+from merge_spmv_tpu_torch.ops.dia import DiaSpmvOperator, build_dia_operator
 
 __all__ = ["merge_path_search", "merge_tile_coordinates",
            "SpmvPlan", "make_plan", "csrmv", "csrmm",
-           "SpmvOperator", "build_operator"]
+           "SpmvOperator", "build_operator", "DiaSpmvOperator",
+           "build_dia_operator"]

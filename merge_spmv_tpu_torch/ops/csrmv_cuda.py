@@ -35,7 +35,10 @@ from merge_spmv_tpu_torch.ops.csrmv_torch import row_ids_from_offsets
 from merge_spmv_tpu_torch.ops.merge_path import num_merge_tiles
 from merge_spmv_tpu_torch.ops.plan import (ITEMS_PER_THREAD, MAX_TILE_ITEMS,
                                            MIN_TILE_ITEMS)
-from merge_spmv_tpu_torch.utils.cuda_build import load_library
+from merge_spmv_tpu_torch.utils.cuda_build import (check_operand as _check,
+                                                   load_library,
+                                                   on_cpu as _is_cpu,
+                                                   raise_on_launch)
 
 __all__ = ["merge_tile", "carry_fixup", "merge_csrmv", "merge_tile_plain",
            "carry_fixup_plain", "merge_csrmv_plain", "LAUNCHES",
@@ -66,36 +69,8 @@ def _lib():
             f = getattr(lib, f"carry_fixup_{sfx}")
             f.argtypes = [_P, _P, _I, _I, _D, _P, _P]
             f.restype = _I
-        lib.merge_csrmv_error_string.argtypes = [_I]
-        lib.merge_csrmv_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
-
-
-def _raise_on(lib, rc: int, what: str):
-    if rc != 0:
-        msg = lib.merge_csrmv_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc}: {msg}")
-
-
-def _is_cpu(*tensors) -> bool:
-    devices = {t.device for t in tensors if t is not None}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cpu"
-
-
-def _check(name, t, dtype, shape=None):
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
 
 
 def _check_tile_items(tile_items: int):
@@ -215,7 +190,7 @@ def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
             float(beta), y.data_ptr(), carry_row.data_ptr(),
             carry_val.data_ptr(), num_tiles, tile_items // ITEMS_PER_THREAD,
             stream)
-    _raise_on(lib, rc, "merge_tile")
+    raise_on_launch(KERNEL_SOURCE, rc, "merge_tile")
     LAUNCHES["merge_tile"] += 1
     return y, carry_row, carry_val
 
@@ -240,7 +215,7 @@ def carry_fixup(y, carry_row, carry_val, alpha=1.0):
         rc = getattr(lib, f"carry_fixup_{_SUFFIX[dtype]}")(
             carry_row.data_ptr(), carry_val.data_ptr(), num_tiles,
             y.shape[0], float(alpha), y.data_ptr(), stream)
-    _raise_on(lib, rc, "carry_fixup")
+    raise_on_launch(KERNEL_SOURCE, rc, "carry_fixup")
     LAUNCHES["carry_fixup"] += 1
     return y
 

@@ -26,11 +26,19 @@ import torch
 from merge_spmv_tpu_torch.ops.csrmv import (_csrmv_merge,
                                             check_matrix_operands,
                                             compute_dtype)
+from merge_spmv_tpu_torch.ops.csrmv_torch import row_ids_from_offsets
 from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.utils.device import resolve_device, torch_dtype
 
-__all__ = ["SpmvOperator", "build_operator"]
+__all__ = ["SpmvOperator", "build_operator", "row_abs_sums"]
+
+
+def row_abs_sums(values, row_end_offsets, num_rows: int):
+    """Per-row sum of |values| in float64, on the values' device."""
+    rows = row_ids_from_offsets(row_end_offsets, values.shape[0])
+    sums = torch.zeros(num_rows, dtype=torch.float64, device=values.device)
+    return sums.index_add_(0, rows, values.abs().double())
 
 
 class SpmvOperator:
@@ -39,7 +47,9 @@ class SpmvOperator:
     ``values`` are held in the compute dtype (float32 for a bfloat16 plan,
     after rounding to bfloat16, as the JAX operator upcasts its bf16
     values); ``tile_rows``/``tile_nnz`` are the merge-tile coordinates,
-    searched once.
+    searched once.  ``abs_row_sum_max`` is ``max_r sum_j |A[r, j]|`` over
+    the stored values, computed once at build: the timers scale a chain of
+    calls by its inverse.
     """
 
     def __init__(self, plan: SpmvPlan, values, row_end_offsets, col_indices,
@@ -53,6 +63,7 @@ class SpmvOperator:
         self.ignored = dict(ignored or {})
         self.device = values.device
         self.setup_s: dict = {}
+        self.abs_row_sum_max = 0.0
 
     def _vec(self, v):
         return None if v is None else torch.as_tensor(v, device=self.device)
@@ -114,15 +125,16 @@ def build_operator(csr, dtype="float32", backend: str = "auto",
     values = values.to(compute_dtype(plan.dtype))
     tile_rows, tile_nnz = merge_tile_coordinates(rowends, csr.num_nonzeros,
                                                  plan.tile_items)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    sums = row_abs_sums(values, rowends, csr.num_rows)
+    abs_max = float(sums.max()) if sums.numel() else 0.0   # waits for the copy
     t2 = time.perf_counter()
     ignored = {"autotune": autotune, "runtime_skip": runtime_skip,
                "gather_group": gather_group, "gather_cluster": gather_cluster}
     op = SpmvOperator(plan, values, rowends, cols, tile_rows, tile_nnz,
                       ignored=ignored)
+    op.abs_row_sum_max = abs_max
     # setup-cost attribution (gpu_spmv.cu:114-134 reports conversion setup
     # apart from run time): plan = policy; prepare = copy to the device +
-    # the tile search
+    # the tile search + the row norm
     op.setup_s = {"plan": round(t1 - t0, 3), "prepare": round(t2 - t1, 3)}
     return op

@@ -1,10 +1,12 @@
-"""Build the package's CUDA sources into plain-C shared libraries.
+"""Build the package's CUDA sources into plain-C shared libraries, and the
+operand checks every kernel wrapper shares.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/lib<name>-<hash>.so`` at first use, where ``<hash>`` is taken from
 the source text, so an edited source never loads a stale library.  The
 libraries expose ``extern "C"`` entry points and are loaded with ctypes;
-no PyTorch header is compiled, which keeps a build to seconds.
+no PyTorch header is compiled, which keeps a build to seconds.  Every
+library exports ``<name>_error_string(code)`` for its launch codes.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_library",
-           "load_library"]
+           "load_library", "on_cpu", "check_operand", "raise_on_launch"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -67,5 +69,40 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is None:
         build_library(name)
         lib = ctypes.CDLL(str(_library_path(name)))
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
         _LOADED[name] = lib
     return lib
+
+
+def raise_on_launch(name: str, rc: int, what: str):
+    """Raise if a launch of library ``name`` returned a CUDA error code."""
+    if rc != 0:
+        msg = getattr(load_library(name), f"{name}_error_string")(rc)
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}: "
+                           f"{msg.decode()}")
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every given tensor lies on the CPU (the plain versions'
+    route), False when all lie on one CUDA device; raises otherwise."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cpu"
+
+
+def check_operand(name, t, dtype, shape=None):
+    """A kernel operand must have ``dtype``, be contiguous and, where
+    given, have ``shape``: checked on the host, without a sync."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")

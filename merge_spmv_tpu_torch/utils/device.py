@@ -17,7 +17,7 @@ import torch
 
 __all__ = ["resolve_device", "torch_dtype", "dtype_name", "itemsize",
            "peak_hbm_bandwidth", "PEAK_HBM_GBPS", "PEAK_FP32_GFLOPS",
-           "nvidia_smi_name_power", "device_info"]
+           "nvidia_smi_name_power", "nvidia_smi_query", "device_info"]
 
 # Published peak HBM bandwidth, GB/s, matched as lower-case substrings of
 # the CUDA device name in this order ("NVIDIA H100 80GB HBM3" is the SXM
@@ -79,6 +79,16 @@ def peak_hbm_bandwidth(device=None) -> float:
         if key in name:
             return gbps
     raise ValueError(f"no published HBM bandwidth for {name!r}")
+
+
+def nvidia_smi_query(fields: str) -> str:
+    """``nvidia-smi --query-gpu=<fields> --format=csv,noheader,nounits``
+    for the first card, as the tool prints it."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
 
 
 def nvidia_smi_name_power() -> str:

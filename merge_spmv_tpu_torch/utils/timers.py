@@ -10,17 +10,56 @@ drops repeats that a neighbour on the host slowed down.
 its replay: the device's time for the calls, as ``ingraph_rate_ms`` runs
 its chain inside one compiled program.  ``graph=False`` launches the calls
 from Python: what an eager caller gets, which is the host's launch cost
-whenever that exceeds the device's time.  Every time here needs a CUDA
-device: there is no CPU fallback.
+whenever that exceeds the device's time.  Every device time here needs a
+CUDA device: there is no CPU fallback.  ``Timer`` is the host clock, for
+the host baselines and the plain versions.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
-from merge_spmv_tpu_torch.ops.csrmv_torch import row_ids_from_offsets
+__all__ = ["chained_rate_ms", "chain_alpha", "event_ms", "Timer",
+           "adaptive_timing_iterations"]
 
-__all__ = ["chained_rate_ms", "event_ms"]
+
+class Timer:
+    """Wall-clock timer with the CpuTimer Start/Stop/ElapsedMillis surface
+    (merge_spmv_tpu/utils/timers.py:18-40), for the host baselines and
+    the plain versions."""
+
+    def __init__(self):
+        self._start = None
+        self._elapsed = 0.0
+
+    def start(self):
+        self._start = time.perf_counter()
+        return self
+
+    def stop(self):
+        self._elapsed = time.perf_counter() - self._start
+        return self
+
+    def elapsed_millis(self) -> float:
+        return self._elapsed * 1e3
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+
+def adaptive_timing_iterations(num_nonzeros: int, max_iterations: int = 50000,
+                               min_iterations: int = 100,
+                               target_nnz: int = 16 << 30) -> int:
+    """Iteration count targeting `target_nnz` total nonzeros processed
+    (cpu_spmv.cpp:611-616 with the GPU driver's 50k cap)."""
+    if num_nonzeros <= 0:
+        return min_iterations
+    return int(min(max_iterations, max(min_iterations, target_nnz // num_nonzeros)))
 
 
 def _require_cuda(t):
@@ -29,12 +68,13 @@ def _require_cuda(t):
                            f"{t.device}")
 
 
-def _row_abs_sum_max(op) -> float:
-    rows = row_ids_from_offsets(op.row_end_offsets, op.plan.num_nonzeros)
-    sums = torch.zeros(op.plan.num_rows, dtype=torch.float64,
-                       device=op.device)
-    sums.index_add_(0, rows, op.values.abs().double())
-    return float(sums.max()) if sums.numel() else 0.0
+def chain_alpha(op) -> float:
+    """``1 / max_r sum_j |A[r, j]|`` from the operator's
+    ``abs_row_sum_max`` (taken once at build), or 1 for a zero matrix:
+    the alpha under which a chain of calls neither overflows nor
+    underflows."""
+    norm = op.abs_row_sum_max
+    return 1.0 / norm if norm > 0 else 1.0
 
 
 def _timed(run) -> float:
@@ -59,25 +99,28 @@ def _runner(body, graph: bool):
 
 
 def chained_rate_ms(op, x0, n: int = 64, reps: int = 5,
-                    graph: bool = True) -> float:
-    """Milliseconds per ``op(x)`` call on the card.
+                    graph: bool = True, y_in=None,
+                    beta: float = 0.0) -> float:
+    """Milliseconds per ``op(x, y_in, alpha, beta)`` call on the card.
 
+    ``op`` is any operator whose ``plan`` has ``num_rows``/``num_cols``
+    and which has ``abs_row_sum_max``; ``op(x)`` must not synchronise.
     For a square matrix call k+1 takes call k's output as its x, with
-    ``alpha = 1 / max_r sum_j |A[r, j]|`` so the chain neither overflows
-    nor underflows within ``n`` calls; alpha costs nothing in the kernel's
-    epilogue.  A non-square matrix repeats ``op(x0)``: the stream runs the
-    calls in order either way.
+    ``alpha = chain_alpha(op)``, so the chain neither overflows nor
+    underflows within ``n`` calls; alpha costs nothing in the kernels'
+    epilogue.  ``y_in``/``beta`` make every timed call carry the full
+    epilogue.  A non-square matrix repeats ``op(x0)``: the stream runs
+    the calls in order either way.
     """
     _require_cuda(x0)
     square = op.plan.num_rows == op.plan.num_cols
-    norm = _row_abs_sum_max(op) if square else 0.0
-    alpha = 1.0 / norm if norm > 0 else 1.0
+    alpha = chain_alpha(op) if square else 1.0
 
     def chain(k):
         def body():
             x = x0
             for _ in range(k):
-                y = op(x, alpha=alpha)
+                y = op(x, y_in=y_in, alpha=alpha, beta=beta)
                 x = y if square else x
         return body
 

@@ -478,11 +478,18 @@ def test_twofloat_scan_is_exclusive_and_compensated():
 
 def test_package_imports_no_jax():
     """The port imports neither jax nor merge_spmv_tpu (a fresh
-    interpreter, so this file's own imports do not count)."""
+    interpreter, so this file's own imports do not count), and importing
+    every module of it compiles nothing."""
     code = ("import sys, merge_spmv_tpu_torch, merge_spmv_tpu_torch.ops, "
             "merge_spmv_tpu_torch.ops.csrmv_cuda, "
+            "merge_spmv_tpu_torch.ops.dia, merge_spmv_tpu_torch.ops.dia_cuda, "
+            "merge_spmv_tpu_torch.ops.split, "
+            "merge_spmv_tpu_torch.bench.driver, merge_spmv_tpu_torch.cli, "
+            "merge_spmv_tpu_torch.tools.sm_ceiling, "
             "merge_spmv_tpu_torch.utils.timers, "
             "merge_spmv_tpu_torch.utils.cuda_build; "
+            "from merge_spmv_tpu_torch.utils.cuda_build import _LOADED; "
+            "assert not _LOADED, _LOADED; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'merge_spmv_tpu' "
             "or m.startswith('merge_spmv_tpu.')]; "

@@ -1,5 +1,5 @@
-"""The merge-path CUDA kernels against their plain PyTorch versions, on the
-card.  Every test needs an NVIDIA GPU with nvcc and skips without one;
+"""The CUDA kernels (merge path, DIA, the op-class probe) against their
+plain PyTorch versions, on the card.  Every test needs an NVIDIA GPU with nvcc and skips without one;
 run them there with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -15,10 +15,13 @@ import torch
 from merge_spmv_tpu_torch.formats.coo import CooMatrix
 from merge_spmv_tpu_torch.formats.csr import CsrMatrix
 from merge_spmv_tpu_torch.ops import csrmv_cuda as K
+from merge_spmv_tpu_torch.ops import dia_cuda as D
 from merge_spmv_tpu_torch.ops.csrmv import csrmv
+from merge_spmv_tpu_torch.ops.dia import build_dia_operator
 from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
 from merge_spmv_tpu_torch.ops.operator import build_operator
 from merge_spmv_tpu_torch.ops.plan import make_plan
+from merge_spmv_tpu_torch.tools import sm_ceiling as P
 from merge_spmv_tpu_torch.utils.compare import compare_results
 
 pytestmark = pytest.mark.cuda
@@ -169,3 +172,132 @@ def test_plain_route_and_short_operands_refused_on_the_card(card):
     with pytest.raises(ValueError, match="another tile size"):
         K.merge_tile(v, ci, re_, x, tr, tn, 1024)
     assert K.LAUNCHES == {"merge_tile": 0, "carry_fixup": 0}
+
+
+# ---------------------------------------------------------------------- #
+# K3: the DIA kernel (csrc/dia_matvec.cu)
+# ---------------------------------------------------------------------- #
+
+def _dia_case(name):
+    rs = np.random.RandomState(5)
+    if name == "grid3d":
+        coo = CooMatrix.grid3d(14)
+    elif name == "rectangular":
+        m, n = 300, 400
+        coo = CooMatrix(m, n, np.r_[np.arange(m), np.arange(m)],
+                        np.r_[np.arange(m), np.arange(m) + 50],
+                        np.ones(2 * m))
+    elif name == "wide_band":
+        # 40 diagonals, more than the TPU kernel's 16
+        n, offs = 3000, np.arange(-20, 20)
+        r = np.repeat(np.arange(n), offs.size)
+        c = r + np.tile(offs, n)
+        keep = (c >= 0) & (c < n)
+        coo = CooMatrix(n, n, r[keep], c[keep], np.ones(int(keep.sum())))
+    else:   # mixed: a stencil plus scattered entries
+        base = CooMatrix.grid2d(40)
+        coo = CooMatrix(1600, 1600,
+                        np.r_[base.rows, rs.randint(0, 1600, 300)],
+                        np.r_[base.cols, rs.randint(0, 1600, 300)],
+                        np.r_[base.vals, rs.uniform(-1, 1, 300)])
+    csr = CsrMatrix.from_coo(coo).astype(np.float32)
+    csr.values = rs.uniform(-1, 1, csr.num_nonzeros).astype(np.float32)
+    return csr, rs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["grid3d", "rectangular", "wide_band",
+                                  "mixed"])
+def test_dia_kernel_vs_plain_and_gold(card, name, dtype):
+    csr, rs = _dia_case(name)
+    if dtype == "float64":
+        csr = csr.astype(np.float64)
+    op = build_dia_operator(csr, dtype=dtype, max_diags=64)
+    x = rs.uniform(-1, 1, csr.num_cols).astype(csr.values.dtype)
+    y0 = rs.uniform(-1, 1, csr.num_rows).astype(csr.values.dtype)
+    xd = torch.from_numpy(x).to(card)
+    got = D.dia_matvec(op.vtab, xd, op.offsets_t, op.num_rows, op.num_cols,
+                       1.5)
+    plain = D.dia_matvec_plain(op.vtab, xd, op.offsets_t, op.num_rows,
+                               op.num_cols, 1.5)
+    torch.cuda.synchronize()
+    if dtype == "float64":
+        torch.testing.assert_close(got, plain, rtol=1e-12, atol=0)
+    else:
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6)
+    y = op(xd, y_in=torch.from_numpy(y0).to(card), alpha=2.0, beta=-0.5)
+    bound = csr.spmv_abs_bound(x, y0, 2.0, -0.5)
+    assert compare_results(y.cpu().numpy(),
+                           csr.spmv_gold(x, y0, 2.0, -0.5), verbose=False,
+                           abs_bound=bound) is None
+
+
+def test_dia_kernel_repeat_calls_bitwise_equal(card):
+    csr, rs = _dia_case("grid3d")
+    op = build_dia_operator(csr)
+    xd = torch.from_numpy(rs.uniform(-1, 1, csr.num_cols).astype(
+        np.float32)).to(card)
+    a = D.dia_matvec(op.vtab, xd, op.offsets_t, op.num_rows, op.num_cols)
+    b = D.dia_matvec(op.vtab, xd, op.offsets_t, op.num_rows, op.num_cols)
+    assert torch.equal(a, b)
+
+
+def test_dia_operator_counts_launches(card):
+    csr, rs = _dia_case("mixed")
+    op = build_dia_operator(csr)
+    D.reset_launches()
+    K.reset_launches()
+    op(torch.ones(csr.num_cols, device=card))
+    op.mm(torch.ones(csr.num_cols, 2, device=card))
+    torch.cuda.synchronize()
+    assert D.LAUNCHES == {"dia_matvec": 3}
+    assert K.LAUNCHES == {"merge_tile": 3, "carry_fixup": 3}
+
+
+def test_dia_operator_bfloat16(card):
+    csr = CsrMatrix.from_coo(CooMatrix.grid2d(30))
+    op = build_dia_operator(csr, dtype="bfloat16")
+    y = op(torch.ones(csr.num_cols, dtype=torch.bfloat16, device=card))
+    assert y.dtype == torch.bfloat16
+    gold = csr.astype(np.float32).spmv_gold(np.ones(csr.num_cols,
+                                                    np.float32))
+    assert np.max(np.abs(y.float().cpu().numpy() - gold)) == 0.0
+
+
+def test_dia_wrapper_rejects_what_the_kernel_does_not_take(card):
+    csr, _ = _dia_case("grid3d")
+    op = build_dia_operator(csr)
+    x = torch.ones(csr.num_cols, device=card)
+    args = (op.offsets_t, op.num_rows, op.num_cols)
+    D.reset_launches()
+    with pytest.raises(TypeError):
+        D.dia_matvec(op.vtab.double(), x, *args)
+    with pytest.raises(TypeError):
+        D.dia_matvec(op.vtab, x, op.offsets_t.int(), op.num_rows,
+                     op.num_cols)
+    with pytest.raises(ValueError):
+        D.dia_matvec(op.vtab, x[:-1], *args)
+    with pytest.raises(ValueError):
+        D.dia_matvec(op.vtab[:, ::2], x, *args)
+    with pytest.raises(ValueError):
+        D.dia_matvec(op.vtab, x.cpu(), *args)
+    assert D.LAUNCHES == {"dia_matvec": 0}
+
+
+# ---------------------------------------------------------------------- #
+# P1: the op-class probe (csrc/sm_ceiling.cu)
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("chains", [1, 8])
+@pytest.mark.parametrize("cls", P.CLASSES)
+def test_probe_kernel_vs_plain(card, cls, chains):
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        -1, 1, (8, 128)).astype(np.float32)).to(card)
+    got = P.probe(cls, x, 5, 8, chains, 64)    # checks the blocks agree
+    want = P.probe_plain(cls, x, 5, 8, chains, 64)
+    # fma: the kernel's FFMA rounds once where the plain version rounds
+    # twice; every other class takes the same float32 operations
+    if cls == "fma":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    else:
+        assert torch.equal(got, want)
