@@ -7,8 +7,10 @@ Phases, one line of output each (any failure exits non-zero and prints no
 "ok" line):
 
 1. build   — compile the package's CUDA sources with nvcc (sm_90a), one
-             nvcc per source, all started together; print the seconds and
-             the compiler's register report.
+             nvcc per source, all started together; print the seconds, the
+             compiler's register report, and the tile kernel's registers,
+             dynamic shared memory and resident blocks per SM at the
+             default tile size, in float32 and float64.
 2. cases   — the merge kernels against their plain PyTorch versions and the
              sequential gold SpMV on the corner cases of the JAX package's
              tests (tile-spanning hub row, empty rows, duplicates, a row
@@ -18,13 +20,18 @@ Phases, one line of output each (any failure exits non-zero and prints no
 4. main    — the user path at full size: grid3d(100) (1M rows, 5.94M
              nonzeros, float32) through build_operator / op(x) /
              op(x, y_in, alpha, beta) / op.mm(X), verified against gold,
-             with the launch counters read around exactly that run; then
-             op(x) timed (device time from CUDA-graph replay, and per eager
+             with the launch counters read around exactly that run, and
+             two op(x) calls bitwise equal; the tile kernel's launch (its
+             persistent blocks G, the tiles each runs, the stages and the
+             shared memory: G carry pairs reach the fix-up); then op(x)
+             timed (device time from CUDA-graph replay, and per eager
              call), each kernel timed beside its plain version, its bound
              and its PyTorch library counterpart (cuSPARSE for the tile
-             kernel, index_add_ for the fix-up).  Kernel and library times
-             are CUDA-graph replays; the plain versions synchronise inside,
-             so they are timed eagerly.
+             kernel, index_add_ for the fix-up), the tile kernel and
+             cuSPARSE also with a cold L2 (a 256 MB write before each
+             launch, its own time subtracted) and the tile kernel in
+             float64.  Kernel and library times are CUDA-graph replays; the
+             plain versions synchronise inside, so they are timed eagerly.
 5. dia cases — the DIA kernel (K3) against its plain version and gold on
              the JAX package's DIA test shapes (tests/test_dia.py): the
              grid3d/grid2d stencils, the rectangular case, duplicates, the
@@ -37,13 +44,13 @@ Phases, one line of output each (any failure exits non-zero and prints no
              the same matrix with 1% scattered extras, so the leftover runs
              the merge kernels at size and both counters move.  op(x) timed
              (CUDA graph and eager), the kernel beside its plain version,
-             its bound and cuSPARSE on the same matrix; the DIA and tile
-             kernels and cuSPARSE also with a cold L2 (a 256 MB write before
-             each launch, its own time subtracted).
+             its bound and cuSPARSE on the same matrix; the DIA kernel
+             also with a cold L2.
 7. skew    — the uniform / power-law pair at 2^19 rows and 4,194,304
              nonzeros sharing one column stream (bench.py:179-221):
              verified and timed; the per-nonzero ratio is the paper's claim
-             that the time does not depend on row-length skew.
+             that the time does not depend on row-length skew, and fails
+             the run below SKEW_RATIO_MIN.
 8. driver  — merge_spmv_tpu_torch.bench.driver.run_benchmark on grid2d(1000)
              with the scipy, xla (cuSPARSE), merge and dia backends; every
              backend must verify.
@@ -63,6 +70,8 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 TILE_ITEMS_CASES = 1024   # the JAX package's kernel tests use 1024-item tiles
+# uniform / power-law time per nonzero: below this, skew costs time
+SKEW_RATIO_MIN = 0.9
 
 
 def main() -> int:
@@ -82,6 +91,7 @@ def main() -> int:
     from merge_spmv_tpu_torch.ops.dia import build_dia_operator
     from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
     from merge_spmv_tpu_torch.ops.operator import build_operator
+    from merge_spmv_tpu_torch.ops.plan import DEFAULT_TILE_ITEMS
     from merge_spmv_tpu_torch.tools import sm_ceiling as P
     from merge_spmv_tpu_torch.utils.compare import compare_results
     from merge_spmv_tpu_torch.utils.cuda_build import build_library
@@ -103,8 +113,17 @@ def main() -> int:
     ptxas = [ln.strip() for log in logs[:2] for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     info = device_info()
+    tile_kernel = []
+    for dt in (torch.float32, torch.float64):
+        blocks, regs = K.kernel_occupancy(dt, DEFAULT_TILE_ITEMS, dev)
+        g = K.launch_geometry(1, DEFAULT_TILE_ITEMS, dt, dev)
+        tile_kernel.append(f"{str(dt)[6:]} {regs} registers, "
+                           f"{g.shared_bytes} B dynamic shared memory, "
+                           f"{blocks} blocks per SM")
     print(f"build: {len(sources)} sources in {build_s:.2f} s; "
-          f"{' | '.join(ptxas) or 'cached'}; sm_ceiling: "
+          f"{' | '.join(ptxas) or 'cached'}; merge_tile at "
+          f"{DEFAULT_TILE_ITEMS} items: {'; '.join(tile_kernel)}; "
+          f"sm_ceiling: "
           f"{sum('Compiling entry' in ln for ln in logs[2].splitlines())} "
           "instantiations")
     print(f"device: {info['device_kind']} x{info['num_devices']}; "
@@ -252,14 +271,26 @@ def main() -> int:
            if got.shape != (n,) or not bool(torch.isfinite(got).all())
            or compare_results(got.cpu().numpy(), gold, verbose=False,
                               abs_bound=bound) is not None]
+    xr = torch.from_numpy(np.random.RandomState(12).uniform(
+        -1, 1, n).astype(np.float32)).to(dev)
+    repeat_same = bool(torch.equal(op(xr), op(xr)))
+    plan = op.plan
+    geo = K.launch_geometry(plan.num_tiles, plan.tile_items, torch.float32,
+                            dev)
     print(f"main: grid3d(100) {n} rows {nnz} nnz float32, {op.describe()}, "
           f"host build {host_s:.1f} s, setup_s {op.setup_s}, launches "
           f"{launches}, verified {len(checks) - len(bad)}/{len(checks)}"
-          f"{' FAILED ' + str(bad) if bad else ''}")
-    if bad or min(launches.values()) < 1:
+          f"{' FAILED ' + str(bad) if bad else ''}; two op(x) calls bitwise "
+          f"equal: {repeat_same}")
+    print(f"main merge_tile launch: G = {geo.grid} persistent blocks of "
+          f"{geo.threads} threads ({geo.blocks_per_sm} per SM), "
+          f"{geo.run_tiles} tiles per run over {plan.num_tiles} tiles, "
+          f"{geo.stages} stages, {geo.shared_bytes} B shared memory "
+          f"(opt-in above 48 KB: {geo.opt_in}); carry_fixup takes "
+          f"{geo.grid} pairs")
+    if bad or min(launches.values()) < 1 or not repeat_same:
         return 1
 
-    plan = op.plan
     peak_gbps = info["peak_hbm_gbps"]
     xd = torch.from_numpy(x1).to(dev)
     op_ms = chained_rate_ms(op, xd)
@@ -277,12 +308,15 @@ def main() -> int:
     vals, cols, rowends = op.values, op.col_indices, op.row_end_offsets
     tr, tn, T = op.tile_rows, op.tile_nnz, plan.tile_items
     yk, crk, cvk = K.merge_tile(vals, cols, rowends, xd, tr, tn, T)
-    yp, crp, cvp = K.merge_tile_plain(vals, cols, rowends, xd, tr, tn, T)
+    run = geo.run_tiles
+    yp, crp, cvp = K.merge_tile_plain(vals, cols, rowends, xd, tr, tn, T,
+                                      run_tiles=run)
     absv = vals.abs()
-    ya, _, cva = K.merge_tile_plain(absv, cols, rowends, xd.abs(), tr, tn, T)
+    ya, _, cva = K.merge_tile_plain(absv, cols, rowends, xd.abs(), tr, tn, T,
+                                    run_tiles=run)
     tile_err = max(float((yk - yp).abs().max()),
                    float((cvk - cvp).abs().max()))
-    tile_ok = (torch.equal(crk, crp)
+    tile_ok = (crk.shape == (geo.grid,) and torch.equal(crk, crp)
                and compare_results(yk.cpu().numpy(), yp.cpu().numpy(),
                                    verbose=False,
                                    abs_bound=ya.cpu().numpy()) is None
@@ -304,7 +338,8 @@ def main() -> int:
                                             T))
     # the plain versions synchronise (data-dependent sizes): timed eagerly
     tile_plain_ms = event_ms(lambda: K.merge_tile_plain(
-        vals, cols, rowends, xd, tr, tn, T), iters=5, graph=False)
+        vals, cols, rowends, xd, tr, tn, T, run_tiles=run), iters=5,
+        graph=False)
     # int32 offsets and columns, the index width the tile kernel streams
     csr_t = torch.sparse_csr_tensor(
         torch.from_numpy(csr.row_offsets.astype(np.int32)).to(dev),
@@ -319,24 +354,56 @@ def main() -> int:
     ypad = torch.zeros(n + 1, dtype=ycopy.dtype, device=dev)
     index_add_ms = event_ms(lambda: ypad.index_add_(0, crk.long(), cvk,
                                                     alpha=1.0))
+    # back-to-back launches find part of the streams in the 50 MB L2; a
+    # 256 MB write before each launch evicts it (cold = both - the write)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    flush_ms = event_ms(lambda: flush.fill_(1.0), iters=20)
+    tile_cold_ms = event_ms(lambda: (flush.fill_(1.0), K.merge_tile(
+        vals, cols, rowends, xd, tr, tn, T)), iters=20) - flush_ms
+    cusparse_cold_ms = event_ms(lambda: (flush.fill_(1.0), torch.mv(
+        csr_t, xd)), iters=20) - flush_ms
+    vals64, xd64 = vals.double(), xd.double()
+    geo64 = K.launch_geometry(plan.num_tiles, T, torch.float64, dev)
+    y64 = K.carry_fixup(*K.merge_tile(vals64, cols, rowends, xd64, tr, tn,
+                                      T))
+    ok64 = np.allclose(y64.cpu().numpy(),
+                       csr.astype(np.float64).spmv_gold(np.ones(n)),
+                       rtol=1e-12, atol=0.0)
+    tile64_ms = event_ms(lambda: K.merge_tile(vals64, cols, rowends, xd64,
+                                              tr, tn, T))
+    del vals64, xd64, y64
 
     # bound: each input read once, each output written once, at the
     # published HBM rate; operations at the published fp32 rate
     vs = 4
-    tiles = plan.num_tiles
-    tile_bytes = (nnz * (vs + 4) + n * 4 + csr.num_cols * vs
-                  + 2 * (tiles + 1) * 4 + n * vs + tiles * (4 + vs))
+    pairs = geo.grid
+    coord_bytes = 2 * (plan.num_tiles + 1) * 4
+    tile_bytes = (nnz * (vs + 4) + n * 4 + csr.num_cols * vs + coord_bytes
+                  + n * vs + pairs * (4 + vs))
     tile_bound = max(tile_bytes / peak_gbps / 1e6,
                      2 * nnz / PEAK_FP32_GFLOPS / 1e6)
+    tile64_bytes = (nnz * (8 + 4) + n * 4 + csr.num_cols * 8 + coord_bytes
+                    + n * 8 + geo64.grid * (4 + 8))
     fix_rows = int(torch.unique(crk[crk < n]).numel())
-    fix_bytes = tiles * (4 + vs) + 2 * fix_rows * vs
+    fix_bytes = pairs * (4 + vs) + 2 * fix_rows * vs
     fix_bound = max(fix_bytes / peak_gbps / 1e6,
-                    (tiles + fix_rows) / PEAK_FP32_GFLOPS / 1e6)
-    print(f"kernel timing: merge_tile {tile_ms:.4f} ms (plain "
-          f"{tile_plain_ms:.4f}, cuSPARSE {cusparse_ms:.4f}, bound "
-          f"{tile_bound:.4f} for {tile_bytes} B); carry_fixup {fix_ms:.4f} ms "
-          f"(plain {fix_plain_ms:.4f}, index_add_ {index_add_ms:.4f}, bound "
+                    (pairs + fix_rows) / PEAK_FP32_GFLOPS / 1e6)
+    print(f"kernel timing: merge_tile {tile_ms:.4f} ms warm, "
+          f"{tile_cold_ms:.4f} ms cold L2 ({flush_ms:.4f} ms write "
+          f"subtracted); cuSPARSE {cusparse_ms:.4f} warm, "
+          f"{cusparse_cold_ms:.4f} cold; merge_tile / cuSPARSE "
+          f"{tile_ms / cusparse_ms:.3f} warm, "
+          f"{tile_cold_ms / cusparse_cold_ms:.3f} cold; plain "
+          f"{tile_plain_ms:.4f}; bound {tile_bound:.4f} for {tile_bytes} B "
+          f"({100 * tile_bound / tile_ms:.1f}% of it warm, "
+          f"{100 * tile_bound / tile_cold_ms:.1f}% cold); float64 "
+          f"{tile64_ms:.4f} ms (G = {geo64.grid}, bound "
+          f"{tile64_bytes / peak_gbps / 1e6:.4f}, verified {ok64}); "
+          f"carry_fixup {fix_ms:.4f} ms on {pairs} pairs (plain "
+          f"{fix_plain_ms:.4f}, index_add_ {index_add_ms:.4f}, bound "
           f"{fix_bound:.6f} for {fix_bytes} B)")
+    if not ok64:
+        return 1
 
     # ------------------------------------------------------------ 5 dia cases
     def dia_coo(name, gen):
@@ -501,16 +568,9 @@ def main() -> int:
     dia_plain_ms = event_ms(lambda: DK.dia_matvec_plain(vt, xd, offs_t, n, n),
                             iters=5, graph=False)
     dia_cusparse_ms = event_ms(lambda: torch.mv(csr_t, xd))
-    # back-to-back launches find the DIA kernel's 32 MB in the 50 MB L2; a
-    # 256 MB write before each launch evicts it (cold = both - the write)
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    flush_ms = event_ms(lambda: flush.fill_(1.0), iters=20)
+    # the DIA kernel's 32 MB fits the 50 MB L2: cold = after a 256 MB write
     dia_cold_ms = event_ms(lambda: (flush.fill_(1.0), DK.dia_matvec(
         vt, xd, offs_t, n, n)), iters=20) - flush_ms
-    tile_cold_ms = event_ms(lambda: (flush.fill_(1.0), K.merge_tile(
-        vals, cols, rowends, xd, tr, tn, T)), iters=20) - flush_ms
-    cusparse_cold_ms = event_ms(lambda: (flush.fill_(1.0), torch.mv(
-        csr_t, xd)), iters=20) - flush_ms
     del flush
     dia_bytes = op_dia.plan.table_bytes_accessed()
     dia_bound = max(dia_bytes / peak_gbps / 1e6,
@@ -524,8 +584,9 @@ def main() -> int:
           f"kernel vs plain max|err| {dia_err:.3e} ok={dia_ok}")
     print(f"cold L2 (256 MB written before each launch, {flush_ms:.4f} ms "
           f"subtracted): dia_matvec {dia_cold_ms:.4f} ms "
-          f"({100 * dia_bound / dia_cold_ms:.1f}% of its bound), merge_tile "
-          f"{tile_cold_ms:.4f} ms, cuSPARSE {cusparse_cold_ms:.4f} ms")
+          f"({100 * dia_bound / dia_cold_ms:.1f}% of its bound); merge_tile "
+          f"{tile_cold_ms:.4f} ms and cuSPARSE {cusparse_cold_ms:.4f} ms "
+          "(main phase)")
     if not dia_ok:
         return 1
     del op_dia, op_mix, csr_mix, rows_all, cols_all, vals_all
@@ -563,8 +624,8 @@ def main() -> int:
     print(f"skew: {nk} rows {nnz_k} nnz, uniform {ms_u:.4f} ms (max row "
           f"{max_u}, verified {ok_u}), powerlaw {ms_p:.4f} ms (max row "
           f"{max_p}, verified {ok_p}), per-nnz ratio uniform/powerlaw "
-          f"{ms_u / ms_p:.3f}")
-    if not (ok_u and ok_p):
+          f"{ms_u / ms_p:.3f} (at least {SKEW_RATIO_MIN})")
+    if not (ok_u and ok_p) or ms_u / ms_p < SKEW_RATIO_MIN:
         return 1
 
     # ------------------------------------------------------------ 8 driver

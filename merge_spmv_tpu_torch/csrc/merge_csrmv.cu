@@ -2,199 +2,497 @@
 //
 // Replaces merge_spmv_tpu/ops/csrmv_pallas.py::_spmv_kernel.  That kernel
 // walks the merge tiles in order on one TensorCore and carries the partial
-// sum of a row that spans tiles in SMEM.  Here the tiles run in parallel on
-// all SMs in no order, so the work goes back to the reference's own
-// pipeline (CUB's DeviceSpmvKernel + DeviceSegmentFixupKernel):
+// sum of a row that spans tiles in SMEM (csrmv_pallas.py:919-929).  Here the
+// work goes back to the reference's pipeline (CUB's DeviceSpmvKernel +
+// DeviceSegmentFixupKernel), run by persistent blocks:
 //
-//   merge_tile_kernel   one thread block per merge tile of
-//                       blockDim.x * ITEMS merge items.  Each thread finds its
-//                       own diagonal by a merge-path search over the tile's
-//                       row ends (staged in shared memory), consumes ITEMS
-//                       merge items in sequence, and a block-wide segmented
-//                       scan joins the threads' partial sums.  Every row that
-//                       ends in the tile is written once,
-//                       y[r] = alpha * sum + beta * y_in[r]; the row still
-//                       open at the tile's end leaves one carry pair
-//                       (row, partial), whose partial is exactly 0 when the
-//                       tile ends on a row end.
+//   merge_tile_kernel   block b owns the contiguous run of merge tiles
+//                       [b * run_tiles, (b + 1) * run_tiles), each of
+//                       blockDim.x * kItems merge items (rows + nonzeros,
+//                       equal work by construction), and walks it in order as
+//                       the TPU kernel walks its grid: the partial of the row
+//                       open at a tile's end carries into the next tile in
+//                       registers, and only the run's last tile leaves a
+//                       carry pair (row, partial), whose partial is exactly 0
+//                       when the run ends on a row end.  A tile passes through
+//                       four steps, pipelined so that each overlaps the
+//                       tile before:
+//                       1. stage: three warps copy the tile's values, column
+//                          indices and row ends into a shared-memory stage
+//                          with cp.async.bulk (whole 16-byte units) and
+//                          cp.async (the elements at the edges), completing on
+//                          an mbarrier, two tiles ahead of its reduce;
+//                       2. gather: x[cols[j]] for thread i's nonzeros
+//                          j = i, i + B, ... (coalesced, every gather
+//                          independent), issued before the previous tile's
+//                          reduce, so that their latency passes during it;
+//                       3. prepare: the products values[j] * x[cols[j]] into
+//                          shared memory (as CUB's AgentSpmv::ConsumeTile
+//                          stages them), and each row that ends in the tile
+//                          marks its last nonzero; the stage is then free for
+//                          the copy of the tile two ahead;
+//                       4. reduce: thread i sums the products of the kItems
+//                          nonzeros [kItems * i, kItems * (i + 1)), closing a
+//                          row at each mark, and a block-wide segmented scan
+//                          joins the threads' open sums.  Every row that ends
+//                          in the tile is written once,
+//                          y[r] = alpha * sum + beta * y_in[r], with coalesced
+//                          stores.
+//                       A tile's rows and nonzeros together are at most
+//                       tile_items, so no thread takes more than kItems
+//                       nonzeros and kItems rows, however skewed the rows.
 //   carry_fixup_kernel  adds alpha * (sum of the carries of one row) into y,
-//                       summing each row's carries in tile order: no
+//                       summing each row's carries in run order: no
 //                       floating-point atomics, so two calls on the same input
 //                       give the same bits.
 //
 // What bounds it: HBM bytes.  Per nonzero a value and a column index stream
-// once, x is gathered through the read-only cache, and per row one row end
-// is read and one y written (plan.bytes_accessed()).  The design reads
-// values and columns once each through the read-only cache (__ldg), stages
-// only the tile's row ends in shared memory, and writes y once per row from
-// shared memory with coalesced stores.  The value and column loads are not
-// coalesced: each thread consumes kItems consecutive merge items, so the 32
-// lanes of a warp read addresses about kItems elements apart and one warp
-// load touches up to 32 sectors.  Staging those streams through shared
-// memory (cp.async or TMA) is left for later work.  The arithmetic is 2
-// flops per nonzero, far below the card's rate.
+// once, x is gathered through the read-only cache, and per row one row end is
+// read and one y written (plan.bytes_accessed()).  The copies read the
+// streams once, whole, marked to leave L2 first so that x stays there; no
+// byte outside the arrays is copied whatever their alignment.  The host
+// launches at most one resident wave of blocks (ops/plan.py::tile_geometry),
+// so no partial last wave idles the card.  A block walks its run one tile
+// after another, so the kernel reaches HBM's rate only while a tile's steps
+// take less time than its bytes: hence the pipeline, a reduce with no search
+// and no branch per item, and no global load waited on inside a tile.  The
+// arithmetic is 2 flops per nonzero, far below the card's rate.
 //
 // Plain C interface (loaded with ctypes): every pointer and the stream are
-// void*, every entry returns cudaGetLastError() right after its launch.
-// Kernels allocate nothing and launch on the caller's stream.
+// void*, every entry returns a CUDA error code (a launch returns
+// cudaGetLastError() right after it).  Kernels allocate nothing and launch on
+// the caller's stream.
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstdint>
+
 namespace {
 
-constexpr int kItems = 8;   // merge items per thread (ops/plan.py)
+constexpr int kItems = 8;           // nonzeros per thread (ops/plan.py)
+constexpr int kStages = 2;          // shared-memory stages (ops/plan.py)
+constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxSharedBytes = 232448;   // a block's most on sm_90 (227 KB)
+
+// The tile kernel's dynamic shared memory, in this order, every part a
+// multiple of 16 bytes (ops/plan.py::tile_shared_bytes repeats the total):
+//   kStages mbarriers                          16
+//   kStages stage headers                      kStages * 32
+//   per-warp scan totals, values then flags    kMaxWarps * (sizeof(V) + 4)
+//   one partial per tile row                   tile_items * sizeof(V)
+//   the products, a pad after every kItems     tile_items * 9 / 8 * sizeof(V)
+//   a row mark per nonzero                     tile_items * 2
+//   kStages stages                             kStages * stage_bytes
+// A stage holds a tile's values and column indices (per nonzero) and its row
+// ends (per row), each in a region that starts on a 16-byte boundary.
+// Rows + nonzeros <= tile_items, and each region adds at most 28 bytes of
+// rounding, hence the 96.
+template <typename V>
+__host__ __device__ constexpr size_t stage_bytes(int tile_items) {
+  return static_cast<size_t>(tile_items) * (sizeof(V) + 4) + 96;
+}
 
 template <typename V>
-__global__ void merge_tile_kernel(
+__host__ __device__ constexpr size_t tile_shared_bytes(int tile_items) {
+  return 16 + kStages * 32 + kMaxWarps * (sizeof(V) + 4) +
+         static_cast<size_t>(tile_items) * sizeof(V) +
+         static_cast<size_t>(tile_items) / kItems * (kItems + 1) * sizeof(V) +
+         static_cast<size_t>(tile_items) * 2 +
+         kStages * stage_bytes<V>(tile_items);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The region of a stage that holds one array's part of a tile: it starts at
+// the 16-byte boundary at or below the part's first element, so element j
+// lies at byte head + j * size.  Elements [lo, hi) arrive by one bulk copy
+// of whole 16-byte units; the others, at most 7 at the two edges, by one
+// element-sized cp.async each.
+struct Window {
+  int head;
+  int lo, hi;
+  int bytes;   // the region's size, a multiple of 16
+};
+
+__device__ __forceinline__ Window make_window(const void* first, int count,
+                                              int size) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(first);
+  const uintptr_t b = a + static_cast<uintptr_t>(count) * size;
+  const uintptr_t a0 = a & ~uintptr_t(15);
+  const uintptr_t m0 = (a + 15) & ~uintptr_t(15);
+  const uintptr_t m1 = b & ~uintptr_t(15);
+  Window w;
+  w.head = static_cast<int>(a - a0);
+  w.lo = w.hi = count;
+  if (m0 < m1) {
+    w.lo = static_cast<int>((m0 - a) / size);
+    w.hi = static_cast<int>((m1 - a) / size);
+  }
+  w.bytes = static_cast<int>((b - a0 + 15) & ~uintptr_t(15));
+  return w;
+}
+
+// What the compute needs of a staged tile, written beside the stage.  The
+// last three are the byte offsets of element 0 of each region.
+struct alignas(16) Header {
+  int row0, nnz0, rows, nnz;
+  int val, col, row_end;
+};
+
+// Three warps fill a stage with the tile of rows [r0, r1) and nonzeros
+// [n0, n1); warp a % nwarps takes region a (values, column indices, row
+// ends).  Its lane 0 arms the mbarrier with the bytes of the region's bulk
+// copy and issues it, marked to leave L2 first (the streams are read once;
+// x, gathered again and again, should stay); its lane e < 8 copies the
+// region's e-th edge element and then arrives on the mbarrier once that copy
+// has landed (cp.async.mbarrier.arrive.noinc).  So the barrier expects
+// kArrivals arrivals per phase and completes when all bytes are in.  Warp
+// 0's lane 0 also writes the header.
+constexpr int kRegions = 3;
+constexpr int kArrivals = kRegions * 9;
+
+template <typename V>
+__device__ void stage_tile(const V* values, const int* cols,
+                           const int* row_end, int r0, int r1, int n0,
+                           int n1, int tile_len, unsigned char* stage,
+                           Header* hdr, uint64_t* bar, uint64_t policy,
+                           int warp, int nwarps, int lane) {
+  // Coordinates searched at this tile size give rows + nnz <= tile_len; the
+  // clamp keeps the stage in bounds whatever the caller passed.
+  const int nnz = min(max(n1 - n0, 0), tile_len);
+  const int rows = min(max(r1 - r0, 0), tile_len - nnz);
+  const char* src[kRegions] = {reinterpret_cast<const char*>(values + n0),
+                               reinterpret_cast<const char*>(cols + n0),
+                               reinterpret_cast<const char*>(row_end + r0)};
+  const int size[kRegions] = {static_cast<int>(sizeof(V)), 4, 4};
+  const int count[kRegions] = {nnz, nnz, rows};
+  const uint32_t b = smem_u32(bar);
+  int at[kRegions];   // byte offset of each region's element 0 in the stage
+  int off = 0;
+#pragma unroll
+  for (int a = 0; a < kRegions; ++a) {
+    const Window w = make_window(src[a], count[a], size[a]);
+    at[a] = off + w.head;
+    if (a % nwarps == warp) {
+      if (lane == 0) {
+        const int bytes = (w.hi - w.lo) * size[a];
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(b), "r"(bytes) : "memory");
+        if (bytes > 0)   // a tile may hold no unit of an array
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+              "::bytes.L2::cache_hint [%0], [%1], %2, [%3], %4;"
+              :: "r"(smem_u32(stage + at[a] + w.lo * size[a])),
+                 "l"(src[a] + w.lo * size[a]), "r"(bytes), "r"(b),
+                 "l"(policy)
+              : "memory");
+      }
+      if (lane < 8) {
+        if (lane < w.lo + (count[a] - w.hi)) {
+          const int j = lane < w.lo ? lane : w.hi + (lane - w.lo);
+          const uint32_t dst = smem_u32(stage + at[a] + j * size[a]);
+          if (size[a] == 8)
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
+                         :: "r"(dst), "l"(src[a] + j * 8) : "memory");
+          else
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                         :: "r"(dst), "l"(src[a] + j * 4) : "memory");
+        }
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];"
+                     :: "r"(b) : "memory");
+      }
+    }
+    off += w.bytes;
+  }
+  if (warp == 0 && lane == 0)
+    *hdr = {r0, n0, rows, nnz, at[0], at[1], at[2]};
+}
+
+__device__ __forceinline__ void wait_parity(uint64_t* bar, uint32_t parity) {
+  const uint32_t b = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(b), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The segmented-scan operator on (flag, value) pairs, a before b: the sum
+// restarts after a row end (flag).  Associative; every sum is taken in the
+// order of the nonzeros.
+template <typename V>
+__device__ __forceinline__ void combine(int af, V av, int& bf, V& bv) {
+  bv = bf ? bv : av + bv;
+  bf |= af;
+}
+
+// Thread i's gathers of the staged tile: x[cols[j]] for nonzeros
+// j = i + u * B, 0 past the tile's.  Nothing here waits for them: they are
+// first used in prepare(), a tile's reduce later.
+template <typename V>
+__device__ __forceinline__ void gather(const unsigned char* stage,
+                                       const Header& h, const V* x,
+                                       V (&xv)[kItems]) {
+  const int* s_col = reinterpret_cast<const int*>(stage + h.col);
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const int j = threadIdx.x + u * blockDim.x;
+    xv[u] = j < h.nnz ? __ldg(x + s_col[j]) : V(0);
+  }
+}
+
+// Prepare a staged tile for its reduce: the products values[j] * x[cols[j]]
+// (0 past the tile's nonzeros) go to s_prod, a pad after every kItems, so
+// that the reduce reads them without bank conflicts; each row that ends in
+// the tile marks its last nonzero; a row with none here sums to 0 in this
+// tile, except row 0, whose sum so far is the carry.  Returns the header;
+// after this the stage is no longer read.
+template <typename V>
+__device__ __forceinline__ Header prepare(const unsigned char* stage,
+                                          const Header* hdr,
+                                          const V (&xv)[kItems], V carry,
+                                          V* s_prod, V* s_partial,
+                                          short* s_mark, bool& carry_to_run) {
+  const Header h = *hdr;
+  const V* s_val = reinterpret_cast<const V*>(stage + h.val);
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const int j = threadIdx.x + u * blockDim.x;
+    s_prod[j + j / kItems] = j < h.nnz ? s_val[j] * xv[u] : V(0);
+  }
+  const int* s_row_end = reinterpret_cast<const int*>(stage + h.row_end);
+  for (int i = threadIdx.x; i < h.rows; i += blockDim.x) {
+    const int e = min(s_row_end[i] - h.nnz0, h.nnz);
+    const int b = i ? max(s_row_end[i - 1] - h.nnz0, 0) : 0;
+    if (e > b)
+      s_mark[e - 1] = static_cast<short>(i);
+    else
+      s_partial[i] = i ? V(0) : carry;
+  }
+  // the carry enters the first nonzero's row when that is row 0 (row 0 has
+  // a nonzero here) or no row ends here
+  carry_to_run = h.rows == 0 || s_row_end[0] > h.nnz0;
+  return h;
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kMaxThreads) merge_tile_kernel(
     const V* __restrict__ values, const int* __restrict__ cols,
     const int* __restrict__ row_end, const V* __restrict__ x,
     const V* __restrict__ y_in, const int* __restrict__ tile_rows,
     const int* __restrict__ tile_nnz, V alpha, V beta,
     V* __restrict__ y, int* __restrict__ carry_row,
-    V* __restrict__ carry_val) {
-  // Shared memory: the tile's row ends, then one partial sum per tile row.
-  // Once every thread has consumed its items the row-end area is dead and
-  // holds the scan's per-warp scratch instead.
+    V* __restrict__ carry_val, int num_tiles, int run_tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile_len = blockDim.x * kItems;
-  int* s_row_end = reinterpret_cast<int*>(smem);
-  V* s_partial = reinterpret_cast<V*>(smem + tile_len * sizeof(int));
-  V* s_warp_val = reinterpret_cast<V*>(smem);
-  V* s_pref_val = s_warp_val + 32;
-  int* s_warp_key = reinterpret_cast<int*>(s_pref_val + 32);
-  int* s_pref_key = s_warp_key + 32;
+  const int nwarps = blockDim.x >> 5;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  Header* hdr = reinterpret_cast<Header*>(smem + 16);
+  V* s_warp_val = reinterpret_cast<V*>(hdr + kStages);
+  int* s_warp_flag = reinterpret_cast<int*>(s_warp_val + kMaxWarps);
+  V* s_partial = reinterpret_cast<V*>(s_warp_flag + kMaxWarps);
+  V* s_prod = s_partial + tile_len;
+  short* s_mark = reinterpret_cast<short*>(s_prod + tile_len / kItems *
+                                                        (kItems + 1));
+  unsigned char* stages = reinterpret_cast<unsigned char*>(s_mark + tile_len);
+  const size_t stage_len = stage_bytes<V>(tile_len);
 
-  const int tile = blockIdx.x;
-  const int row0 = tile_rows[tile];
-  const int nnz0 = tile_nnz[tile];
-  const int num_rows = tile_rows[tile + 1] - row0;
-  const int num_nnz = tile_nnz[tile + 1] - nnz0;
-  const int num_items = num_rows + num_nnz;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const bool stager = warp < kRegions;
+  const int first = blockIdx.x * run_tiles;
+  const int end = min(num_tiles - first, run_tiles) + first;
+  int4* my_marks = reinterpret_cast<int4*>(s_mark + tid * kItems);
+  uint64_t policy = 0;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
 
-  // Coordinates searched at this tile size give num_items <= tile_len; the
-  // clamp keeps shared memory in bounds whatever the caller passed.
-  const int staged = min(num_rows, tile_len);
-  for (int i = threadIdx.x; i < staged; i += blockDim.x)
-    s_row_end[i] = __ldg(row_end + row0 + i);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_u32(bar + s)), "r"(kArrivals) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  *my_marks = make_int4(-1, -1, -1, -1);   // -1: no row ends at the nonzero
   __syncthreads();
 
-  // Merge-path search for this thread's diagonal inside the tile
-  // (cub/thread/thread_search.cuh:53-84): list A = the tile's row ends,
-  // list B = the nonzero indices nnz0, nnz0 + 1, ...
-  const int d0 = min(static_cast<int>(threadIdx.x) * kItems, num_items);
-  const int d1 = min(d0 + kItems, num_items);
-  int lo = max(d0 - num_nnz, 0);
-  int hi = min(d0, num_rows);
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (s_row_end[mid] <= nnz0 + d0 - mid - 1)
-      lo = mid + 1;
+  // Tile first + k lives in stage k & 1.  The first two are copied now;
+  // every later one when the tile two before it has been prepared, which
+  // frees its stage.  (rB, nB) and (rC, nC) are the coordinates that start
+  // and end the next tile to copy, loaded a tile ahead of their use.
+  const int r0 = __ldg(tile_rows + first), n0 = __ldg(tile_nnz + first);
+  const int r1 = __ldg(tile_rows + first + 1);
+  const int n1 = __ldg(tile_nnz + first + 1);
+  int rB = 0, nB = 0, rC = 0, nC = 0;
+  if (first + 1 < end) {
+    rB = __ldg(tile_rows + first + 2);
+    nB = __ldg(tile_nnz + first + 2);
+  }
+  if (first + 2 < end) {
+    rC = __ldg(tile_rows + first + 3);
+    nC = __ldg(tile_nnz + first + 3);
+  }
+  if (stager) {
+    stage_tile(values, cols, row_end, r0, r1, n0, n1, tile_len, stages, hdr,
+               bar, policy, warp, nwarps, lane);
+    if (first + 1 < end)
+      stage_tile(values, cols, row_end, r1, rB, n1, nB, tile_len,
+                 stages + stage_len, hdr + 1, bar + 1, policy, warp, nwarps,
+                 lane);
+  }
+  __syncthreads();   // the headers
+
+  V carry = V(0);   // partial of tile-local row 0, opened by the tile before
+  V xv[kItems];     // a tile's x gathers, issued a tile ahead of its reduce
+  bool carry_to_run = true;
+  wait_parity(bar, 0);
+  gather(stages, hdr[0], x, xv);
+  Header h = prepare(stages, hdr, xv, carry, s_prod, s_partial, s_mark,
+                     carry_to_run);
+  __syncthreads();
+  if (stager && first + 2 < end)
+    stage_tile(values, cols, row_end, rB, rC, nB, nC, tile_len, stages, hdr,
+               bar, policy, warp, nwarps, lane);
+  rB = rC;
+  nB = nC;
+  if (first + 3 < end) {
+    rC = __ldg(tile_rows + first + 4);
+    nC = __ldg(tile_nnz + first + 4);
+  }
+
+  for (int t = first, k = 0; t < end; ++t, ++k) {
+    const bool more = t + 1 < end;
+    // Issue the next tile's x gathers; their latency passes while this
+    // tile is reduced.
+    if (more) {
+      wait_parity(bar + ((k + 1) & 1), ((k + 1) >> 1) & 1);
+      gather(stages + ((k + 1) & 1) * stage_len, hdr[(k + 1) & 1], x, xv);
+    }
+
+    // Reduce the thread's nonzeros (past the tile's: product 0, no mark):
+    // `run` is the sum since the last row end; the first row that ends here
+    // may have begun in earlier threads or tiles, and is finished after the
+    // scan.  Selects, not branches: every lane takes the same path.
+    const int4 mk = *my_marks;
+    const int mw[4] = {mk.x, mk.y, mk.z, mk.w};
+    V run = V(0);
+    int first_row = -1;
+    V first_sum = V(0);
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      run += s_prod[tid * (kItems + 1) + u];
+      const int m = (u & 1) ? (mw[u >> 1] >> 16) : ((mw[u >> 1] << 16) >> 16);
+      const bool first_end = m >= 0 && first_row < 0;
+      if (m >= 0 && !first_end) s_partial[m] = run;
+      first_sum = first_end ? run : first_sum;
+      first_row = first_end ? m : first_row;
+      run = m >= 0 ? V(0) : run;
+    }
+
+    // Block-wide exclusive segmented scan of the threads' (row ended, open
+    // sum) pairs, entered by the carry when it belongs to the first
+    // nonzero's row.
+    const V init = carry_to_run ? carry : V(0);
+    const unsigned full = 0xffffffffu;
+    int f = first_row >= 0;
+    V val = run;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int f2 = __shfl_up_sync(full, f, d);
+      const V v2 = __shfl_up_sync(full, val, d);
+      if (lane >= d) combine(f2, v2, f, val);
+    }
+    int ex_f = __shfl_up_sync(full, f, 1);
+    V ex_val = __shfl_up_sync(full, val, 1);
+    if (lane == 31) {
+      s_warp_flag[warp] = f;
+      s_warp_val[warp] = val;
+    }
+    __syncthreads();
+    // The warps' totals, scanned across the lanes of every warp alike.
+    int wf = 0;
+    V wv = V(0);
+    if (lane < nwarps) {
+      wf = s_warp_flag[lane];
+      wv = s_warp_val[lane];
+    }
+#pragma unroll
+    for (int d = 1; d < kMaxWarps; d <<= 1) {
+      const int f2 = __shfl_up_sync(full, wf, d);
+      const V v2 = __shfl_up_sync(full, wv, d);
+      if (lane >= d) combine(f2, v2, wf, wv);
+    }
+    int pf = __shfl_sync(full, wf, (warp + 31) & 31);   // warps before this
+    V pv = __shfl_sync(full, wv, (warp + 31) & 31);
+    int tf = __shfl_sync(full, wf, nwarps - 1);          // all warps
+    V tv = __shfl_sync(full, wv, nwarps - 1);
+    if (warp == 0) {
+      pf = 0;
+      pv = V(0);
+    }
+    combine(0, init, pf, pv);
+    combine(0, init, tf, tv);
+    if (lane > 0)
+      combine(pf, pv, ex_f, ex_val);
     else
-      hi = mid;
-  }
-  int xr = lo;        // tile-local row
-  int yn = d0 - lo;   // tile-local nonzero
+      ex_val = pv;
+    if (first_row >= 0) s_partial[first_row] = ex_val + first_sum;
+    carry = tv;   // the partial of the row open at the tile's end
+    __syncthreads();
 
-  // Consume the thread's items: a nonzero while its index is below the
-  // current row's end, else that row's end.  The first row this thread
-  // completes may have started in earlier threads; its sum is finished
-  // after the scan.  Every later row lies wholly inside this thread.
-  V running = V(0);
-  int first_row = -1;
-  V first_partial = V(0);
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    if (d0 + i < d1) {
-      if (xr < num_rows && nnz0 + yn >= s_row_end[xr]) {
-        if (first_row < 0) {
-          first_row = xr;
-          first_partial = running;
-        } else {
-          s_partial[xr] = running;
-        }
-        running = V(0);
-        ++xr;
-      } else {
-        const int j = nnz0 + yn;
-        running += __ldg(values + j) * __ldg(x + __ldg(cols + j));
-        ++yn;
-      }
+    for (int i = tid; i < h.rows; i += blockDim.x) {
+      V out = alpha * s_partial[i];
+      if (y_in != nullptr) out += beta * __ldg(y_in + h.row0 + i);
+      y[h.row0 + i] = out;
     }
-  }
-
-  // Block-wide exclusive scan of the (open row, trailing partial) pairs
-  // with reduce-by-key: (ka, va) + (kb, vb) = (kb, ka == kb ? va + vb : vb).
-  // The keys rise with the thread index, which makes the operator
-  // associative.  Every sum below is taken in a fixed order.
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int key = xr;
-  V val = running;
-#pragma unroll
-  for (int s = 1; s < 32; s <<= 1) {
-    const int k = __shfl_up_sync(full, key, s);
-    const V v = __shfl_up_sync(full, val, s);
-    if (lane >= s && k == key) val = v + val;
-  }
-  int ex_key = __shfl_up_sync(full, key, 1);
-  V ex_val = __shfl_up_sync(full, val, 1);
-
-  __syncthreads();   // the row ends are no longer read
-  if (lane == 31) {
-    s_warp_key[warp] = key;
-    s_warp_val[warp] = val;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int pk = -1;
-    V pv = V(0);
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) {
-      s_pref_key[w] = pk;
-      s_pref_val[w] = pv;
-      const int k = s_warp_key[w];
-      V v = s_warp_val[w];
-      if (k == pk) v = pv + v;
-      pk = k;
-      pv = v;
+    if (!more && tid == 0) {
+      carry_row[blockIdx.x] = h.row0 + h.rows;
+      carry_val[blockIdx.x] = carry;
     }
-    // The block's total is the carry of the row open at the tile's end.
-    carry_row[tile] = row0 + pk;
-    carry_val[tile] = pv;
-  }
-  __syncthreads();
-  int pk = s_pref_key[warp];
-  V pv = s_pref_val[warp];
-  if (lane > 0) {
-    if (ex_key == pk) ex_val = pv + ex_val;
-    pk = ex_key;
-    pv = ex_val;
-  }
-  if (first_row >= 0)
-    s_partial[first_row] = (pk == first_row) ? pv + first_partial
-                                             : first_partial;
-  __syncthreads();
+    *my_marks = make_int4(-1, -1, -1, -1);
+    if (!more) break;
+    __syncthreads();   // this tile's products, marks and partials are read
 
-  for (int i = threadIdx.x; i < staged; i += blockDim.x) {
-    const int r = row0 + i;
-    V out = alpha * s_partial[i];
-    if (y_in != nullptr) out += beta * y_in[r];
-    y[r] = out;
+    unsigned char* stage = stages + ((k + 1) & 1) * stage_len;
+    h = prepare(stage, hdr + ((k + 1) & 1), xv, carry, s_prod, s_partial,
+                s_mark, carry_to_run);
+    // The stage's edge copies were written through the generic proxy; the
+    // bulk copy that refills it after the barrier is in the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (stager && t + 3 < end)
+      stage_tile(values, cols, row_end, rB, rC, nB, nC, tile_len, stage,
+                 hdr + ((k + 1) & 1), bar + ((k + 1) & 1), policy, warp,
+                 nwarps, lane);
+    rB = rC;
+    nB = nC;
+    if (t + 4 < end) {
+      rC = __ldg(tile_rows + t + 5);
+      nC = __ldg(tile_nnz + t + 5);
+    }
   }
 }
 
 template <typename V>
 __global__ void carry_fixup_kernel(const int* __restrict__ carry_row,
                                    const V* __restrict__ carry_val,
-                                   int num_tiles, int num_rows, V alpha,
+                                   int num_pairs, int num_rows, V alpha,
                                    V* __restrict__ y) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= num_tiles) return;
+  if (t >= num_pairs) return;
   const int r = carry_row[t];
   if (r >= num_rows) return;
   if (t > 0 && carry_row[t - 1] == r) return;   // not the first carry of r
   V sum = carry_val[t];
-  for (int u = t + 1; u < num_tiles && carry_row[u] == r; ++u)
+  for (int u = t + 1; u < num_pairs && carry_row[u] == r; ++u)
     sum += carry_val[u];
   y[r] += alpha * sum;
 }
@@ -204,31 +502,47 @@ int launch_merge_tile(const void* values, const void* cols,
                       const void* row_end, const void* x, const void* y_in,
                       const void* tile_rows, const void* tile_nnz,
                       double alpha, double beta, void* y, void* carry_row,
-                      void* carry_val, int num_tiles, int threads,
-                      void* stream) {
-  const size_t smem =
-      static_cast<size_t>(threads) * kItems * (sizeof(int) + sizeof(V));
-  merge_tile_kernel<V><<<num_tiles, threads, smem,
+                      void* carry_val, int num_tiles, int run_tiles,
+                      int threads, int shared_bytes, void* stream) {
+  if (num_tiles < 1 || run_tiles < 1 || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 ||
+      static_cast<size_t>(shared_bytes) !=
+          tile_shared_bytes<V>(threads * kItems))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = num_tiles / run_tiles + (num_tiles % run_tiles != 0);
+  merge_tile_kernel<V><<<grid, threads, shared_bytes,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(values), static_cast<const int*>(cols),
       static_cast<const int*>(row_end), static_cast<const V*>(x),
       static_cast<const V*>(y_in), static_cast<const int*>(tile_rows),
       static_cast<const int*>(tile_nnz), static_cast<V>(alpha),
       static_cast<V>(beta), static_cast<V*>(y),
-      static_cast<int*>(carry_row), static_cast<V*>(carry_val));
+      static_cast<int*>(carry_row), static_cast<V*>(carry_val), num_tiles,
+      run_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename V>
+int merge_tile_occupancy(int threads, int shared_bytes, int* blocks_per_sm,
+                         int* registers) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, merge_tile_kernel<V>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *registers = attr.numRegs;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, merge_tile_kernel<V>, threads, shared_bytes));
+}
+
+template <typename V>
 int launch_carry_fixup(const void* carry_row, const void* carry_val,
-                       int num_tiles, int num_rows, double alpha, void* y,
+                       int num_pairs, int num_rows, double alpha, void* y,
                        void* stream) {
   const int threads = 256;
-  const int blocks = (num_tiles + threads - 1) / threads;
+  const int blocks = (num_pairs + threads - 1) / threads;
   carry_fixup_kernel<V><<<blocks, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(carry_row), static_cast<const V*>(carry_val),
-      num_tiles, num_rows, static_cast<V>(alpha), static_cast<V*>(y));
+      num_pairs, num_rows, static_cast<V>(alpha), static_cast<V*>(y));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -236,37 +550,67 @@ int launch_carry_fixup(const void* carry_row, const void* carry_val,
 
 extern "C" {
 
+// Lets the tile kernel take more than the default 48 KB of dynamic shared
+// memory on the current device.  Called once, before any launch, so that no
+// launch (nor a CUDA graph that captures one) sets an attribute.
+int merge_csrmv_init() {
+  cudaError_t e = cudaFuncSetAttribute(
+      merge_tile_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSharedBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(merge_tile_kernel<double>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMaxSharedBytes);
+  return static_cast<int>(e);
+}
+
 int merge_tile_f32(const void* values, const void* cols, const void* row_end,
                    const void* x, const void* y_in, const void* tile_rows,
                    const void* tile_nnz, double alpha, double beta, void* y,
                    void* carry_row, void* carry_val, int num_tiles,
-                   int threads, void* stream) {
+                   int run_tiles, int threads, int shared_bytes,
+                   void* stream) {
   return launch_merge_tile<float>(values, cols, row_end, x, y_in, tile_rows,
                                   tile_nnz, alpha, beta, y, carry_row,
-                                  carry_val, num_tiles, threads, stream);
+                                  carry_val, num_tiles, run_tiles, threads,
+                                  shared_bytes, stream);
 }
 
 int merge_tile_f64(const void* values, const void* cols, const void* row_end,
                    const void* x, const void* y_in, const void* tile_rows,
                    const void* tile_nnz, double alpha, double beta, void* y,
                    void* carry_row, void* carry_val, int num_tiles,
-                   int threads, void* stream) {
+                   int run_tiles, int threads, int shared_bytes,
+                   void* stream) {
   return launch_merge_tile<double>(values, cols, row_end, x, y_in, tile_rows,
                                    tile_nnz, alpha, beta, y, carry_row,
-                                   carry_val, num_tiles, threads, stream);
+                                   carry_val, num_tiles, run_tiles, threads,
+                                   shared_bytes, stream);
+}
+
+int merge_tile_occupancy_f32(int threads, int shared_bytes,
+                             int* blocks_per_sm, int* registers) {
+  return merge_tile_occupancy<float>(threads, shared_bytes, blocks_per_sm,
+                                     registers);
+}
+
+int merge_tile_occupancy_f64(int threads, int shared_bytes,
+                             int* blocks_per_sm, int* registers) {
+  return merge_tile_occupancy<double>(threads, shared_bytes, blocks_per_sm,
+                                      registers);
 }
 
 int carry_fixup_f32(const void* carry_row, const void* carry_val,
-                    int num_tiles, int num_rows, double alpha, void* y,
+                    int num_pairs, int num_rows, double alpha, void* y,
                     void* stream) {
-  return launch_carry_fixup<float>(carry_row, carry_val, num_tiles, num_rows,
+  return launch_carry_fixup<float>(carry_row, carry_val, num_pairs, num_rows,
                                    alpha, y, stream);
 }
 
 int carry_fixup_f64(const void* carry_row, const void* carry_val,
-                    int num_tiles, int num_rows, double alpha, void* y,
+                    int num_pairs, int num_rows, double alpha, void* y,
                     void* stream) {
-  return launch_carry_fixup<double>(carry_row, carry_val, num_tiles,
+  return launch_carry_fixup<double>(carry_row, carry_val, num_pairs,
                                     num_rows, alpha, y, stream);
 }
 

@@ -3,21 +3,27 @@ csrc/merge_csrmv.cu, and their plain PyTorch versions.
 
 Replaces ``merge_spmv_tpu/ops/csrmv_pallas.py::_spmv_kernel``.  That TPU
 kernel walks the merge tiles in order and carries the open row's partial in
-SMEM (csrmv_pallas.py:919-929).  On Hopper the tiles run in parallel, so
-the computation goes back to the reference's three steps:
+SMEM (csrmv_pallas.py:919-929).  On Hopper the computation goes back to the
+reference's three steps, with persistent blocks:
 
 * search: ``merge_tile_coordinates`` (ops/merge_path.py), once per matrix;
-* ``merge_tile``: one thread block per merge tile writes every row that
-  ends in the tile and leaves one carry pair (row, partial) per tile;
-* ``carry_fixup``: adds alpha times each row's carries into y in tile
+* ``merge_tile``: block b walks the contiguous run of tiles ``[b *
+  run_tiles, (b + 1) * run_tiles)`` in order, carrying the open row's
+  partial from tile to tile as the TPU kernel does; it writes every row
+  that ends in its run and leaves one carry pair (row, partial) per run.
+  ``tile_geometry`` (ops/plan.py) picks the runs: as few blocks as fill
+  the card once;
+* ``carry_fixup``: adds alpha times each row's carries into y in run
   order, without floating-point atomics, so repeated calls are bitwise
   equal.
 
 What bounds it: HBM bytes (``SpmvPlan.bytes_accessed()``: a value, a
 column index and a gathered x element per nonzero, a row end and a y write
-per row).  The tile kernel reads values and columns once through the
-read-only cache, stages only the tile's row ends in shared memory and
-writes each y once; the fix-up touches one word per tile.
+per row).  The tile kernel copies each tile's values, column indices and
+row ends into shared memory with bulk asynchronous copies two tiles ahead
+of its reduce, issues the tile's coalesced x gathers while the tile before
+is reduced, reduces over shared memory only, and writes each y once; the
+fix-up touches one word per run.
 
 Each wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors, and raises on anything else.  ``LAUNCHES`` counts kernel launches
@@ -28,21 +34,23 @@ kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from merge_spmv_tpu_torch.ops.csrmv_torch import row_ids_from_offsets
 from merge_spmv_tpu_torch.ops.merge_path import num_merge_tiles
-from merge_spmv_tpu_torch.ops.plan import (ITEMS_PER_THREAD, MAX_TILE_ITEMS,
-                                           MIN_TILE_ITEMS)
+from merge_spmv_tpu_torch.ops.plan import (TileGeometry, run_ends,
+                                           tile_geometry)
+from merge_spmv_tpu_torch.utils.device import dtype_name
 from merge_spmv_tpu_torch.utils.cuda_build import (check_operand as _check,
                                                    load_library,
                                                    on_cpu as _is_cpu,
                                                    raise_on_launch)
 
 __all__ = ["merge_tile", "carry_fixup", "merge_csrmv", "merge_tile_plain",
-           "carry_fixup_plain", "merge_csrmv_plain", "LAUNCHES",
-           "reset_launches", "KERNEL_SOURCE"]
+           "carry_fixup_plain", "merge_csrmv_plain", "launch_geometry",
+           "kernel_occupancy", "LAUNCHES", "reset_launches", "KERNEL_SOURCE"]
 
 KERNEL_SOURCE = "merge_csrmv"
 LAUNCHES = {"merge_tile": 0, "carry_fixup": 0}
@@ -64,21 +72,73 @@ def _lib():
         for sfx in _SUFFIX.values():
             f = getattr(lib, f"merge_tile_{sfx}")
             f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _D, _D, _P, _P, _P, _I,
-                          _I, _P]
+                          _I, _I, _I, _P]
+            f.restype = _I
+            f = getattr(lib, f"merge_tile_occupancy_{sfx}")
+            f.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
             f.restype = _I
             f = getattr(lib, f"carry_fixup_{sfx}")
             f.argtypes = [_P, _P, _I, _I, _D, _P, _P]
             f.restype = _I
+        lib.merge_csrmv_init.argtypes = []
+        lib.merge_csrmv_init.restype = _I
         lib._typed = True
     return lib
 
 
-def _check_tile_items(tile_items: int):
-    if (tile_items % MIN_TILE_ITEMS or not
-            MIN_TILE_ITEMS <= tile_items <= MAX_TILE_ITEMS):
-        raise ValueError(f"tile_items must be a multiple of {MIN_TILE_ITEMS} "
-                         f"in [{MIN_TILE_ITEMS}, {MAX_TILE_ITEMS}], "
-                         f"got {tile_items}")
+@functools.lru_cache(maxsize=None)
+def _device_lib(index: int):
+    """The library, with the tile kernel's shared-memory opt-in made on
+    device ``index``: once, before its first launch there, never inside a
+    launch (which a CUDA graph may be capturing)."""
+    lib = _lib()
+    with torch.cuda.device(index):
+        raise_on_launch(KERNEL_SOURCE, lib.merge_csrmv_init(),
+                        "merge_csrmv_init")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(index: int, dtype: torch.dtype, threads: int, shared: int):
+    lib = _device_lib(index)
+    blocks, regs = _I(0), _I(0)
+    with torch.cuda.device(index):
+        rc = getattr(lib, f"merge_tile_occupancy_{_SUFFIX[dtype]}")(
+            threads, shared, ctypes.byref(blocks), ctypes.byref(regs))
+    raise_on_launch(KERNEL_SOURCE, rc, "merge_tile occupancy query")
+    return blocks.value, regs.value
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_occupancy(dtype, tile_items: int, device=None):
+    """(blocks per SM, registers per thread) of the tile kernel at
+    ``tile_items`` on the card, from the CUDA occupancy calculator."""
+    dev = torch.device("cuda" if device is None else device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    kernel_dtype = (torch.float64 if dtype_name(dtype) == "float64"
+                    else torch.float32)
+    geo = tile_geometry(1, tile_items, dtype)   # checks tile_items
+    return _occupancy(index, kernel_dtype, geo.threads, geo.shared_bytes)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_geometry(num_tiles: int, tile_items: int, dtype,
+                    device) -> TileGeometry:
+    """The tile kernel's launch for tensors on ``device``: on the card with
+    its SM count and the occupancy the card reports (registers included);
+    on the CPU with the H100's (the plain version's runs).  Cached: every
+    op(x) asks for it, and it costs microseconds of host time."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return tile_geometry(num_tiles, tile_items, dtype)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    blocks, _ = kernel_occupancy(dtype, tile_items, dev)
+    return tile_geometry(num_tiles, tile_items, dtype, num_sms=_num_sms(index),
+                         blocks_per_sm=blocks)
 
 
 # ---------------------------------------------------------------------- #
@@ -86,37 +146,41 @@ def _check_tile_items(tile_items: int):
 # ---------------------------------------------------------------------- #
 
 def merge_tile_plain(values, col_indices, row_end_offsets, x, tile_rows,
-                     tile_nnz, tile_items, y_in=None, alpha=1.0, beta=0.0):
-    """Per-tile completed-row sums and carry pairs, as the tile kernel
-    computes them.  Returns (y, carry_row, carry_val): y holds
-    ``alpha * (the row's sum within the tile that completes it) + beta *
-    y_in`` and tile t leaves the partial of row ``tile_rows[t + 1]`` inside
-    tile t."""
+                     tile_nnz, tile_items, y_in=None, alpha=1.0, beta=0.0,
+                     run_tiles=1):
+    """Per-run completed-row sums and carry pairs, as the tile kernel
+    computes them with runs of ``run_tiles`` tiles (ops/plan.py::run_ends).
+    Returns (y, carry_row, carry_val): y holds ``alpha * (the row's sum
+    within the run that completes it) + beta * y_in`` and run b leaves the
+    partial of row ``tile_rows[end_b]`` inside run b, where ``end_b`` is
+    the run's end tile."""
     num_rows = row_end_offsets.shape[0]
     num_tiles = tile_rows.shape[0] - 1
     items = torch.diff(tile_rows) + torch.diff(tile_nnz)
     if num_tiles and int(items.max()) > tile_items:
         raise ValueError("a tile holds more than tile_items merge items")
+    ends = run_ends(num_tiles, run_tiles).to(tile_rows.device)
+    open_rows = tile_rows.long()[ends]
     nnz = values.shape[0]
     j = torch.arange(nnz, device=values.device)
     row_of = row_ids_from_offsets(row_end_offsets, nnz)
     tile_of = torch.searchsorted(tile_nnz.long(), j, right=True) - 1
-    open_row = tile_rows[1:].long()[tile_of]
-    done = row_of < open_row
+    run_of = tile_of // run_tiles
+    done = row_of < open_rows[run_of]
     products = values * x[col_indices.long()]
     sums = torch.zeros(num_rows, dtype=values.dtype, device=values.device)
     sums.index_add_(0, row_of[done], products[done])
-    carry_val = torch.zeros(num_tiles, dtype=values.dtype,
+    carry_val = torch.zeros(ends.shape[0], dtype=values.dtype,
                             device=values.device)
-    carry_val.index_add_(0, tile_of[~done], products[~done])
+    carry_val.index_add_(0, run_of[~done], products[~done])
     y = alpha * sums
     if y_in is not None:
         y = y + beta * y_in
-    return y, tile_rows[1:].clone(), carry_val
+    return y, open_rows.to(torch.int32), carry_val
 
 
 def carry_fixup_plain(y, carry_row, carry_val, alpha=1.0):
-    """y[r] += alpha * (sum of row r's carries, in tile order), in place."""
+    """y[r] += alpha * (sum of row r's carries, in run order), in place."""
     valid = carry_row < y.shape[0]
     rows, seg = torch.unique_consecutive(carry_row[valid],
                                          return_inverse=True)
@@ -142,13 +206,15 @@ def merge_csrmv_plain(values, col_indices, row_end_offsets, x, tile_rows,
 # ---------------------------------------------------------------------- #
 
 def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
-               tile_items, y_in=None, alpha=1.0, beta=0.0):
+               tile_items, y_in=None, alpha=1.0, beta=0.0, run_tiles=None):
     """Tile kernel: (y, carry_row, carry_val) as merge_tile_plain returns
-    them.  ``tile_items`` fixes the block size (tile_items /
-    ITEMS_PER_THREAD threads); tile_rows/tile_nnz must come from
-    ``merge_tile_coordinates`` at the same tile_items.  The wrapper checks
-    the tile count without a sync; the kernel never indexes shared memory
-    past the tile, whatever the coordinates."""
+    them, one carry pair per run.  ``tile_items`` fixes the block size
+    (tile_items / ITEMS_PER_THREAD threads); tile_rows/tile_nnz must come
+    from ``merge_tile_coordinates`` at the same tile_items.
+    ``run_tiles=None`` takes the runs of ``launch_geometry``; an integer
+    forces them (1: a block per tile).  The wrapper checks the tile count
+    without a sync; the kernel never indexes shared memory past the tile,
+    whatever the coordinates."""
     num_rows = row_end_offsets.shape[0]
     num_tiles = tile_rows.shape[0] - 1
     want_tiles = num_merge_tiles(num_rows, values.shape[0], tile_items)
@@ -156,30 +222,35 @@ def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
         raise ValueError(f"{num_tiles} tiles given, {want_tiles} at "
                          f"tile_items={tile_items}: the tile coordinates "
                          "were searched at another tile size")
-    if _is_cpu(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
-               y_in):
+    if run_tiles is not None and int(run_tiles) < 1:
+        raise ValueError(f"run_tiles must be >= 1, got {run_tiles}")
+    cpu = _is_cpu(values, col_indices, row_end_offsets, x, tile_rows,
+                  tile_nnz, y_in)
+    dtype = values.dtype
+    if not cpu and dtype not in _SUFFIX:
+        raise TypeError(f"the kernel takes float32 or float64, got {dtype}")
+    geo = launch_geometry(num_tiles, tile_items, dtype, values.device)
+    run = geo.run_tiles if run_tiles is None else int(run_tiles)
+    if cpu:
         return merge_tile_plain(values, col_indices, row_end_offsets, x,
                                 tile_rows, tile_nnz, tile_items, y_in,
-                                alpha, beta)
-    dtype = values.dtype
-    if dtype not in _SUFFIX:
-        raise TypeError(f"the kernel takes float32 or float64, got {dtype}")
-    _check_tile_items(tile_items)
+                                alpha, beta, run)
     _check("values", values, dtype)
     _check("col_indices", col_indices, torch.int32, values.shape)
     _check("row_end_offsets", row_end_offsets, torch.int32)
     _check("x", x, dtype)
     _check("tile_rows", tile_rows, torch.int32)
     _check("tile_nnz", tile_nnz, torch.int32, tile_rows.shape)
-    if values.dim() != 1 or x.dim() != 1 or num_tiles < 1:
-        raise ValueError("values and x must be vectors, tile_rows non-empty")
+    if values.dim() != 1 or x.dim() != 1:
+        raise ValueError("values and x must be vectors")
     if y_in is not None:
         _check("y_in", y_in, dtype, (num_rows,))
     dev = values.device
+    num_runs = -(-num_tiles // run)
     y = torch.empty(num_rows, dtype=dtype, device=dev)
-    carry_row = torch.empty(num_tiles, dtype=torch.int32, device=dev)
-    carry_val = torch.empty(num_tiles, dtype=dtype, device=dev)
-    lib = _lib()
+    carry_row = torch.empty(num_runs, dtype=torch.int32, device=dev)
+    carry_val = torch.empty(num_runs, dtype=dtype, device=dev)
+    lib = _device_lib(dev.index)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"merge_tile_{_SUFFIX[dtype]}")(
@@ -188,15 +259,15 @@ def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
             None if y_in is None else y_in.data_ptr(),
             tile_rows.data_ptr(), tile_nnz.data_ptr(), float(alpha),
             float(beta), y.data_ptr(), carry_row.data_ptr(),
-            carry_val.data_ptr(), num_tiles, tile_items // ITEMS_PER_THREAD,
-            stream)
+            carry_val.data_ptr(), num_tiles, run, geo.threads,
+            geo.shared_bytes, stream)
     raise_on_launch(KERNEL_SOURCE, rc, "merge_tile")
     LAUNCHES["merge_tile"] += 1
     return y, carry_row, carry_val
 
 
 def carry_fixup(y, carry_row, carry_val, alpha=1.0):
-    """Fix-up kernel: y[r] += alpha * (sum of row r's carries in tile
+    """Fix-up kernel: y[r] += alpha * (sum of row r's carries in run
     order), in place; returns y."""
     if _is_cpu(y, carry_row, carry_val):
         return carry_fixup_plain(y, carry_row, carry_val, alpha)
@@ -206,14 +277,14 @@ def carry_fixup(y, carry_row, carry_val, alpha=1.0):
     _check("y", y, dtype)
     _check("carry_row", carry_row, torch.int32)
     _check("carry_val", carry_val, dtype, carry_row.shape)
-    num_tiles = carry_row.shape[0]
-    if num_tiles < 1:
+    num_pairs = carry_row.shape[0]
+    if num_pairs < 1:
         raise ValueError("carry_row must be non-empty")
     lib = _lib()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         rc = getattr(lib, f"carry_fixup_{_SUFFIX[dtype]}")(
-            carry_row.data_ptr(), carry_val.data_ptr(), num_tiles,
+            carry_row.data_ptr(), carry_val.data_ptr(), num_pairs,
             y.shape[0], float(alpha), y.data_ptr(), stream)
     raise_on_launch(KERNEL_SOURCE, rc, "carry_fixup")
     LAUNCHES["carry_fixup"] += 1

@@ -6,6 +6,9 @@ thread-block size and a number of merge items per thread, whose product is
 the merge tile.  The plan pins the same shape-static facts: tile size, tile
 count, backend, and the policy ``threads_per_block x items_per_thread ==
 tile_items`` the CUDA tile kernel (csrc/merge_csrmv.cu) is launched with.
+``tile_geometry`` turns the policy into the kernel's launch: its shared
+memory, the blocks that fit on an SM, and the runs of tiles that the
+persistent blocks own.
 
 The TPU plan's VMEM, gather-list and x-window fields have no counterpart
 here: Hopper gathers ``x[col]`` through its caches in hardware.
@@ -21,17 +24,36 @@ import torch
 from merge_spmv_tpu_torch.ops.merge_path import num_merge_tiles
 from merge_spmv_tpu_torch.utils.device import dtype_name, itemsize
 
-__all__ = ["SpmvPlan", "make_plan", "ITEMS_PER_THREAD", "MIN_TILE_ITEMS",
-           "MAX_TILE_ITEMS"]
+__all__ = ["SpmvPlan", "make_plan", "TileGeometry", "tile_geometry",
+           "tile_shared_bytes", "run_ends", "ITEMS_PER_THREAD",
+           "MIN_TILE_ITEMS", "MAX_TILE_ITEMS", "H100_SMS"]
 
 # Merge items each thread consumes in sequence (CUB's ITEMS_PER_THREAD).
 ITEMS_PER_THREAD = 8
-# One warp is the smallest block; 512 threads the largest, which keeps the
-# block's shared memory (a row end and a partial per tile row) in the
-# default 48 KB for every value type.
+# One warp is the smallest block, 512 threads the largest.  At 4096 items a
+# float64 block takes 173 KB of shared memory (tile_shared_bytes), within a
+# block's 227 KB only after the opt-in above the default 48 KB.
 MIN_TILE_ITEMS = 32 * ITEMS_PER_THREAD
 MAX_TILE_ITEMS = 512 * ITEMS_PER_THREAD
 DEFAULT_TILE_ITEMS = 256 * ITEMS_PER_THREAD
+
+# Shared-memory stages of the tile kernel: a tile's streams arrive in one
+# while the tile before is prepared from the other.
+STAGES = 2
+_MAX_WARPS = MAX_TILE_ITEMS // ITEMS_PER_THREAD // 32
+
+# Hopper (sm_90) limits, from the CUDA programming guide's table of compute
+# capabilities: per SM 2048 threads, 32 blocks and 228 KB of shared memory,
+# of which each resident block leaves 1 KB to the system; per block 227 KB,
+# and 48 KB of dynamic shared memory without the opt-in.
+SM_THREADS = 2048
+SM_BLOCKS = 32
+SM_SHARED_BYTES = 233_472
+BLOCK_RESERVED_SHARED = 1024
+BLOCK_SHARED_MAX = 232_448
+BLOCK_SHARED_DEFAULT = 49_152
+# SMs of the H100 SXM: the geometry's default where no card is asked.
+H100_SMS = 132
 
 # The kernel indexes merge items, rows and nonzeros with int32.
 _INT32_LIMIT = 2**31 - 1
@@ -109,15 +131,100 @@ def make_plan(num_rows: int, num_cols: int, num_nonzeros: int,
     elif backend != expected:
         raise ValueError(f"backend {backend!r} does not run on {dev}")
 
+    num_tiles = num_merge_tiles(num_rows, num_nonzeros, tile_items)
     return SpmvPlan(
         num_rows=int(num_rows),
         num_cols=int(num_cols),
         num_nonzeros=int(num_nonzeros),
         dtype=dname,
         tile_items=int(tile_items),
-        num_tiles=num_merge_tiles(num_rows, num_nonzeros, tile_items),
+        num_tiles=num_tiles,
         backend=backend,
         num_rhs=int(num_rhs),
-        threads_per_block=int(tile_items) // ITEMS_PER_THREAD,
+        threads_per_block=tile_geometry(num_tiles, tile_items, dname).threads,
         items_per_thread=ITEMS_PER_THREAD,
     )
+
+
+# ---------------------------------------------------------------------- #
+# Launch geometry of the tile kernel
+# ---------------------------------------------------------------------- #
+
+def _value_size(dtype) -> int:
+    """Bytes of the kernel's value type: bfloat16 computes in float32."""
+    return 8 if dtype_name(dtype) == "float64" else 4
+
+
+def tile_shared_bytes(tile_items: int, dtype) -> int:
+    """Dynamic shared memory of one tile-kernel block, as
+    csrc/merge_csrmv.cu lays it out: the stages' mbarriers (16 bytes) and
+    headers (32 bytes each), the per-warp scan totals, one partial per
+    tile row, the products with a pad after every ITEMS_PER_THREAD, a
+    2-byte row mark per nonzero, and STAGES stages that each hold a tile's
+    values and column indices (per nonzero) and row ends (per row; rows +
+    nonzeros <= tile_items), with 96 bytes for rounding the three regions
+    out to 16."""
+    vs = _value_size(dtype)
+    stage = tile_items * (vs + 4) + 96
+    products = tile_items // ITEMS_PER_THREAD * (ITEMS_PER_THREAD + 1) * vs
+    return (16 + STAGES * 32 + _MAX_WARPS * (vs + 4) + tile_items * vs
+            + products + tile_items * 2 + STAGES * stage)
+
+
+@dataclasses.dataclass(frozen=True)
+class TileGeometry:
+    """Launch of the tile kernel: ``grid`` persistent blocks of
+    ``threads`` threads and ``shared_bytes`` of dynamic shared memory each;
+    block b owns the contiguous tiles ``[b * run_tiles, (b + 1) *
+    run_tiles)`` (the last run may be shorter) and leaves one carry pair.
+    ``opt_in``: the block needs more than the default 48 KB."""
+    threads: int
+    stages: int
+    shared_bytes: int
+    opt_in: bool
+    blocks_per_sm: int
+    grid: int
+    run_tiles: int
+
+
+def tile_geometry(num_tiles: int, tile_items: int, dtype="float32",
+                  num_sms: int = H100_SMS,
+                  blocks_per_sm: Optional[int] = None) -> TileGeometry:
+    """The tile kernel's launch for ``num_tiles`` tiles of ``tile_items``.
+
+    Blocks per SM are what the threads and shared memory allow
+    (``blocks_per_sm``, the card's own occupancy figure, which also counts
+    registers, lowers it).  Merge-path tiles are equal in work, so the
+    tiles are cut into equal contiguous runs, as few as fill every
+    resident block once: ``G = ceil(num_tiles / run_tiles) <= min(
+    num_tiles, blocks_per_sm * num_sms)``, one wave with no tail."""
+    if tile_items % MIN_TILE_ITEMS or not (
+            MIN_TILE_ITEMS <= tile_items <= MAX_TILE_ITEMS):
+        raise ValueError(f"tile_items must be a multiple of {MIN_TILE_ITEMS} "
+                         f"in [{MIN_TILE_ITEMS}, {MAX_TILE_ITEMS}], "
+                         f"got {tile_items}")
+    if num_tiles < 1 or num_sms < 1:
+        raise ValueError("num_tiles and num_sms must be positive")
+    threads = tile_items // ITEMS_PER_THREAD
+    shared = tile_shared_bytes(tile_items, dtype)
+    fit = min(SM_THREADS // threads, SM_BLOCKS,
+              SM_SHARED_BYTES // (shared + BLOCK_RESERVED_SHARED))
+    if blocks_per_sm is not None:
+        fit = min(fit, blocks_per_sm)
+    fit = max(fit, 1)
+    run_tiles = -(-num_tiles // (fit * num_sms))
+    return TileGeometry(threads=threads, stages=STAGES, shared_bytes=shared,
+                        opt_in=shared > BLOCK_SHARED_DEFAULT,
+                        blocks_per_sm=fit, grid=-(-num_tiles // run_tiles),
+                        run_tiles=run_tiles)
+
+
+def run_ends(num_tiles: int, run_tiles: int) -> torch.Tensor:
+    """End tile (exclusive) of each run: run b is ``[b * run_tiles,
+    min((b + 1) * run_tiles, num_tiles))``, as the kernel's block b walks
+    it.  int64, on the CPU."""
+    if run_tiles < 1:
+        raise ValueError(f"run_tiles must be >= 1, got {run_tiles}")
+    num_runs = -(-num_tiles // run_tiles)
+    return torch.clamp(torch.arange(1, num_runs + 1, dtype=torch.int64)
+                       * run_tiles, max=num_tiles)

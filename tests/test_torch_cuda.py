@@ -69,18 +69,23 @@ def _setup(name, dev, tile_items, dtype=torch.float32, signed=False,
     return csr, (v, ci, re_), as_t(x), as_t(y_in), (tr, tn), x, y_in
 
 
-@pytest.mark.parametrize("tile_items", [256, 1024, 2304])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tile_items", [256, 1024, 2304, 4096])
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_kernel_vs_plain_and_gold(card, name, tile_items):
+def test_kernel_vs_plain_and_gold(card, name, tile_items, dtype):
     csr, arrs, x, y_in, tiles, xh, yh = _setup(name, card, tile_items,
-                                               signed=True)
+                                               dtype=dtype, signed=True)
     args = (*arrs, x, *tiles, tile_items, y_in, 2.5, -0.75)
     got = K.merge_csrmv(*args)
     plain = K.merge_csrmv_plain(*args)
     torch.cuda.synchronize()
-    gold = csr.astype(np.float32).spmv_gold(xh.astype(np.float32),
-                                            yh.astype(np.float32), 2.5, -0.75)
+    if dtype == torch.float64:
+        gold = csr.spmv_gold(xh, yh, 2.5, -0.75)
+    else:
+        gold = csr.astype(np.float32).spmv_gold(
+            xh.astype(np.float32), yh.astype(np.float32), 2.5, -0.75)
     bound = csr.spmv_abs_bound(xh, yh, 2.5, -0.75)
+    assert got.dtype == dtype
     for other in (plain.cpu().numpy(), gold):
         assert compare_results(got.cpu().numpy(), other, verbose=False,
                                abs_bound=bound) is None
@@ -89,12 +94,98 @@ def test_kernel_vs_plain_and_gold(card, name, tile_items):
 @pytest.mark.parametrize("name", ["wheel_hub_spans_tiles", "powerlaw",
                                   "leading_trailing_empty"])
 def test_tile_kernel_carries_match_plain(card, name):
+    """One carry pair per run of the card's geometry, as the plain version
+    leaves them with the same runs."""
     _, arrs, x, _, tiles, _, _ = _setup(name, card, 256)
+    geo = K.launch_geometry(tiles[0].shape[0] - 1, 256, torch.float32, card)
     yk, rk, vk = K.merge_tile(*arrs, x, *tiles, 256)
-    yp, rp, vp = K.merge_tile_plain(*arrs, x, *tiles, 256)
+    yp, rp, vp = K.merge_tile_plain(*arrs, x, *tiles, 256,
+                                    run_tiles=geo.run_tiles)
+    assert rk.shape == (geo.grid,)
     assert torch.equal(rk, rp)
     torch.testing.assert_close(vk, vp, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(yk, yp, rtol=1e-5, atol=1e-5)
+
+
+def _big(kind):
+    """Matrices that make runs and their carries matter at the card's
+    geometry: only empty rows over many tiles, and a hub row of 200,000
+    nonzeros that spans more runs than the forced run counts below."""
+    rs = np.random.RandomState(3)
+    if kind == "empty":
+        return CsrMatrix.from_coo(CooMatrix(300_000, 50, rows=[], cols=[],
+                                            vals=[]))
+    n = 40_000
+    rows = np.r_[np.full(200_000, 7), rs.randint(0, n, 3 * n)]
+    cols = rs.randint(0, n, rows.size)
+    return CsrMatrix.from_coo(CooMatrix(n, n, rows, cols,
+                                        rs.uniform(-1, 1, rows.size)))
+
+
+@pytest.mark.parametrize("run_tiles", [None, 1, 3, "one_block"])
+@pytest.mark.parametrize("kind", ["empty", "hub"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_forced_runs_vs_plain_and_gold(card, kind, run_tiles, dtype):
+    """G forced to num_tiles (runs of 1), to 1 (one block walks every
+    tile), runs of 3, and the card's own geometry."""
+    csr = _big(kind)
+    rs = np.random.RandomState(4)
+    x = rs.uniform(-1, 1, csr.num_cols)
+    v, re_, ci = csr.to_device(dtype=dtype, device=card)
+    tr, tn = merge_tile_coordinates(re_, csr.num_nonzeros, 256)
+    num_tiles = tr.shape[0] - 1
+    run = num_tiles if run_tiles == "one_block" else run_tiles
+    xd = torch.from_numpy(x).to(card, dtype)
+    y, crow, cval = K.merge_tile(v, ci, re_, xd, tr, tn, 256, run_tiles=run)
+    geo = K.launch_geometry(num_tiles, 256, dtype, card)
+    run = geo.run_tiles if run is None else run
+    assert crow.shape == (-(-num_tiles // run),)
+    yp, rp, vp = K.merge_tile_plain(v, ci, re_, xd, tr, tn, 256,
+                                    run_tiles=run)
+    assert torch.equal(crow, rp)
+    got = K.carry_fixup(y, crow, cval).cpu().numpy()
+    torch.cuda.synchronize()
+    gold = csr.astype(np.float64).spmv_gold(x)
+    assert compare_results(got, gold, verbose=False,
+                           abs_bound=csr.spmv_abs_bound(x)) is None
+    if kind == "hub" and crow.shape[0] > 1:   # the hub spans several runs
+        assert int((crow == 7).sum()) >= 2
+
+
+def test_unaligned_operands(card):
+    """Views that start 4 bytes past a 16-byte boundary: every tile's
+    copy window starts and ends inside a 16-byte unit."""
+    csr, (v, ci, re_), x, y_in, _, xh, yh = _setup("powerlaw", card, 1024,
+                                                   signed=True)
+
+    def shifted(t):
+        pad = torch.zeros(t.shape[0] + 1, dtype=t.dtype, device=t.device)
+        pad[1:] = t
+        return pad[1:]
+
+    vs, cs, rs_, xs, ys = map(shifted, (v, ci, re_, x, y_in))
+    assert all(t.data_ptr() % 16 for t in (vs, cs, rs_))
+    tr, tn = merge_tile_coordinates(rs_, csr.num_nonzeros, 1024)
+    got = K.merge_csrmv(vs, cs, rs_, xs, tr, tn, 1024, ys, 2.5, -0.75)
+    want = K.merge_csrmv(v, ci, re_, x, tr, tn, 1024, y_in, 2.5, -0.75)
+    assert torch.equal(got, want)
+    gold = csr.astype(np.float32).spmv_gold(
+        xh.astype(np.float32), yh.astype(np.float32), 2.5, -0.75)
+    assert compare_results(got.cpu().numpy(), gold, verbose=False,
+                           abs_bound=csr.spmv_abs_bound(xh, yh, 2.5,
+                                                        -0.75)) is None
+
+
+@pytest.mark.parametrize("tile_items", [256, 1024, 2048, 2304, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_geometry_matches_the_card(card, dtype, tile_items):
+    """The card's occupancy (registers counted) admits the geometry's
+    blocks, and the launcher accepts its shared-memory size."""
+    blocks, regs = K.kernel_occupancy(dtype, tile_items, card)
+    geo = K.launch_geometry(10_000, tile_items, dtype, card)
+    assert 1 <= geo.blocks_per_sm <= max(blocks, 1) and regs > 0
+    props = torch.cuda.get_device_properties(card)
+    assert geo.grid <= geo.blocks_per_sm * props.multi_processor_count
 
 
 @pytest.mark.parametrize("name", ["wheel_hub_spans_tiles", "powerlaw"])
@@ -113,6 +204,34 @@ def test_repeat_calls_bitwise_equal(card):
     a = K.merge_csrmv(*arrs, x, *tiles, 256)
     b = K.merge_csrmv(*arrs, x, *tiles, 256)
     assert torch.equal(a, b)
+    # and on a matrix whose runs hold several tiles each
+    csr = _big("hub").astype(np.float32)
+    op = build_operator(csr)
+    xd = torch.from_numpy(np.random.RandomState(6).uniform(
+        -1, 1, csr.num_cols).astype(np.float32)).to(card)
+    assert torch.equal(op(xd), op(xd))
+
+
+def test_graph_capture_replays_the_eager_call(card):
+    """op(x) captured in a CUDA graph (the tile kernel's shared memory
+    above 48 KB is opted into at load, not per launch) gives the eager
+    call's bits on replay."""
+    csr = CsrMatrix.from_coo(CooMatrix.grid3d(30)).astype(np.float32)
+    csr.values = np.random.RandomState(8).uniform(
+        -1, 1, csr.num_nonzeros).astype(np.float32)
+    op = build_operator(csr)
+    assert K.launch_geometry(op.plan.num_tiles, op.plan.tile_items,
+                             torch.float32, card).opt_in
+    x = torch.ones(csr.num_cols, device=card)
+    eager = op(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = op(x)
+    x.copy_(torch.ones_like(x))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 def test_operator_counts_launches(card):
@@ -151,6 +270,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         K.merge_tile(v, ci, re_, torch.stack([x, x], 1)[:, 0], tr, tn, 1024)
     with pytest.raises(ValueError):
         K.merge_tile(v, ci, re_, x.cpu(), tr, tn, 1024)
+    with pytest.raises(ValueError, match="run_tiles"):
+        K.merge_tile(v, ci, re_, x, tr, tn, 1024, run_tiles=0)
 
 
 def test_plain_route_and_short_operands_refused_on_the_card(card):
