@@ -20,18 +20,24 @@ Phases, one line of output each (any failure exits non-zero and prints no
 4. main    — the user path at full size: grid3d(100) (1M rows, 5.94M
              nonzeros, float32) through build_operator / op(x) /
              op(x, y_in, alpha, beta) / op.mm(X), verified against gold,
-             with the launch counters read around exactly that run, and
-             two op(x) calls bitwise equal; the tile kernel's launch (its
-             persistent blocks G, the tiles each runs, the stages and the
-             shared memory: G carry pairs reach the fix-up); then op(x)
-             timed (device time from CUDA-graph replay, and per eager
-             call), each kernel timed beside its plain version, its bound
-             and its PyTorch library counterpart (cuSPARSE for the tile
-             kernel, index_add_ for the fix-up), the tile kernel and
-             cuSPARSE also with a cold L2 (a 256 MB write before each
-             launch, its own time subtracted) and the tile kernel in
-             float64.  Kernel and library times are CUDA-graph replays; the
-             plain versions synchronise inside, so they are timed eagerly.
+             with the launch counters read around exactly that run (one
+             fused tile-kernel launch per op(x) and per column, no
+             separate fix-up), and two op(x) calls bitwise equal; the
+             fused kernel's launch (its persistent blocks G, the tiles
+             each runs, the stages and the shared memory: its last block
+             sums G carry pairs); then op(x) timed (device time from
+             CUDA-graph replay, and per eager call), op(x) through the
+             fused kernel against merge_tile + carry_fixup at the same runs
+             (bitwise equal; device and eager, in turns), eager op(x)
+             broken down by the host's clock (operator layers, operand
+             checks, allocation, device context, ctypes launch), each
+             kernel timed beside its plain version, its bound and its
+             PyTorch library counterpart (cuSPARSE for the tile kernels,
+             index_add_ for the fix-up), the kernels and cuSPARSE also
+             with a cold L2 (a 256 MB write before each launch, its own
+             time subtracted) and the fused kernel in float64.  Kernel and
+             library times are CUDA-graph replays; the plain versions
+             synchronise inside, so they are timed eagerly.
 5. dia cases — the DIA kernel (K3) against its plain version and gold on
              the JAX package's DIA test shapes (tests/test_dia.py): the
              grid3d/grid2d stencils, the rectangular case, duplicates, the
@@ -42,22 +48,24 @@ Phases, one line of output each (any failure exits non-zero and prints no
              op(x, y_in, 2, 1) / op.mm(X[:, :4]), verified against gold
              with the launch counter read around exactly that run; then
              the same matrix with 1% scattered extras, so the leftover runs
-             the merge kernels at size and both counters move.  op(x) timed
-             (CUDA graph and eager), the kernel beside its plain version,
-             its bound and cuSPARSE on the same matrix; the DIA kernel
-             also with a cold L2.
+             the fused merge kernel at size and both counters move (and
+             the leftover through the two kernels, timed beside it).
+             op(x) timed (CUDA graph and eager), the kernel beside its
+             plain version, its bound and cuSPARSE on the same matrix; the
+             DIA kernel also with a cold L2.
 7. skew    — the uniform / power-law pair at 2^19 rows and 4,194,304
              nonzeros sharing one column stream (bench.py:179-221):
              verified and timed; the per-nonzero ratio is the paper's claim
              that the time does not depend on row-length skew, and fails
-             the run below SKEW_RATIO_MIN.
+             the run below SKEW_RATIO_MIN; the two-kernel path timed too.
 8. driver  — merge_spmv_tpu_torch.bench.driver.run_benchmark on grid2d(1000)
              with the scipy, xla (cuSPARSE), merge and dia backends; every
              backend must verify.
-9. probe   — the op-class probe (P1): each class's kernel against its plain
-             version at a small size, then at the full size (the TPU
-             probe's grid 4096 x unroll 64 x 8 chains) with its rates, the
-             plain version timed and compared at that size too.
+9. probe   — the op-class probe (P1): each class's kernel against its
+             plain version at a small size, then at the full size (the TPU probe's grid
+             4096 x unroll 64 x 8 chains) with its rates and bounds
+             (operations; shared memory or warp shuffles where they bind),
+             the plain version timed and compared at that size too.
 10. the kernels line, nvidia-smi's name and power limit, and the last line.
 """
 
@@ -72,6 +80,61 @@ from concurrent.futures import ThreadPoolExecutor
 TILE_ITEMS_CASES = 1024   # the JAX package's kernel tests use 1024-item tiles
 # uniform / power-law time per nonzero: below this, skew costs time
 SKEW_RATIO_MIN = 0.9
+HOST_CALLS = 200          # calls per host-clock sample of the eager breakdown
+
+
+class MergeDirect:
+    """A merge operator's op(x) straight through the kernel wrappers, for
+    the A/B timing: the fused kernel (``merge_csrmv``, op(x)'s route) or
+    ``merge_tile`` then ``carry_fixup``, both at the fused kernel's runs so
+    that the two give the same bits; the fused kernel counts on the
+    operator's tickets.  Timed as an operator by ``chained_rate_ms``."""
+
+    def __init__(self, K, op, fused, device):
+        self.K, self.op, self.fused = K, op, fused
+        self.plan, self.abs_row_sum_max = op.plan, op.abs_row_sum_max
+        self.run = K.launch_geometry(op.plan.num_tiles, op.plan.tile_items,
+                                     op.values.dtype, device,
+                                     fused=True).run_tiles
+
+    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
+        o, K = self.op, self.K
+        args = (o.values, o.col_indices, o.row_end_offsets, x, o.tile_rows,
+                o.tile_nnz, o.plan.tile_items, y_in, alpha, beta)
+        if self.fused:
+            return K.merge_csrmv(*args, run_tiles=self.run,
+                                 tickets=o.tickets)
+        return K.carry_fixup(*K.merge_tile(*args, run_tiles=self.run), alpha)
+
+
+class DiaDirect:
+    """A DIA operator with a leftover, its op(x) as the DIA kernel and then
+    the leftover's MergeDirect (fused or the two kernels)."""
+
+    def __init__(self, K, DK, op, fused, device):
+        self.DK, self.op = DK, op
+        self.rest = MergeDirect(K, op.rest_op, fused, device)
+        self.plan, self.abs_row_sum_max = op.plan, op.abs_row_sum_max
+
+    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
+        o = self.op
+        y = self.DK.dia_matvec(o.vtab, x, o.offsets_t, o.num_rows,
+                               o.num_cols, alpha)
+        return self.rest(x, y, alpha, 1.0)
+
+
+def host_us(fn, sync):
+    """Host microseconds per ``fn()`` call: HOST_CALLS calls by the host's
+    clock, the device drained before each sample, minimum of 5 samples."""
+    best = float("inf")
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    sync()
+    return best / HOST_CALLS * 1e6
 
 
 def main() -> int:
@@ -115,11 +178,14 @@ def main() -> int:
     info = device_info()
     tile_kernel = []
     for dt in (torch.float32, torch.float64):
-        blocks, regs = K.kernel_occupancy(dt, DEFAULT_TILE_ITEMS, dev)
-        g = K.launch_geometry(1, DEFAULT_TILE_ITEMS, dt, dev)
-        tile_kernel.append(f"{str(dt)[6:]} {regs} registers, "
-                           f"{g.shared_bytes} B dynamic shared memory, "
-                           f"{blocks} blocks per SM")
+        for fused in (False, True):
+            blocks, regs = K.kernel_occupancy(dt, DEFAULT_TILE_ITEMS, dev,
+                                              fused)
+            g = K.launch_geometry(1, DEFAULT_TILE_ITEMS, dt, dev, fused)
+            tile_kernel.append(f"{str(dt)[6:]}{' fused' if fused else ''} "
+                               f"{regs} registers, {g.shared_bytes} B "
+                               f"dynamic shared memory, {blocks} blocks per "
+                               "SM")
     print(f"build: {len(sources)} sources in {build_s:.2f} s; "
           f"{' | '.join(ptxas) or 'cached'}; merge_tile at "
           f"{DEFAULT_TILE_ITEMS} items: {'; '.join(tile_kernel)}; "
@@ -277,18 +343,25 @@ def main() -> int:
     plan = op.plan
     geo = K.launch_geometry(plan.num_tiles, plan.tile_items, torch.float32,
                             dev)
+    geo_f = K.launch_geometry(plan.num_tiles, plan.tile_items, torch.float32,
+                              dev, fused=True)
+    # op(x), op(x, y_in, 2, 1) and 4 columns: one fused launch each
+    one_launch = launches == {"merge_tile": 0, "merge_tile_fused": 6,
+                              "carry_fixup": 0}
     print(f"main: grid3d(100) {n} rows {nnz} nnz float32, {op.describe()}, "
           f"host build {host_s:.1f} s, setup_s {op.setup_s}, launches "
-          f"{launches}, verified {len(checks) - len(bad)}/{len(checks)}"
+          f"{launches} (one fused launch per op(x) and per column: "
+          f"{one_launch}), verified {len(checks) - len(bad)}/{len(checks)}"
           f"{' FAILED ' + str(bad) if bad else ''}; two op(x) calls bitwise "
           f"equal: {repeat_same}")
-    print(f"main merge_tile launch: G = {geo.grid} persistent blocks of "
-          f"{geo.threads} threads ({geo.blocks_per_sm} per SM), "
-          f"{geo.run_tiles} tiles per run over {plan.num_tiles} tiles, "
-          f"{geo.stages} stages, {geo.shared_bytes} B shared memory "
-          f"(opt-in above 48 KB: {geo.opt_in}); carry_fixup takes "
-          f"{geo.grid} pairs")
-    if bad or min(launches.values()) < 1 or not repeat_same:
+    print(f"main merge_tile launch: fused G = {geo_f.grid} persistent blocks "
+          f"of {geo_f.threads} threads ({geo_f.blocks_per_sm} per SM), "
+          f"{geo_f.run_tiles} tiles per run over {plan.num_tiles} tiles, "
+          f"{geo_f.stages} stages, {geo_f.shared_bytes} B shared memory "
+          f"(opt-in above 48 KB: {geo_f.opt_in}), the last block's tail sums "
+          f"{geo_f.grid} pairs; unfused G = {geo.grid} ({geo.blocks_per_sm} "
+          "per SM)")
+    if bad or not one_launch or not repeat_same:
         return 1
 
     peak_gbps = info["peak_hbm_gbps"]
@@ -304,9 +377,91 @@ def main() -> int:
           f"{100 * ref_bound_ms / op_ms:.1f}% of the "
           f"{ref_bound_ms:.4f} ms bound at {peak_gbps:.0f} GB/s")
 
-    # each kernel on the main path's inputs: time, plain time, bound, library
+    # A/B: op(x) through the fused kernel and through merge_tile +
+    # carry_fixup at the same runs, in turns (fused, two, two, fused)
+    fused_op = MergeDirect(K, op, True, dev)
+    two_op = MergeDirect(K, op, False, dev)
+    ab_same = bool(torch.equal(fused_op(xr), two_op(xr)))
+    ab = {"fused": [], "two": []}
+    for name in ("fused", "two", "two", "fused"):
+        o = fused_op if name == "fused" else two_op
+        ab[name].append((chained_rate_ms(o, xd),
+                         chained_rate_ms(o, xd, graph=False)))
+    ab_dev = {k: min(v[0] for v in ab[k]) for k in ab}
+    ab_eager = {k: min(v[1] for v in ab[k]) for k in ab}
+    print(f"main A/B (fused, two kernels, two kernels, fused): device "
+          f"{[round(v[0], 5) for v in ab['fused']]} vs "
+          f"{[round(v[0], 5) for v in ab['two']]} ms, eager "
+          f"{[round(v[1], 5) for v in ab['fused']]} vs "
+          f"{[round(v[1], 5) for v in ab['two']]} ms; best: device fused "
+          f"{ab_dev['fused']:.4f} two {ab_dev['two']:.4f} (fused - two "
+          f"{ab_dev['fused'] - ab_dev['two']:+.4f}), eager fused "
+          f"{ab_eager['fused']:.4f} two {ab_eager['two']:.4f}; fused bitwise "
+          f"equal to the two kernels: {ab_same}")
+    if not ab_same:
+        return 1
+
+    # eager op(x) by the host's clock, layer by layer
+    sync = torch.cuda.synchronize
     vals, cols, rowends = op.values, op.col_indices, op.row_end_offsets
     tr, tn, T = op.tile_rows, op.tile_nnz, plan.tile_items
+    lib = K._device_lib(xd.device.index)
+    yb = torch.empty(n, dtype=torch.float32, device=dev)
+    crb = torch.empty(geo_f.grid, dtype=torch.int32, device=dev)
+    cvb = torch.empty(geo_f.grid, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def checks_only():
+        K.num_merge_tiles(n, nnz, T)
+        K._is_cpu(vals, cols, rowends, xd, tr, tn, None)
+        K.launch_geometry(plan.num_tiles, T, torch.float32, dev, True)
+        K._check("values", vals, torch.float32)
+        K._check("col_indices", cols, torch.int32, vals.shape)
+        K._check("row_end_offsets", rowends, torch.int32)
+        K._check("x", xd, torch.float32)
+        K._check("tile_rows", tr, torch.int32)
+        K._check("tile_nnz", tn, torch.int32, tr.shape)
+
+    def alloc_only():
+        torch.empty(n, dtype=torch.float32, device=dev)
+        torch.empty(geo_f.grid, dtype=torch.int32, device=dev)
+        torch.empty(geo_f.grid, dtype=torch.float32, device=dev)
+
+    def context_only():
+        with torch.cuda.device(dev):
+            torch.cuda.current_stream(dev).cuda_stream
+
+    def launch_only():
+        lib.merge_tile_f32(vals.data_ptr(), cols.data_ptr(),
+                           rowends.data_ptr(), xd.data_ptr(), None,
+                           tr.data_ptr(), tn.data_ptr(), 1.0, 0.0,
+                           yb.data_ptr(), crb.data_ptr(), cvb.data_ptr(), n,
+                           plan.num_tiles, geo_f.run_tiles, geo_f.threads,
+                           geo_f.shared_bytes, 1, op.tickets.data_ptr(),
+                           stream)
+
+    host = {"op(x)": host_us(lambda: op(xd), sync),
+            "merge_csrmv": host_us(lambda: K.merge_csrmv(
+                vals, cols, rowends, xd, tr, tn, T, tickets=op.tickets),
+                sync),
+            "checks": host_us(checks_only, sync),
+            "allocation": host_us(alloc_only, sync),
+            "context": host_us(context_only, sync),
+            "launch": host_us(launch_only, sync),
+            "two": host_us(lambda: two_op(xd), sync)}
+    rest_us = (host["merge_csrmv"] - host["checks"] - host["allocation"]
+               - host["context"] - host["launch"])
+    print("main eager host breakdown (us per call, host clock, "
+          f"{HOST_CALLS} calls per sample): op(x) {host['op(x)']:.2f} = "
+          f"operator layers {host['op(x)'] - host['merge_csrmv']:.2f} + "
+          f"merge_csrmv wrapper {host['merge_csrmv']:.2f}, of which checks "
+          f"and geometry {host['checks']:.2f}, allocation "
+          f"{host['allocation']:.2f}, device context and stream "
+          f"{host['context']:.2f}, ctypes launch {host['launch']:.2f}, rest "
+          f"{rest_us:.2f}; the two-kernel path through its wrappers "
+          f"{host['two']:.2f}")
+
+    # each kernel on the main path's inputs: time, plain time, bound, library
     yk, crk, cvk = K.merge_tile(vals, cols, rowends, xd, tr, tn, T)
     run = geo.run_tiles
     yp, crp, cvp = K.merge_tile_plain(vals, cols, rowends, xd, tr, tn, T,
@@ -328,17 +483,31 @@ def main() -> int:
     fix_err = float((fk - fp).abs().max())
     fix_ok = compare_results(fk.cpu().numpy(), fp.cpu().numpy(),
                              verbose=False) is None
-    print(f"kernel vs plain on the main path: merge_tile max|err| "
+    run_f = geo_f.run_tiles
+    yf = K.merge_csrmv(vals, cols, rowends, xd, tr, tn, T)
+    yfp = K.merge_csrmv_plain(vals, cols, rowends, xd, tr, tn, T,
+                              run_tiles=run_f)
+    fused_err = float((yf - yfp).abs().max())
+    fused_ok = compare_results(yf.cpu().numpy(), yfp.cpu().numpy(),
+                               verbose=False,
+                               abs_bound=csr.spmv_abs_bound(x1)) is None
+    print(f"kernel vs plain on the main path: merge_tile_fused max|err| "
+          f"{fused_err:.3e} ok={fused_ok}; merge_tile max|err| "
           f"{tile_err:.3e} ok={tile_ok}; carry_fixup max|err| {fix_err:.3e} "
           f"ok={fix_ok}")
-    if not (tile_ok and fix_ok):
+    if not (tile_ok and fix_ok and fused_ok):
         return 1
 
+    fused_ms = event_ms(lambda: K.merge_csrmv(vals, cols, rowends, xd, tr,
+                                              tn, T))
     tile_ms = event_ms(lambda: K.merge_tile(vals, cols, rowends, xd, tr, tn,
                                             T))
     # the plain versions synchronise (data-dependent sizes): timed eagerly
     tile_plain_ms = event_ms(lambda: K.merge_tile_plain(
         vals, cols, rowends, xd, tr, tn, T, run_tiles=run), iters=5,
+        graph=False)
+    fused_plain_ms = event_ms(lambda: K.merge_csrmv_plain(
+        vals, cols, rowends, xd, tr, tn, T, run_tiles=run_f), iters=5,
         graph=False)
     # int32 offsets and columns, the index width the tile kernel streams
     csr_t = torch.sparse_csr_tensor(
@@ -358,50 +527,65 @@ def main() -> int:
     # 256 MB write before each launch evicts it (cold = both - the write)
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     flush_ms = event_ms(lambda: flush.fill_(1.0), iters=20)
+    fused_cold_ms = event_ms(lambda: (flush.fill_(1.0), K.merge_csrmv(
+        vals, cols, rowends, xd, tr, tn, T)), iters=20) - flush_ms
+    two_cold_ms = event_ms(lambda: (flush.fill_(1.0), K.carry_fixup(
+        *K.merge_tile(vals, cols, rowends, xd, tr, tn, T, run_tiles=run_f))),
+        iters=20) - flush_ms
     tile_cold_ms = event_ms(lambda: (flush.fill_(1.0), K.merge_tile(
         vals, cols, rowends, xd, tr, tn, T)), iters=20) - flush_ms
     cusparse_cold_ms = event_ms(lambda: (flush.fill_(1.0), torch.mv(
         csr_t, xd)), iters=20) - flush_ms
     vals64, xd64 = vals.double(), xd.double()
-    geo64 = K.launch_geometry(plan.num_tiles, T, torch.float64, dev)
-    y64 = K.carry_fixup(*K.merge_tile(vals64, cols, rowends, xd64, tr, tn,
-                                      T))
+    geo64 = K.launch_geometry(plan.num_tiles, T, torch.float64, dev,
+                              fused=True)
+    y64 = K.merge_csrmv(vals64, cols, rowends, xd64, tr, tn, T)
     ok64 = np.allclose(y64.cpu().numpy(),
                        csr.astype(np.float64).spmv_gold(np.ones(n)),
-                       rtol=1e-12, atol=0.0)
-    tile64_ms = event_ms(lambda: K.merge_tile(vals64, cols, rowends, xd64,
-                                              tr, tn, T))
+                       rtol=1e-12, atol=0.0) and torch.equal(
+        y64, K.carry_fixup(*K.merge_tile(vals64, cols, rowends, xd64, tr, tn,
+                                         T, run_tiles=geo64.run_tiles)))
+    fused64_ms = event_ms(lambda: K.merge_csrmv(vals64, cols, rowends, xd64,
+                                                tr, tn, T))
     del vals64, xd64, y64
 
     # bound: each input read once, each output written once, at the
-    # published HBM rate; operations at the published fp32 rate
+    # published HBM rate; operations at the published fp32 rate.  The
+    # fused kernel's carry pairs are scratch, not an output.
     vs = 4
     pairs = geo.grid
     coord_bytes = 2 * (plan.num_tiles + 1) * 4
-    tile_bytes = (nnz * (vs + 4) + n * 4 + csr.num_cols * vs + coord_bytes
-                  + n * vs + pairs * (4 + vs))
+    fused_bytes = (nnz * (vs + 4) + n * 4 + csr.num_cols * vs + coord_bytes
+                   + n * vs)
+    fused_bound = max(fused_bytes / peak_gbps / 1e6,
+                      2 * nnz / PEAK_FP32_GFLOPS / 1e6)
+    tile_bytes = fused_bytes + pairs * (4 + vs)
     tile_bound = max(tile_bytes / peak_gbps / 1e6,
                      2 * nnz / PEAK_FP32_GFLOPS / 1e6)
-    tile64_bytes = (nnz * (8 + 4) + n * 4 + csr.num_cols * 8 + coord_bytes
-                    + n * 8 + geo64.grid * (4 + 8))
+    fused64_bytes = (nnz * (8 + 4) + n * 4 + csr.num_cols * 8 + coord_bytes
+                     + n * 8)
     fix_rows = int(torch.unique(crk[crk < n]).numel())
     fix_bytes = pairs * (4 + vs) + 2 * fix_rows * vs
     fix_bound = max(fix_bytes / peak_gbps / 1e6,
                     (pairs + fix_rows) / PEAK_FP32_GFLOPS / 1e6)
-    print(f"kernel timing: merge_tile {tile_ms:.4f} ms warm, "
-          f"{tile_cold_ms:.4f} ms cold L2 ({flush_ms:.4f} ms write "
-          f"subtracted); cuSPARSE {cusparse_ms:.4f} warm, "
-          f"{cusparse_cold_ms:.4f} cold; merge_tile / cuSPARSE "
-          f"{tile_ms / cusparse_ms:.3f} warm, "
-          f"{tile_cold_ms / cusparse_cold_ms:.3f} cold; plain "
-          f"{tile_plain_ms:.4f}; bound {tile_bound:.4f} for {tile_bytes} B "
-          f"({100 * tile_bound / tile_ms:.1f}% of it warm, "
-          f"{100 * tile_bound / tile_cold_ms:.1f}% cold); float64 "
-          f"{tile64_ms:.4f} ms (G = {geo64.grid}, bound "
-          f"{tile64_bytes / peak_gbps / 1e6:.4f}, verified {ok64}); "
-          f"carry_fixup {fix_ms:.4f} ms on {pairs} pairs (plain "
-          f"{fix_plain_ms:.4f}, index_add_ {index_add_ms:.4f}, bound "
-          f"{fix_bound:.6f} for {fix_bytes} B)")
+    print(f"kernel timing: merge_tile_fused {fused_ms:.4f} ms warm, "
+          f"{fused_cold_ms:.4f} ms cold L2 ({flush_ms:.4f} ms write "
+          f"subtracted), plain {fused_plain_ms:.4f}, bound "
+          f"{fused_bound:.4f} for {fused_bytes} B "
+          f"({100 * fused_bound / fused_ms:.1f}% of it warm, "
+          f"{100 * fused_bound / fused_cold_ms:.1f}% cold); merge_tile + "
+          f"carry_fixup at the same runs cold {two_cold_ms:.4f} (fused - "
+          f"two {fused_cold_ms - two_cold_ms:+.4f}); merge_tile "
+          f"{tile_ms:.4f} warm, {tile_cold_ms:.4f} cold, plain "
+          f"{tile_plain_ms:.4f}, bound {tile_bound:.4f}; cuSPARSE "
+          f"{cusparse_ms:.4f} warm, {cusparse_cold_ms:.4f} cold; fused / "
+          f"cuSPARSE {fused_ms / cusparse_ms:.3f} warm, "
+          f"{fused_cold_ms / cusparse_cold_ms:.3f} cold; float64 fused "
+          f"{fused64_ms:.4f} ms (G = {geo64.grid}, bound "
+          f"{fused64_bytes / peak_gbps / 1e6:.4f}, verified and equal to "
+          f"the two kernels {ok64}); carry_fixup {fix_ms:.4f} ms on {pairs} "
+          f"pairs (plain {fix_plain_ms:.4f}, index_add_ {index_add_ms:.4f}, "
+          f"bound {fix_bound:.6f} for {fix_bytes} B)")
     if not ok64:
         return 1
 
@@ -548,13 +732,29 @@ def main() -> int:
                              abs_bound=csr_mix.spmv_abs_bound(x1)) is None
     print(f"dia main, 1% extras: {csr_mix.num_nonzeros} nnz, "
           f"{op_mix.describe()}, launches {mix_launches}, verified {mix_ok}")
-    if not mix_ok or min(mix_launches.values()) < 1:
+    # the leftover: one fused launch, no separate fix-up
+    if not mix_ok or mix_launches != {"dia_matvec": 1, "merge_tile": 0,
+                                      "merge_tile_fused": 1,
+                                      "carry_fixup": 0}:
         return 1
     dia_launches["dia_matvec"] += mix_launches["dia_matvec"]
 
     dia_op_ms = chained_rate_ms(op_dia, xd)
     dia_op_eager_ms = chained_rate_ms(op_dia, xd, graph=False)
     mix_op_ms = chained_rate_ms(op_mix, xd)
+    mix_fused = DiaDirect(K, DK, op_mix, True, dev)
+    mix_two = DiaDirect(K, DK, op_mix, False, dev)
+    xm = torch.from_numpy(np.random.RandomState(13).uniform(
+        -1, 1, n).astype(np.float32)).to(dev)
+    mix_same = bool(torch.equal(mix_fused(xm), mix_two(xm)))
+    mix_ab = [chained_rate_ms(o, xd) for o in (mix_fused, mix_two, mix_two,
+                                                mix_fused)]
+    print(f"dia main, 1% extras A/B (fused, two kernels, two kernels, "
+          f"fused): device {[round(t, 5) for t in mix_ab]} ms, fused - two "
+          f"{min(mix_ab[0], mix_ab[3]) - min(mix_ab[1], mix_ab[2]):+.4f}; "
+          f"fused bitwise equal to the two kernels: {mix_same}")
+    if not mix_same:
+        return 1
     vt, offs_t = op_dia.vtab, op_dia.offsets_t
     D = vt.shape[0]
     kd = DK.dia_matvec(vt, xd, offs_t, n, n)
@@ -584,12 +784,14 @@ def main() -> int:
           f"kernel vs plain max|err| {dia_err:.3e} ok={dia_ok}")
     print(f"cold L2 (256 MB written before each launch, {flush_ms:.4f} ms "
           f"subtracted): dia_matvec {dia_cold_ms:.4f} ms "
-          f"({100 * dia_bound / dia_cold_ms:.1f}% of its bound); merge_tile "
+          f"({100 * dia_bound / dia_cold_ms:.1f}% of its bound); "
+          f"merge_tile_fused {fused_cold_ms:.4f} ms, merge_tile "
           f"{tile_cold_ms:.4f} ms and cuSPARSE {cusparse_cold_ms:.4f} ms "
           "(main phase)")
     if not dia_ok:
         return 1
-    del op_dia, op_mix, csr_mix, rows_all, cols_all, vals_all
+    del op_dia, op_mix, csr_mix, rows_all, cols_all, vals_all, mix_fused
+    del mix_two, fused_op, two_op
 
     # ------------------------------------------------------------ 7 skew pair
     del csr, op, csr_t, X, Y
@@ -617,14 +819,21 @@ def main() -> int:
         ok = compare_results(o(xo).cpu().numpy(), c.spmv_gold(np.ones(nk)),
                              verbose=False,
                              abs_bound=c.spmv_abs_bound(np.ones(nk))) is None
+        two = MergeDirect(K, o, False, dev)
+        ok = ok and bool(torch.equal(MergeDirect(K, o, True, dev)(xo),
+                                     two(xo)))
         skew[name] = (chained_rate_ms(o, xo), ok,
-                      int(np.diff(c.row_offsets).max()))
-        del c, o
-    (ms_u, ok_u, max_u), (ms_p, ok_p, max_p) = skew["uniform"], skew["powerlaw"]
+                      int(np.diff(c.row_offsets).max()),
+                      chained_rate_ms(two, xo))
+        del c, o, two
+    (ms_u, ok_u, max_u, two_u) = skew["uniform"]
+    (ms_p, ok_p, max_p, two_p) = skew["powerlaw"]
     print(f"skew: {nk} rows {nnz_k} nnz, uniform {ms_u:.4f} ms (max row "
-          f"{max_u}, verified {ok_u}), powerlaw {ms_p:.4f} ms (max row "
-          f"{max_p}, verified {ok_p}), per-nnz ratio uniform/powerlaw "
-          f"{ms_u / ms_p:.3f} (at least {SKEW_RATIO_MIN})")
+          f"{max_u}, verified and fused bitwise equal to the two kernels "
+          f"{ok_u}), powerlaw {ms_p:.4f} ms (max row {max_p}, verified "
+          f"{ok_p}), per-nnz ratio uniform/powerlaw {ms_u / ms_p:.3f} (at "
+          f"least {SKEW_RATIO_MIN}); two kernels: uniform {two_u:.4f}, "
+          f"powerlaw {two_p:.4f}, ratio {two_u / two_p:.3f}")
     if not (ok_u and ok_p) or ms_u / ms_p < SKEW_RATIO_MIN:
         return 1
 
@@ -683,6 +892,8 @@ def main() -> int:
                    else r["max_abs_err"] == 0.0)
         smem = (f", smem bound {r['smem_bound_ms']:.4f} ms"
                 if "smem_bound_ms" in r else "")
+        if "shuffle_bound_ms" in r:
+            smem += f", shuffle bound {r['shuffle_bound_ms']:.4f} ms"
         print(f"probe {cls}: {r['ms_per_launch']:.4f} ms per launch of "
               f"{r['blocks']} blocks, {r['ops_per_s']:.4e} ops/s, "
               f"{r['ops_per_sm_per_clock']:.2f} per SM per clock at "
@@ -694,24 +905,34 @@ def main() -> int:
         return 1
 
     # ------------------------------------------------------------ 10 report
+    # main_path: false marks the unfused instantiation and the separate
+    # fix-up, which op(x) no longer launches (their launches are 0 there)
     src = "merge_spmv_tpu_torch/csrc/merge_csrmv.cu"
     kernels = [
+        {"name": "merge_tile_fused", "route": "cuda", "source": src,
+         "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
+         "launches": launches["merge_tile_fused"], "max_abs_err": fused_err,
+         "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
+         "bound_by": "bytes", "library_ms": cusparse_ms, "main_path": True},
         {"name": "merge_tile", "route": "cuda", "source": src,
          "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
          "launches": launches["merge_tile"], "max_abs_err": tile_err,
          "ms": tile_ms, "plain_ms": tile_plain_ms, "bound_ms": tile_bound,
-         "bound_by": "bytes", "library_ms": cusparse_ms},
+         "bound_by": "bytes", "library_ms": cusparse_ms,
+         "main_path": False},
         {"name": "carry_fixup", "route": "cuda", "source": src,
          "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:919",
          "launches": launches["carry_fixup"], "max_abs_err": fix_err,
          "ms": fix_ms, "plain_ms": fix_plain_ms, "bound_ms": fix_bound,
-         "bound_by": "bytes", "library_ms": index_add_ms},
+         "bound_by": "bytes", "library_ms": index_add_ms,
+         "main_path": False},
         {"name": "dia_matvec", "route": "cuda",
          "source": "merge_spmv_tpu_torch/csrc/dia_matvec.cu",
          "replaces": "merge_spmv_tpu/ops/dia_pallas.py:82",
          "launches": dia_launches["dia_matvec"], "max_abs_err": dia_err,
          "ms": dia_ms, "plain_ms": dia_plain_ms, "bound_ms": dia_bound,
-         "bound_by": "bytes", "library_ms": dia_cusparse_ms},
+         "bound_by": "bytes", "library_ms": dia_cusparse_ms,
+         "main_path": True},
     ]
     for cls in P.CLASSES:
         r = rates[cls]
@@ -722,7 +943,8 @@ def main() -> int:
              "launches": probe_launches[cls],
              "max_abs_err": r["max_abs_err"], "ms": r["ms_per_launch"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": None})
+             "bound_by": r["bound_by"], "library_ms": None,
+             "main_path": True})
     print(json.dumps({"kernels": kernels}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

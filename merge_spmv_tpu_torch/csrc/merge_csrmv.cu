@@ -41,10 +41,20 @@
 //                       A tile's rows and nonzeros together are at most
 //                       tile_items, so no thread takes more than kItems
 //                       nonzeros and kItems rows, however skewed the rows.
-//   carry_fixup_kernel  adds alpha * (sum of the carries of one row) into y,
+//   the fix-up          adds alpha * (sum of the carries of one row) into y,
 //                       summing each row's carries in run order: no
 //                       floating-point atomics, so two calls on the same input
-//                       give the same bits.
+//                       give the same bits.  The fused instantiation of
+//                       merge_tile_kernel (kFused) runs it as its tail: each
+//                       block, once its run's rows and carry pair are
+//                       written, takes a ticket from a counter with an
+//                       acquire-release increment that wraps it to 0 at the
+//                       last ticket; the block that takes the last ticket runs
+//                       the fix-up over all G pairs.  No block waits on
+//                       another, so G may exceed one resident wave.  This
+//                       is op(x)'s one launch.
+//                       carry_fixup_kernel runs the same fix-up as a launch
+//                       of its own, after the unfused instantiation.
 //
 // What bounds it: HBM bytes.  Per nonzero a value and a column index stream
 // once, x is gathered through the read-only cache, and per row one row end is
@@ -61,7 +71,11 @@
 // Plain C interface (loaded with ctypes): every pointer and the stream are
 // void*, every entry returns a CUDA error code (a launch returns
 // cudaGetLastError() right after it).  Kernels allocate nothing and launch on
-// the caller's stream.
+// the caller's stream.  The fused kernel takes its ticket counter from the
+// caller (an operator allocates one at build, zeroed), or, given none, uses
+// this module's one per device; each launch leaves it at 0.  Launches that
+// share a counter must be stream-ordered: two running at once would share
+// its tickets.
 
 #include <cuda_runtime.h>
 
@@ -282,14 +296,44 @@ __device__ __forceinline__ Header prepare(const unsigned char* stage,
   return h;
 }
 
+// The fix-up of pairs t = first, first + step, ...: where pair t is the
+// first carry of its row r < num_rows, y[r] += alpha * (the carries of r,
+// summed in run order).  In the fused kernel the pairs and y were written
+// by other blocks of the same launch, so every load goes through L2
+// (__ldcg); the read-only path (__ldg) is not coherent within a launch.
+// The loads of a pair's row, its neighbours' rows and its carry do not
+// depend on each other and are issued together, so a row with one carry
+// (the common case) costs two L2 round trips: these, then y[r].
 template <typename V>
+__device__ void fix_up_pairs(const int* carry_row, const V* carry_val,
+                             int num_pairs, int num_rows, V alpha, V* y,
+                             int first, int step) {
+  for (int t = first; t < num_pairs; t += step) {
+    const int r = __ldcg(carry_row + t);
+    const int r_before = __ldcg(carry_row + max(t - 1, 0));
+    int r_next = __ldcg(carry_row + min(t + 1, num_pairs - 1));
+    V sum = __ldcg(carry_val + t);
+    if (r >= num_rows || (t > 0 && r_before == r)) continue;
+    for (int u = t + 1; u < num_pairs && r_next == r;) {
+      sum += __ldcg(carry_val + u);
+      if (++u < num_pairs) r_next = __ldcg(carry_row + u);
+    }
+    y[r] = __ldcg(y + r) + alpha * sum;
+  }
+}
+
+// The fused kernel's ticket counter for launches given none.
+__device__ unsigned int g_tickets = 0;
+
+template <typename V, bool kFused>
 __global__ void __launch_bounds__(kMaxThreads) merge_tile_kernel(
     const V* __restrict__ values, const int* __restrict__ cols,
     const int* __restrict__ row_end, const V* __restrict__ x,
     const V* __restrict__ y_in, const int* __restrict__ tile_rows,
     const int* __restrict__ tile_nnz, V alpha, V beta,
     V* __restrict__ y, int* __restrict__ carry_row,
-    V* __restrict__ carry_val, int num_tiles, int run_tiles) {
+    V* __restrict__ carry_val, int num_rows, int num_tiles,
+    int run_tiles, unsigned int* tickets) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile_len = blockDim.x * kItems;
   const int nwarps = blockDim.x >> 5;
@@ -479,6 +523,33 @@ __global__ void __launch_bounds__(kMaxThreads) merge_tile_kernel(
       nC = __ldg(tile_nnz + t + 5);
     }
   }
+
+  if (kFused) {
+    // Once the block's threads have written their y rows and thread 0 the
+    // run's pair (the barrier orders them before thread 0's next step),
+    // thread 0 takes a ticket with an acquire-release atomic at device
+    // scope: it releases the block's writes, and the block that takes the
+    // last ticket acquires every other block's, which the barrier after
+    // passes on to its threads, and runs the fix-up.  This is the pattern
+    // of cooperative groups' grid barrier, without the wait.  The
+    // increment wraps: it stores 0 where it hands out ticket G - 1, so the
+    // counter is 0 again for the next launch without a store of its own.
+    // The warp totals are no longer read: s_warp_flag[0] carries "this
+    // block took the last ticket" to the block's threads.
+    __syncthreads();
+    if (tid == 0) {
+      unsigned int* counter = tickets != nullptr ? tickets : &g_tickets;
+      unsigned int ticket;
+      asm volatile("atom.acq_rel.gpu.inc.u32 %0, [%1], %2;"
+                   : "=r"(ticket) : "l"(counter), "r"(gridDim.x - 1)
+                   : "memory");
+      s_warp_flag[0] = ticket == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (s_warp_flag[0])
+      fix_up_pairs(carry_row, carry_val, static_cast<int>(gridDim.x),
+                   num_rows, alpha, y, tid, blockDim.x);
+  }
 }
 
 template <typename V>
@@ -486,51 +557,53 @@ __global__ void carry_fixup_kernel(const int* __restrict__ carry_row,
                                    const V* __restrict__ carry_val,
                                    int num_pairs, int num_rows, V alpha,
                                    V* __restrict__ y) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= num_pairs) return;
-  const int r = carry_row[t];
-  if (r >= num_rows) return;
-  if (t > 0 && carry_row[t - 1] == r) return;   // not the first carry of r
-  V sum = carry_val[t];
-  for (int u = t + 1; u < num_pairs && carry_row[u] == r; ++u)
-    sum += carry_val[u];
-  y[r] += alpha * sum;
+  fix_up_pairs(carry_row, carry_val, num_pairs, num_rows, alpha, y,
+               static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x),
+               static_cast<int>(gridDim.x * blockDim.x));
 }
 
-template <typename V>
+template <typename V, bool kFused>
 int launch_merge_tile(const void* values, const void* cols,
                       const void* row_end, const void* x, const void* y_in,
                       const void* tile_rows, const void* tile_nnz,
                       double alpha, double beta, void* y, void* carry_row,
-                      void* carry_val, int num_tiles, int run_tiles,
-                      int threads, int shared_bytes, void* stream) {
+                      void* carry_val, int num_rows, int num_tiles,
+                      int run_tiles, int threads, int shared_bytes,
+                      void* tickets, void* stream) {
   if (num_tiles < 1 || run_tiles < 1 || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 ||
       static_cast<size_t>(shared_bytes) !=
           tile_shared_bytes<V>(threads * kItems))
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = num_tiles / run_tiles + (num_tiles % run_tiles != 0);
-  merge_tile_kernel<V><<<grid, threads, shared_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
+  merge_tile_kernel<V, kFused><<<grid, threads, shared_bytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const V*>(values), static_cast<const int*>(cols),
       static_cast<const int*>(row_end), static_cast<const V*>(x),
       static_cast<const V*>(y_in), static_cast<const int*>(tile_rows),
       static_cast<const int*>(tile_nnz), static_cast<V>(alpha),
       static_cast<V>(beta), static_cast<V*>(y),
-      static_cast<int*>(carry_row), static_cast<V*>(carry_val), num_tiles,
-      run_tiles);
+      static_cast<int*>(carry_row), static_cast<V*>(carry_val), num_rows,
+      num_tiles, run_tiles, static_cast<unsigned int*>(tickets));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename V>
+template <typename V, bool kFused>
 int merge_tile_occupancy(int threads, int shared_bytes, int* blocks_per_sm,
                          int* registers) {
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, merge_tile_kernel<V>);
+  cudaError_t e = cudaFuncGetAttributes(&attr, merge_tile_kernel<V, kFused>);
   if (e != cudaSuccess) return static_cast<int>(e);
   *registers = attr.numRegs;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, merge_tile_kernel<V>, threads, shared_bytes));
+      blocks_per_sm, merge_tile_kernel<V, kFused>, threads, shared_bytes));
+}
+
+template <typename V, bool kFused>
+cudaError_t opt_in_shared() {
+  return cudaFuncSetAttribute(merge_tile_kernel<V, kFused>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxSharedBytes);
 }
 
 template <typename V>
@@ -550,55 +623,44 @@ int launch_carry_fixup(const void* carry_row, const void* carry_val,
 
 extern "C" {
 
-// Lets the tile kernel take more than the default 48 KB of dynamic shared
-// memory on the current device.  Called once, before any launch, so that no
-// launch (nor a CUDA graph that captures one) sets an attribute.
+// Lets the tile kernel's four instantiations take more than the default
+// 48 KB of dynamic shared memory on the current device.  Called once, before
+// any launch, so that no launch (nor a CUDA graph that captures one) sets an
+// attribute.
 int merge_csrmv_init() {
-  cudaError_t e = cudaFuncSetAttribute(
-      merge_tile_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSharedBytes);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(merge_tile_kernel<double>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxSharedBytes);
+  cudaError_t e = opt_in_shared<float, false>();
+  if (e == cudaSuccess) e = opt_in_shared<float, true>();
+  if (e == cudaSuccess) e = opt_in_shared<double, false>();
+  if (e == cudaSuccess) e = opt_in_shared<double, true>();
   return static_cast<int>(e);
 }
 
-int merge_tile_f32(const void* values, const void* cols, const void* row_end,
-                   const void* x, const void* y_in, const void* tile_rows,
-                   const void* tile_nnz, double alpha, double beta, void* y,
-                   void* carry_row, void* carry_val, int num_tiles,
-                   int run_tiles, int threads, int shared_bytes,
-                   void* stream) {
-  return launch_merge_tile<float>(values, cols, row_end, x, y_in, tile_rows,
-                                  tile_nnz, alpha, beta, y, carry_row,
-                                  carry_val, num_tiles, run_tiles, threads,
-                                  shared_bytes, stream);
-}
+// fused != 0 launches the instantiation with the fix-up as its tail: y is
+// then the finished result, carry_row / carry_val are its scratch, and
+// tickets is its counter (one zeroed unsigned int; null: the module's).
+#define MERGE_TILE_ENTRY(SFX, V)                                             \
+  int merge_tile_##SFX(const void* values, const void* cols,                 \
+                       const void* row_end, const void* x, const void* y_in, \
+                       const void* tile_rows, const void* tile_nnz,          \
+                       double alpha, double beta, void* y, void* carry_row,  \
+                       void* carry_val, int num_rows, int num_tiles,         \
+                       int run_tiles, int threads, int shared_bytes,         \
+                       int fused, void* tickets, void* stream) {             \
+    return (fused ? launch_merge_tile<V, true> : launch_merge_tile<V, false>)( \
+        values, cols, row_end, x, y_in, tile_rows, tile_nnz, alpha, beta, y, \
+        carry_row, carry_val, num_rows, num_tiles, run_tiles, threads,       \
+        shared_bytes, tickets, stream);                                      \
+  }                                                                          \
+  int merge_tile_occupancy_##SFX(int fused, int threads, int shared_bytes,   \
+                                 int* blocks_per_sm, int* registers) {       \
+    return (fused ? merge_tile_occupancy<V, true>                            \
+                  : merge_tile_occupancy<V, false>)(                         \
+        threads, shared_bytes, blocks_per_sm, registers);                    \
+  }
 
-int merge_tile_f64(const void* values, const void* cols, const void* row_end,
-                   const void* x, const void* y_in, const void* tile_rows,
-                   const void* tile_nnz, double alpha, double beta, void* y,
-                   void* carry_row, void* carry_val, int num_tiles,
-                   int run_tiles, int threads, int shared_bytes,
-                   void* stream) {
-  return launch_merge_tile<double>(values, cols, row_end, x, y_in, tile_rows,
-                                   tile_nnz, alpha, beta, y, carry_row,
-                                   carry_val, num_tiles, run_tiles, threads,
-                                   shared_bytes, stream);
-}
-
-int merge_tile_occupancy_f32(int threads, int shared_bytes,
-                             int* blocks_per_sm, int* registers) {
-  return merge_tile_occupancy<float>(threads, shared_bytes, blocks_per_sm,
-                                     registers);
-}
-
-int merge_tile_occupancy_f64(int threads, int shared_bytes,
-                             int* blocks_per_sm, int* registers) {
-  return merge_tile_occupancy<double>(threads, shared_bytes, blocks_per_sm,
-                                      registers);
-}
+MERGE_TILE_ENTRY(f32, float)
+MERGE_TILE_ENTRY(f64, double)
+#undef MERGE_TILE_ENTRY
 
 int carry_fixup_f32(const void* carry_row, const void* carry_val,
                     int num_pairs, int num_rows, double alpha, void* y,

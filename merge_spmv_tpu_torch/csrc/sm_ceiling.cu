@@ -13,8 +13,15 @@
 //             compare plus select;
 //   gather    g = (g + 1)[:, (7 * col + t) & 127]: a cross-lane gather of a
 //             128-wide row.  A row is one warp, each lane holding columns
-//             lane + 32 s (s = 0..3); each output value takes four
-//             __shfl_sync rounds (one per source slot) and a select;
+//             lane + 32 s (s = 0..3).  Output slot s of lane d needs column
+//             q = (7 (d + 32 s) + t) & 127, held by lane (7 d + t) & 31 in
+//             slot q >> 5.  That lane is the same in every round s, and as
+//             7 is odd each lane is read by exactly one other, lane
+//             23 (l - t) & 31 (7 * 23 = 1 mod 32), which in round s wants
+//             slot (m - s) & 3 for an m fixed per step.  So the sender
+//             rotates its four values by m (two stages of selects on two
+//             predicates fixed per step) and each round is one __shfl_sync:
+//             per lane per step 4 shuffles, 8 selects and 4 adds;
 //   dynfetch  acc += table[(37 t + 11 u + c) % (table_rows - 8)] broadcast
 //             over the 8 rows: shared-memory loads at data-dependent rows;
 //   statfetch acc += table[(11 u + 7 c) % (table_rows - 8)]: shared-memory
@@ -30,9 +37,10 @@
 // so no integer division sits in the timed loop.
 //
 // What bounds it: operations.  fma at the data sheet's 67 TFLOP/s (128
-// FFMA lanes per SM per clock); the fetch classes at 32 banks x 4 bytes per
-// clock per SM of shared memory.  Its device-memory traffic is 4 KB in and
-// 4 KB per block out.
+// FFMA lanes per SM per clock); gather at the warp shuffle's 32 lanes per
+// clock per SM; the fetch classes at 32 banks x 4 bytes per clock per SM
+// of shared memory.  Its device-memory traffic is 4 KB in and 4 KB per
+// block out.
 //
 // Plain C interface (loaded with ctypes): pointers and the stream are void*,
 // every entry returns cudaGetLastError() right after its launch.
@@ -93,30 +101,26 @@ __global__ void __launch_bounds__(kThreads) sm_ceiling_kernel(
             acc[c][s] = (lane + 32 * s == want) ? b[s] : acc[c][s];
         }
     } else if (CLS == kGather) {
-      int src_lane[kSlots], src_slot[kSlots];
-#pragma unroll
-      for (int s = 0; s < kSlots; ++s) {
-        const int q = ((lane + 32 * s) * 7 + t) & 127;
-        src_lane[s] = q & 31;
-        src_slot[s] = q >> 5;
-      }
+      const int src = (7 * lane + t) & 31;           // read in every round
+      const int reader = (23 * (lane - t)) & 31;     // the lane reading us
+      const int m = ((7 * reader + t) & 127) >> 5;   // its slot in round 0
+      const bool rot1 = m & 1, rot2 = m & 2;
 #pragma unroll 2
       for (int u = 0; u < unroll; ++u)
 #pragma unroll
         for (int c = 0; c < CHAINS; ++c) {
-          float g[kSlots];
+          float g[kSlots], h[kSlots], r[kSlots];
 #pragma unroll
           for (int s = 0; s < kSlots; ++s) g[s] = acc[c][s] + 1.0f;
+          // r[j] = g[(j + m) & 3]
 #pragma unroll
-          for (int s = 0; s < kSlots; ++s) {
-            float v = 0.0f;
+          for (int s = 0; s < kSlots; ++s) h[s] = rot1 ? g[(s + 1) & 3] : g[s];
 #pragma unroll
-            for (int k = 0; k < kSlots; ++k) {
-              const float w = __shfl_sync(kFull, g[k], src_lane[s]);
-              v = (src_slot[s] == k) ? w : v;
-            }
-            acc[c][s] = v;
-          }
+          for (int s = 0; s < kSlots; ++s) r[s] = rot2 ? h[(s + 2) & 3] : h[s];
+          // round s sends g[(m - s) & 3] = r[(4 - s) & 3]
+#pragma unroll
+          for (int s = 0; s < kSlots; ++s)
+            acc[c][s] = __shfl_sync(kFull, r[(4 - s) & 3], src);
         }
     } else {   // kDynfetch, kStatfetch
       int idx[CHAINS];

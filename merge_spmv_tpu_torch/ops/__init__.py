@@ -4,8 +4,9 @@
   (reference: cpu_spmv.cpp:223-245, cub/thread/thread_search.cuh:53-84).
 * plan.py — plan contract: tile counts, the Hopper tile policy, backend.
 * csrmv_torch.py — segment-sum formulation; the "torch" backend and oracle.
-* csrmv_cuda.py — the merge-path CUDA kernels (csrc/merge_csrmv.cu): tile
-  kernel + carry fix-up, with their plain PyTorch versions.
+* csrmv_cuda.py — the merge-path CUDA kernels (csrc/merge_csrmv.cu): the
+  tile kernel with the carry fix-up as its tail (op(x)'s one launch), the
+  two apart, and their plain PyTorch versions.
 * csrmv.py — public API dispatch (reference: DeviceSpmv::CsrMV,
   cub/device/device_spmv.cuh:129-164).
 * operator.py — SpmvOperator: device-resident matrix + plan + tiles.

@@ -65,8 +65,9 @@ def _check_plain_route(*tensors):
 
 
 def _csrmv_merge(plan: SpmvPlan, values, row_end_offsets, col_indices, x,
-                 y_in, alpha, beta, tiles=None):
-    """The merge-path route, with the plan's dtype policy applied."""
+                 y_in, alpha, beta, tiles=None, tickets=None):
+    """The merge-path route, with the plan's dtype policy applied;
+    ``tickets`` is the fused kernel's counter (ops/csrmv_cuda.py)."""
     check_vector_operands(plan, x, y_in)
     out_dt = torch_dtype(plan.dtype)
     cdt = compute_dtype(plan.dtype)
@@ -77,7 +78,7 @@ def _csrmv_merge(plan: SpmvPlan, values, row_end_offsets, col_indices, x,
                     row_end_offsets, x.to(cdt).contiguous(), *tiles,
                     plan.tile_items,
                     None if y_in is None else y_in.to(cdt).contiguous(),
-                    alpha, beta)
+                    alpha, beta, tickets=tickets)
     return y.to(out_dt)
 
 

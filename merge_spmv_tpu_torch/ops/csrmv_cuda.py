@@ -13,9 +13,19 @@ reference's three steps, with persistent blocks:
   that ends in its run and leaves one carry pair (row, partial) per run.
   ``tile_geometry`` (ops/plan.py) picks the runs: as few blocks as fill
   the card once;
-* ``carry_fixup``: adds alpha times each row's carries into y in run
-  order, without floating-point atomics, so repeated calls are bitwise
-  equal.
+* the fix-up: adds alpha times each row's carries into y in run order,
+  without floating-point atomics, so repeated calls are bitwise equal.
+
+``merge_csrmv`` (op(x)'s route) launches the two as one kernel: the block
+that finishes last, counted by an integer ticket, runs the fix-up as its
+tail.  ``merge_tile`` and ``carry_fixup`` launch them apart, for the tests
+and the A/B timing; the fused kernel's bits are theirs.  The ticket counter
+is the caller's (``ticket_counter``: every operator allocates its own at
+build, so that no counter is allocated inside a CUDA-graph capture), or the
+module's one per device for a call given none.  The kernel leaves it at 0.
+Fused launches that share a counter must be stream-ordered: one operator's
+calls on two streams at once, or two counter-less calls at once, would
+share tickets.  Operators with their own counters may run on any streams.
 
 What bounds it: HBM bytes (``SpmvPlan.bytes_accessed()``: a value, a
 column index and a gathered x element per nonzero, a row end and a y write
@@ -50,10 +60,11 @@ from merge_spmv_tpu_torch.utils.cuda_build import (check_operand as _check,
 
 __all__ = ["merge_tile", "carry_fixup", "merge_csrmv", "merge_tile_plain",
            "carry_fixup_plain", "merge_csrmv_plain", "launch_geometry",
-           "kernel_occupancy", "LAUNCHES", "reset_launches", "KERNEL_SOURCE"]
+           "kernel_occupancy", "ticket_counter", "LAUNCHES",
+           "reset_launches", "KERNEL_SOURCE"]
 
 KERNEL_SOURCE = "merge_csrmv"
-LAUNCHES = {"merge_tile": 0, "carry_fixup": 0}
+LAUNCHES = {"merge_tile": 0, "merge_tile_fused": 0, "carry_fixup": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _P = ctypes.c_void_p
@@ -72,10 +83,10 @@ def _lib():
         for sfx in _SUFFIX.values():
             f = getattr(lib, f"merge_tile_{sfx}")
             f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _D, _D, _P, _P, _P, _I,
-                          _I, _I, _I, _P]
+                          _I, _I, _I, _I, _I, _P, _P]
             f.restype = _I
             f = getattr(lib, f"merge_tile_occupancy_{sfx}")
-            f.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+            f.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
             f.restype = _I
             f = getattr(lib, f"carry_fixup_{sfx}")
             f.argtypes = [_P, _P, _I, _I, _D, _P, _P]
@@ -99,14 +110,25 @@ def _device_lib(index: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(index: int, dtype: torch.dtype, threads: int, shared: int):
+def _occupancy(index: int, dtype: torch.dtype, threads: int, shared: int,
+               fused: bool):
     lib = _device_lib(index)
     blocks, regs = _I(0), _I(0)
     with torch.cuda.device(index):
         rc = getattr(lib, f"merge_tile_occupancy_{_SUFFIX[dtype]}")(
-            threads, shared, ctypes.byref(blocks), ctypes.byref(regs))
+            int(fused), threads, shared, ctypes.byref(blocks),
+            ctypes.byref(regs))
     raise_on_launch(KERNEL_SOURCE, rc, "merge_tile occupancy query")
     return blocks.value, regs.value
+
+
+def ticket_counter(device):
+    """A zeroed ticket counter for the fused kernel's launches on
+    ``device`` (None on the CPU, where no kernel runs)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return torch.zeros(1, dtype=torch.int32, device=dev)
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,29 +136,35 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def kernel_occupancy(dtype, tile_items: int, device=None):
+def kernel_occupancy(dtype, tile_items: int, device=None,
+                     fused: bool = False):
     """(blocks per SM, registers per thread) of the tile kernel at
-    ``tile_items`` on the card, from the CUDA occupancy calculator."""
+    ``tile_items`` on the card, from the CUDA occupancy calculator:
+    the unfused instantiation (``merge_tile``'s) or, with ``fused``, the
+    one with the fix-up as its tail (``merge_csrmv``'s)."""
     dev = torch.device("cuda" if device is None else device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     kernel_dtype = (torch.float64 if dtype_name(dtype) == "float64"
                     else torch.float32)
     geo = tile_geometry(1, tile_items, dtype)   # checks tile_items
-    return _occupancy(index, kernel_dtype, geo.threads, geo.shared_bytes)
+    return _occupancy(index, kernel_dtype, geo.threads, geo.shared_bytes,
+                      bool(fused))
 
 
 @functools.lru_cache(maxsize=256)
-def launch_geometry(num_tiles: int, tile_items: int, dtype,
-                    device) -> TileGeometry:
-    """The tile kernel's launch for tensors on ``device``: on the card with
-    its SM count and the occupancy the card reports (registers included);
-    on the CPU with the H100's (the plain version's runs).  Cached: every
-    op(x) asks for it, and it costs microseconds of host time."""
+def launch_geometry(num_tiles: int, tile_items: int, dtype, device,
+                    fused: bool = False) -> TileGeometry:
+    """The launch of the tile kernel's instantiation (see
+    ``kernel_occupancy``) for tensors on ``device``: on the card with its
+    SM count and the occupancy the card reports for that instantiation
+    (registers included); on the CPU with the H100's (the plain version's
+    runs).  Cached: every op(x) asks for it, and it costs microseconds of
+    host time."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return tile_geometry(num_tiles, tile_items, dtype)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    blocks, _ = kernel_occupancy(dtype, tile_items, dev)
+    blocks, _ = kernel_occupancy(dtype, tile_items, dev, fused)
     return tile_geometry(num_tiles, tile_items, dtype, num_sms=_num_sms(index),
                          blocks_per_sm=blocks)
 
@@ -192,12 +220,14 @@ def carry_fixup_plain(y, carry_row, carry_val, alpha=1.0):
 
 
 def merge_csrmv_plain(values, col_indices, row_end_offsets, x, tile_rows,
-                      tile_nnz, tile_items, y_in=None, alpha=1.0, beta=0.0):
+                      tile_nnz, tile_items, y_in=None, alpha=1.0, beta=0.0,
+                      run_tiles=1):
     """y = alpha * A @ x + beta * y_in through the tile/carry/fix-up
-    decomposition, in plain PyTorch."""
+    decomposition with runs of ``run_tiles`` tiles, in plain PyTorch: the
+    fused kernel's function."""
     y, carry_row, carry_val = merge_tile_plain(
         values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
-        tile_items, y_in, alpha, beta)
+        tile_items, y_in, alpha, beta, run_tiles)
     return carry_fixup_plain(y, carry_row, carry_val, alpha)
 
 
@@ -205,16 +235,12 @@ def merge_csrmv_plain(values, col_indices, row_end_offsets, x, tile_rows,
 # Kernel wrappers
 # ---------------------------------------------------------------------- #
 
-def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
-               tile_items, y_in=None, alpha=1.0, beta=0.0, run_tiles=None):
-    """Tile kernel: (y, carry_row, carry_val) as merge_tile_plain returns
-    them, one carry pair per run.  ``tile_items`` fixes the block size
-    (tile_items / ITEMS_PER_THREAD threads); tile_rows/tile_nnz must come
-    from ``merge_tile_coordinates`` at the same tile_items.
-    ``run_tiles=None`` takes the runs of ``launch_geometry``; an integer
-    forces them (1: a block per tile).  The wrapper checks the tile count
-    without a sync; the kernel never indexes shared memory past the tile,
-    whatever the coordinates."""
+def _tile_call(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
+               tile_items, y_in, alpha, beta, run_tiles, fused, tickets=None):
+    """The checks and the launch of the tile kernel's unfused or fused
+    instantiation; (y, carry_row, carry_val), with the carries added into
+    y when ``fused``, counting on ``tickets``.  The plain version for CPU
+    tensors."""
     num_rows = row_end_offsets.shape[0]
     num_tiles = tile_rows.shape[0] - 1
     want_tiles = num_merge_tiles(num_rows, values.shape[0], tile_items)
@@ -225,16 +251,19 @@ def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
     if run_tiles is not None and int(run_tiles) < 1:
         raise ValueError(f"run_tiles must be >= 1, got {run_tiles}")
     cpu = _is_cpu(values, col_indices, row_end_offsets, x, tile_rows,
-                  tile_nnz, y_in)
+                  tile_nnz, y_in, tickets)
     dtype = values.dtype
     if not cpu and dtype not in _SUFFIX:
         raise TypeError(f"the kernel takes float32 or float64, got {dtype}")
-    geo = launch_geometry(num_tiles, tile_items, dtype, values.device)
+    geo = launch_geometry(num_tiles, tile_items, dtype, values.device, fused)
     run = geo.run_tiles if run_tiles is None else int(run_tiles)
     if cpu:
-        return merge_tile_plain(values, col_indices, row_end_offsets, x,
-                                tile_rows, tile_nnz, tile_items, y_in,
-                                alpha, beta, run)
+        y, carry_row, carry_val = merge_tile_plain(
+            values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
+            tile_items, y_in, alpha, beta, run)
+        if fused:
+            carry_fixup_plain(y, carry_row, carry_val, alpha)
+        return y, carry_row, carry_val
     _check("values", values, dtype)
     _check("col_indices", col_indices, torch.int32, values.shape)
     _check("row_end_offsets", row_end_offsets, torch.int32)
@@ -245,6 +274,8 @@ def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
         raise ValueError("values and x must be vectors")
     if y_in is not None:
         _check("y_in", y_in, dtype, (num_rows,))
+    if tickets is not None:
+        _check("tickets", tickets, torch.int32, (1,))
     dev = values.device
     num_runs = -(-num_tiles // run)
     y = torch.empty(num_rows, dtype=dtype, device=dev)
@@ -259,11 +290,28 @@ def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
             None if y_in is None else y_in.data_ptr(),
             tile_rows.data_ptr(), tile_nnz.data_ptr(), float(alpha),
             float(beta), y.data_ptr(), carry_row.data_ptr(),
-            carry_val.data_ptr(), num_tiles, run, geo.threads,
-            geo.shared_bytes, stream)
-    raise_on_launch(KERNEL_SOURCE, rc, "merge_tile")
-    LAUNCHES["merge_tile"] += 1
+            carry_val.data_ptr(), num_rows, num_tiles, run, geo.threads,
+            geo.shared_bytes, int(fused),
+            None if tickets is None else tickets.data_ptr(), stream)
+    name = "merge_tile_fused" if fused else "merge_tile"
+    raise_on_launch(KERNEL_SOURCE, rc, name)
+    LAUNCHES[name] += 1
     return y, carry_row, carry_val
+
+
+def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
+               tile_items, y_in=None, alpha=1.0, beta=0.0, run_tiles=None):
+    """Tile kernel: (y, carry_row, carry_val) as merge_tile_plain returns
+    them, one carry pair per run.  ``tile_items`` fixes the block size
+    (tile_items / ITEMS_PER_THREAD threads); tile_rows/tile_nnz must come
+    from ``merge_tile_coordinates`` at the same tile_items.
+    ``run_tiles=None`` takes the runs of ``launch_geometry``; an integer
+    forces them (1: a block per tile).  The wrapper checks the tile count
+    without a sync; the kernel never indexes shared memory past the tile,
+    whatever the coordinates."""
+    return _tile_call(values, col_indices, row_end_offsets, x, tile_rows,
+                      tile_nnz, tile_items, y_in, alpha, beta, run_tiles,
+                      fused=False)
 
 
 def carry_fixup(y, carry_row, carry_val, alpha=1.0):
@@ -292,10 +340,15 @@ def carry_fixup(y, carry_row, carry_val, alpha=1.0):
 
 
 def merge_csrmv(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
-                tile_items, y_in=None, alpha=1.0, beta=0.0):
-    """y = alpha * A @ x + beta * y_in: the tile kernel, then the fix-up
-    (their plain versions for CPU tensors)."""
-    y, carry_row, carry_val = merge_tile(
-        values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
-        tile_items, y_in, alpha, beta)
-    return carry_fixup(y, carry_row, carry_val, alpha)
+                tile_items, y_in=None, alpha=1.0, beta=0.0, run_tiles=None,
+                tickets=None):
+    """y = alpha * A @ x + beta * y_in in one launch: the tile kernel with
+    the fix-up as its tail, bit for bit ``merge_tile`` then
+    ``carry_fixup`` at the same runs (``merge_csrmv_plain`` for CPU
+    tensors).  ``run_tiles`` as for ``merge_tile``; the default takes the
+    fused instantiation's geometry.  ``tickets`` is the kernel's counter
+    (``ticket_counter``), None for the module's per device; launches that
+    share one must be stream-ordered (the module's docstring says why)."""
+    return _tile_call(values, col_indices, row_end_offsets, x, tile_rows,
+                      tile_nnz, tile_items, y_in, alpha, beta, run_tiles,
+                      fused=True, tickets=tickets)[0]

@@ -3,13 +3,13 @@ matrix with its execution plan and tile coordinates.
 
 Counterpart of merge_spmv_tpu/ops/operator.py.  The reference's lifecycle
 is query/allocate/run (SURVEY.md §3.3): build once (plan, copy to the
-device, tile search), then every ``op(x)`` launches the merge kernels
-directly.
+device, tile search), then every ``op(x)`` launches the fused merge
+kernel directly, once per call (ops/csrmv_cuda.py).
 
     op = build_operator(csr, dtype="float32")      # on the card
     y = op(x)                                      # y = A @ x
     y = op(x, y_in=y0, alpha=2.0, beta=1.0)
-    Y = op.mm(X)                                   # SpMM, one launch pair per column
+    Y = op.mm(X)                                   # SpMM, one launch per column
 
 The operator always runs the merge-path decomposition: the CUDA kernels for
 a matrix on the card, their plain PyTorch versions for a matrix on the CPU
@@ -26,6 +26,7 @@ import torch
 from merge_spmv_tpu_torch.ops.csrmv import (_csrmv_merge,
                                             check_matrix_operands,
                                             compute_dtype)
+from merge_spmv_tpu_torch.ops.csrmv_cuda import ticket_counter
 from merge_spmv_tpu_torch.ops.csrmv_torch import row_ids_from_offsets
 from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
@@ -49,7 +50,9 @@ class SpmvOperator:
     values); ``tile_rows``/``tile_nnz`` are the merge-tile coordinates,
     searched once.  ``abs_row_sum_max`` is ``max_r sum_j |A[r, j]|`` over
     the stored values, computed once at build: the timers scale a chain of
-    calls by its inverse.
+    calls by its inverse.  ``tickets`` is the fused kernel's counter, the
+    operator's own (None on the CPU): its calls must be stream-ordered,
+    while separate operators may run on separate streams at once.
     """
 
     def __init__(self, plan: SpmvPlan, values, row_end_offsets, col_indices,
@@ -64,6 +67,7 @@ class SpmvOperator:
         self.device = values.device
         self.setup_s: dict = {}
         self.abs_row_sum_max = 0.0
+        self.tickets = ticket_counter(self.device)
 
     def _vec(self, v):
         return None if v is None else torch.as_tensor(v, device=self.device)
@@ -71,7 +75,8 @@ class SpmvOperator:
     def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
         return _csrmv_merge(self.plan, self.values, self.row_end_offsets,
                             self.col_indices, self._vec(x), self._vec(y_in),
-                            alpha, beta, (self.tile_rows, self.tile_nnz))
+                            alpha, beta, (self.tile_rows, self.tile_nnz),
+                            self.tickets)
 
     def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, method: str = "auto"):
         """SpMM, one merge-kernel pass per column of X (the strategy of

@@ -49,6 +49,10 @@ CLASSES = ("fma", "select", "gather", "dynfetch", "statfetch")
 # (gather: the gather and the add that keeps the chain live)
 OPS_PER_ELEMENT = {"fma": 1, "select": 1, "gather": 2, "dynfetch": 1,
                    "statfetch": 1}
+# Warp-shuffle lanes per SM per clock on compute capability 9.0 (the CUDA
+# C++ Programming Guide's table of arithmetic instruction throughput, row
+# "warp shuffle"); the gather kernel shuffles each element once.
+SHUFFLE_LANES_PER_CLOCK = 32
 GRID = 4096
 UNROLL = 64
 CHAINS = 8
@@ -188,7 +192,10 @@ def measure(classes=CLASSES, x=None) -> dict:
     TABLE_ROWS), for ``x`` (default ones) on the card.  Per class: ms per
     launch (CUDA events around LAUNCHES_TIMED launches), operations per
     second for the whole card, and per SM per clock at the SM clock that
-    nvidia-smi reads while the launches run."""
+    nvidia-smi reads while the launches run.  ``bound_ms`` counts one
+    operation per FFMA lane per clock; beside it ``smem_bound_ms`` (the
+    fetch classes) and ``shuffle_bound_ms`` (gather) count the unit those
+    classes meet, at the same clock."""
     if x is None:
         x = torch.ones(8, 128, dtype=torch.float32, device="cuda")
     dev = x.device
@@ -224,6 +231,11 @@ def measure(classes=CLASSES, x=None) -> dict:
             # 32 banks x 4 B per clock per SM; each operation reads 4 B
             result[cls]["smem_bound_ms"] = (
                 ops * 4 / (sms * 128 * clock_mhz * 1e6) * 1e3)
+        if cls == "gather":
+            lanes = ops // OPS_PER_ELEMENT["gather"]   # lane-shuffles
+            result[cls]["shuffle_bound_ms"] = (
+                lanes / (sms * SHUFFLE_LANES_PER_CLOCK * clock_mhz * 1e6)
+                * 1e3)
     return result
 
 

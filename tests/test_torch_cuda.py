@@ -73,12 +73,18 @@ def _setup(name, dev, tile_items, dtype=torch.float32, signed=False,
 @pytest.mark.parametrize("tile_items", [256, 1024, 2304, 4096])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_vs_plain_and_gold(card, name, tile_items, dtype):
+    """The fused kernel (op(x)'s one launch) against the two kernels at
+    its runs (bit for bit), the plain version and gold."""
     csr, arrs, x, y_in, tiles, xh, yh = _setup(name, card, tile_items,
                                                dtype=dtype, signed=True)
     args = (*arrs, x, *tiles, tile_items, y_in, 2.5, -0.75)
     got = K.merge_csrmv(*args)
+    run = K.launch_geometry(tiles[0].shape[0] - 1, tile_items, dtype, card,
+                            fused=True).run_tiles
+    two = K.carry_fixup(*K.merge_tile(*args, run_tiles=run), 2.5)
     plain = K.merge_csrmv_plain(*args)
     torch.cuda.synchronize()
+    assert torch.equal(got, two)
     if dtype == torch.float64:
         gold = csr.spmv_gold(xh, yh, 2.5, -0.75)
     else:
@@ -143,8 +149,11 @@ def test_forced_runs_vs_plain_and_gold(card, kind, run_tiles, dtype):
     yp, rp, vp = K.merge_tile_plain(v, ci, re_, xd, tr, tn, 256,
                                     run_tiles=run)
     assert torch.equal(crow, rp)
-    got = K.carry_fixup(y, crow, cval).cpu().numpy()
-    torch.cuda.synchronize()
+    got = K.carry_fixup(y, crow, cval)
+    # the fused kernel at the same runs: the same bits, beyond one wave
+    assert torch.equal(K.merge_csrmv(v, ci, re_, xd, tr, tn, 256,
+                                     run_tiles=run), got)
+    got = got.cpu().numpy()
     gold = csr.astype(np.float64).spmv_gold(x)
     assert compare_results(got, gold, verbose=False,
                            abs_bound=csr.spmv_abs_bound(x)) is None
@@ -169,6 +178,11 @@ def test_unaligned_operands(card):
     got = K.merge_csrmv(vs, cs, rs_, xs, tr, tn, 1024, ys, 2.5, -0.75)
     want = K.merge_csrmv(v, ci, re_, x, tr, tn, 1024, y_in, 2.5, -0.75)
     assert torch.equal(got, want)
+    run = K.launch_geometry(tr.shape[0] - 1, 1024, torch.float32, card,
+                            fused=True).run_tiles
+    two = K.carry_fixup(*K.merge_tile(vs, cs, rs_, xs, tr, tn, 1024, ys,
+                                      2.5, -0.75, run_tiles=run), 2.5)
+    assert torch.equal(got, two)
     gold = csr.astype(np.float32).spmv_gold(
         xh.astype(np.float32), yh.astype(np.float32), 2.5, -0.75)
     assert compare_results(got.cpu().numpy(), gold, verbose=False,
@@ -176,13 +190,15 @@ def test_unaligned_operands(card):
                                                         -0.75)) is None
 
 
+@pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("tile_items", [256, 1024, 2048, 2304, 4096])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_geometry_matches_the_card(card, dtype, tile_items):
-    """The card's occupancy (registers counted) admits the geometry's
-    blocks, and the launcher accepts its shared-memory size."""
-    blocks, regs = K.kernel_occupancy(dtype, tile_items, card)
-    geo = K.launch_geometry(10_000, tile_items, dtype, card)
+def test_geometry_matches_the_card(card, dtype, tile_items, fused):
+    """The card's occupancy of each instantiation (registers counted)
+    admits the geometry's blocks, and the launcher accepts its
+    shared-memory size."""
+    blocks, regs = K.kernel_occupancy(dtype, tile_items, card, fused)
+    geo = K.launch_geometry(10_000, tile_items, dtype, card, fused)
     assert 1 <= geo.blocks_per_sm <= max(blocks, 1) and regs > 0
     props = torch.cuda.get_device_properties(card)
     assert geo.grid <= geo.blocks_per_sm * props.multi_processor_count
@@ -234,6 +250,122 @@ def test_graph_capture_replays_the_eager_call(card):
     assert torch.equal(captured, eager)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_graph_replays_then_eager_call_bitwise_equal(card, dtype):
+    """20 replays of a captured op(x), then an eager call: each launch
+    finds the ticket counter reset by the one before, so every result has
+    the same bits."""
+    csr = CsrMatrix.from_coo(CooMatrix.wheel(20_000))
+    csr.values = np.random.RandomState(9).uniform(-1, 1, csr.num_nonzeros)
+    op = build_operator(csr, dtype=dtype, tile_items=256)
+    x = torch.from_numpy(np.random.RandomState(10).uniform(
+        -1, 1, csr.num_cols)).to(card, op.values.dtype)
+    eager = op(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = op(x)
+    replays = []
+    for _ in range(20):
+        graph.replay()
+        replays.append(captured.clone())
+    after = op(x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, eager) for r in replays)
+    assert torch.equal(after, eager)
+    assert compare_results(after.cpu().numpy(),
+                           csr.spmv_gold(x.cpu().numpy()), verbose=False,
+                           abs_bound=csr.spmv_abs_bound(
+                               x.cpu().numpy())) is None
+
+
+def _carried_rows(n, seed=12):
+    """n rows of 13 nonzeros (14 merge items): at 256-item tiles with a
+    block per tile, 6 tiles in 7 end inside a row, so nearly every block
+    leaves a nonzero carry into a row that the next block finishes."""
+    rows = np.repeat(np.arange(n), 13)
+    rs = np.random.RandomState(seed)
+    return CsrMatrix.from_coo(CooMatrix(n, n, rows,
+                                        rs.randint(0, n, rows.size),
+                                        rs.uniform(0.5, 1.5, rows.size)))
+
+
+def _vectors(card, n, count, seed):
+    rs = np.random.RandomState(seed)
+    return [torch.from_numpy(rs.uniform(0.5, 1.5, n)).to(card, torch.float32)
+            for _ in range(count)]
+
+
+def test_fused_tail_reads_every_blocks_writes(card):
+    """Many blocks (a block per tile, far beyond one resident wave)
+    finishing together: the block that runs the fix-up must see every
+    other block's pair and y row.  50 calls back to back, x changing from
+    call to call so that a pair or y row read before its write is visible
+    holds another call's value: each is bit for bit the two-kernel
+    result."""
+    csr = _carried_rows(60_000)
+    v, re_, ci = csr.to_device(dtype=torch.float32, device=card)
+    tr, tn = merge_tile_coordinates(re_, csr.num_nonzeros, 256)
+    xs = _vectors(card, csr.num_cols, 8, 13)
+    want = [K.carry_fixup(*K.merge_tile(v, ci, re_, x, tr, tn, 256,
+                                        run_tiles=1)) for x in xs]
+    _, crow, cval = K.merge_tile(v, ci, re_, xs[0], tr, tn, 256, run_tiles=1)
+    assert crow.shape[0] > 3000
+    assert float((cval[crow < csr.num_rows] != 0).float().mean()) > 0.8
+    tickets = K.ticket_counter(card)
+    torch.cuda.synchronize()
+    got = [K.merge_csrmv(v, ci, re_, xs[k % len(xs)], tr, tn, 256,
+                         run_tiles=1, tickets=tickets) for k in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want[k % len(xs)]) for k, g in enumerate(got))
+    assert int(tickets.item()) == 0
+
+
+@pytest.mark.parametrize("rows_a,rows_b", [(2_000, 3_000),
+                                           (60_000, 200_000)])
+def test_operators_on_two_streams_at_once(card, rows_a, rows_b):
+    """Two operators, each with its own ticket counter, called on two
+    streams with no ordering between them.  Both streams first wait on a
+    GPU sleep while 40 calls queue behind it on each, so that the two
+    operators' fused launches run at once: side by side when their grids
+    fit the card together (the small pair), at each kernel's tail
+    otherwise.  Every result is the bits of the same call made alone, and
+    each counter is left at 0."""
+    ops = (build_operator(_carried_rows(rows_a), tile_items=256),
+           build_operator(CsrMatrix.from_coo(CooMatrix.wheel(rows_b)),
+                          tile_items=256))
+    xs = [_vectors(card, op.plan.num_cols, 4, 20 + i)
+          for i, op in enumerate(ops)]
+    want = [[op(x) for x in xk] for op, xk in zip(ops, xs)]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(card), torch.cuda.Stream(card))
+    got = ([], [])
+    for _ in range(3):
+        for st in streams:
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(20_000_000)   # ~10 ms of clock cycles
+        for k in range(40):
+            for i, (op, st) in enumerate(zip(ops, streams)):
+                with torch.cuda.stream(st):
+                    got[i].append(op(xs[i][k % 4]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, want[i][k % 4])
+                   for k, g in enumerate(got[i]))
+        assert int(ops[i].tickets.item()) == 0
+
+
+def test_fused_wrapper_refuses_a_bad_counter(card):
+    csr, arrs, x, _, tiles, _, _ = _setup("powerlaw", card, 256)
+    for bad in (torch.zeros(1, dtype=torch.int64, device=card),
+                torch.zeros(2, dtype=torch.int32, device=card)):
+        with pytest.raises((TypeError, ValueError)):
+            K.merge_csrmv(*arrs, x, *tiles, 256, tickets=bad)
+    with pytest.raises(ValueError, match="several devices"):
+        K.merge_csrmv(*arrs, x, *tiles, 256,
+                      tickets=torch.zeros(1, dtype=torch.int32))
+
+
 def test_operator_counts_launches(card):
     csr = CsrMatrix.from_coo(CooMatrix.grid2d(40)).astype(np.float32)
     op = build_operator(csr)
@@ -241,7 +373,9 @@ def test_operator_counts_launches(card):
     y = op(torch.ones(csr.num_cols, device=card))
     Y = op.mm(torch.ones(csr.num_cols, 3, device=card))
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {"merge_tile": 4, "carry_fixup": 4}
+    # one launch per op(x) and per column: the fused kernel, no fix-up
+    assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 4,
+                          "carry_fixup": 0}
     gold = csr.spmv_gold(np.ones(csr.num_cols, np.float32))
     np.testing.assert_array_equal(y.cpu().numpy(), gold)
     np.testing.assert_array_equal(Y[:, 2].cpu().numpy(), gold)
@@ -292,7 +426,8 @@ def test_plain_route_and_short_operands_refused_on_the_card(card):
     tr, tn = merge_tile_coordinates(re_, csr.num_nonzeros, 256)
     with pytest.raises(ValueError, match="another tile size"):
         K.merge_tile(v, ci, re_, x, tr, tn, 1024)
-    assert K.LAUNCHES == {"merge_tile": 0, "carry_fixup": 0}
+    assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 0,
+                          "carry_fixup": 0}
 
 
 # ---------------------------------------------------------------------- #
@@ -372,7 +507,8 @@ def test_dia_operator_counts_launches(card):
     op.mm(torch.ones(csr.num_cols, 2, device=card))
     torch.cuda.synchronize()
     assert D.LAUNCHES == {"dia_matvec": 3}
-    assert K.LAUNCHES == {"merge_tile": 3, "carry_fixup": 3}
+    assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 3,
+                          "carry_fixup": 0}
 
 
 def test_dia_operator_bfloat16(card):
@@ -409,13 +545,16 @@ def test_dia_wrapper_rejects_what_the_kernel_does_not_take(card):
 # P1: the op-class probe (csrc/sm_ceiling.cu)
 # ---------------------------------------------------------------------- #
 
+@pytest.mark.parametrize("grid", [5, 131])
 @pytest.mark.parametrize("chains", [1, 8])
 @pytest.mark.parametrize("cls", P.CLASSES)
-def test_probe_kernel_vs_plain(card, cls, chains):
+def test_probe_kernel_vs_plain(card, cls, chains, grid):
+    """Every class at small size (grid 131 takes the gather
+    through every step modulo 128)."""
     x = torch.from_numpy(np.random.RandomState(0).uniform(
         -1, 1, (8, 128)).astype(np.float32)).to(card)
-    got = P.probe(cls, x, 5, 8, chains, 64)    # checks the blocks agree
-    want = P.probe_plain(cls, x, 5, 8, chains, 64)
+    got = P.probe(cls, x, grid, 8, chains, 64)    # checks the blocks agree
+    want = P.probe_plain(cls, x, grid, 8, chains, 64)
     # fma: the kernel's FFMA rounds once where the plain version rounds
     # twice; every other class takes the same float32 operations
     if cls == "fma":

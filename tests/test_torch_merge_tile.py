@@ -4,6 +4,10 @@
   carry_fixup_plain, held against the JAX package (csrmv_xla, and the Pallas
   kernel in interpret mode on the cases tests/conftest.py keeps fast) and
   against gold, with the spmv_abs_bound backward-error bound;
+* merge_csrmv_plain (the fused kernel's function) at the same runs: the
+  two-kernel composition's bits, and the same bounds;
+* the fused wrapper on CPU tensors: the plain version, no launch counted;
+  an operator on the CPU holds no ticket counter;
 * the carry pairs a run leaves (one per run, the run's open row, exactly 0
   when the run ends on a row end, a hub row carried across runs);
 * ops/plan.py::tile_geometry: every value type and tile size fits a block's
@@ -31,6 +35,7 @@ from merge_spmv_tpu_torch.formats.csr import CsrMatrix
 from merge_spmv_tpu_torch.ops import csrmv_cuda as K
 from merge_spmv_tpu_torch.ops import plan as P
 from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
+from merge_spmv_tpu_torch.ops.operator import build_operator
 from merge_spmv_tpu_torch.utils.compare import compare_results
 
 # the JAX kernel tests' corner cases (tests/test_csrmv_pallas.py:47-61)
@@ -122,6 +127,64 @@ def test_runs_vs_jax_and_gold(name, runs):
                   f"{name} runs={runs} vs gold")
 
 
+@pytest.mark.parametrize("runs", [1, 2, 3, "all"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_fused_plain_is_the_two_kernel_plain(name, runs):
+    """merge_csrmv_plain at runs of run_tiles gives the bits of
+    merge_tile_plain then carry_fixup_plain at those runs, within the
+    bound of the JAX package's result and of gold."""
+    j, t, x, yi, want = _case(name)
+    args, yt = _tensors(t, x, yi)
+    num_tiles = args[4].shape[0] - 1
+    run_tiles = num_tiles if runs == "all" else runs
+    fused = K.merge_csrmv_plain(*args, TILE, yt, 2.5, -0.75, run_tiles)
+    two = K.carry_fixup_plain(*K.merge_tile_plain(*args, TILE, yt, 2.5,
+                                                  -0.75, run_tiles), 2.5)
+    assert torch.equal(fused, two)
+    bound = j.spmv_abs_bound(x, yi, 2.5, -0.75)
+    _assert_close(fused.numpy(), want, bound, f"{name} runs={runs} vs jax")
+    _assert_close(fused.numpy(), j.spmv_gold(x, yi, 2.5, -0.75), bound,
+                  f"{name} runs={runs} vs gold")
+
+
+@pytest.mark.parametrize("run_tiles", [None, 2])
+@pytest.mark.parametrize("name", ["wheel_hub_spans_tiles", "powerlaw",
+                                  "leading_trailing_empty", "tile_boundary",
+                                  "nnz0"])
+def test_fused_wrapper_on_cpu_runs_the_plain_version(name, run_tiles):
+    """On CPU tensors merge_csrmv is merge_csrmv_plain at the geometry's
+    runs (or the forced ones), and counts no launch."""
+    j, t, x, yi, _ = _case(name)
+    args, yt = _tensors(t, x, yi)
+    num_tiles = args[4].shape[0] - 1
+    run = (P.tile_geometry(num_tiles, TILE, "float32").run_tiles
+           if run_tiles is None else run_tiles)
+    K.reset_launches()
+    got = K.merge_csrmv(*args, TILE, yt, 2.5, -0.75, run_tiles=run_tiles)
+    assert not any(K.LAUNCHES.values())
+    assert torch.equal(got, K.merge_csrmv_plain(*args, TILE, yt, 2.5, -0.75,
+                                                run))
+    _assert_close(got.numpy(), j.spmv_gold(x, yi, 2.5, -0.75),
+                  j.spmv_abs_bound(x, yi, 2.5, -0.75), name)
+
+
+@pytest.mark.parametrize("name", ["wheel_hub_spans_tiles", "powerlaw",
+                                  "nnz0"])
+def test_cpu_operator_holds_no_ticket_counter(name):
+    """The fused kernel's ticket counter exists on the card only: an
+    operator on the CPU holds none, and its op(x) is the plain version at
+    the geometry's runs."""
+    j, t, x, yi, _ = _case(name)
+    assert K.ticket_counter("cpu") is None
+    op = build_operator(t, tile_items=TILE, device="cpu")
+    assert op.tickets is None
+    args, yt = _tensors(t, x, yi)
+    run = P.tile_geometry(args[4].shape[0] - 1, TILE, "float32").run_tiles
+    got = op(torch.from_numpy(x), torch.from_numpy(yi), 2.5, -0.75)
+    assert torch.equal(got, K.merge_csrmv_plain(*args, TILE, yt, 2.5, -0.75,
+                                                run))
+
+
 @pytest.mark.parametrize("name,run_tiles", [
     ("wheel_hub_spans_tiles", 5), ("powerlaw", 4), ("tile_boundary", 3)])
 def test_run_count_not_dividing_the_tiles(name, run_tiles):
@@ -192,7 +255,8 @@ def test_cpu_wrapper_takes_the_geometry_runs():
     _, crow, _ = K.merge_tile(*args, 4096)
     assert crow.shape[0] == geo.grid
     y = K.merge_csrmv(*args, 4096)
-    assert K.LAUNCHES == {"merge_tile": 0, "carry_fixup": 0}
+    assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 0,
+                          "carry_fixup": 0}
     np.testing.assert_allclose(y.numpy(), t.spmv_gold(x), rtol=1e-12,
                                atol=1e-12)
     with pytest.raises(ValueError, match="run_tiles"):

@@ -64,6 +64,29 @@ def test_classes_cover_the_tpu_probe(jax_outputs):
     assert set(jax_outputs[1]) == set(P.CLASSES)
 
 
+def test_gather_shuffle_schedule():
+    """The lane and slot schedule of the gather kernel (csrc/sm_ceiling.cu),
+    replayed in numpy for every step modulo 128 and past it: lane l sends
+    slot (m - s) & 3 in round s, its four values rotated by
+    m = ((7 * reader + t) & 127) >> 5 in two stages, reader =
+    23 (l - t) & 31; lane d reads lane (7 d + t) & 31 in every round.  The
+    rounds give (g + 1)[(7 * col + t) & 127] with each lane read once."""
+    rs = np.random.RandomState(1)
+    lane = np.arange(32)
+    for t in range(260):
+        g = rs.uniform(-1, 1, 128).astype(np.float32)
+        slots = g.reshape(4, 32)                  # slots[s, l]: col l + 32 s
+        src = (7 * lane + t) & 31
+        assert sorted(src) == list(range(32))
+        reader = (23 * (lane - t)) & 31
+        m = ((7 * reader + t) & 127) >> 5
+        h = np.where(m & 1, slots[(np.arange(4) + 1) & 3], slots)
+        r = np.where(m & 2, h[(np.arange(4) + 2) & 3], h)
+        got = np.stack([r[(4 - s) & 3][src] for s in range(4)])
+        want = g[(np.arange(128) * 7 + t) & 127].reshape(4, 32)
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("bad", [
     {"cls": "nope"}, {"chains": 3}, {"table_rows": 16},
     {"table_rows": 460}, {"table_rows": 100}, {"grid": 0},
