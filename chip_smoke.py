@@ -59,20 +59,46 @@ Phases, one line of output each (any failure exits non-zero and prints no
              that the time does not depend on row-length skew, and fails
              the run below SKEW_RATIO_MIN; the two-kernel path timed too.
 8. driver  — merge_spmv_tpu_torch.bench.driver.run_benchmark on grid2d(1000)
-             with the scipy, xla (cuSPARSE), merge and dia backends; every
-             backend must verify.
-9. probe   — the op-class probe (P1): each class's kernel against its
-             plain version at a small size, then at the full size (the TPU probe's grid
-             4096 x unroll 64 x 8 chains) with its rates and bounds
-             (operations; shared memory or warp shuffles where they bind),
-             the plain version timed and compared at that size too.
-10. the kernels line, nvidia-smi's name and power limit, and the last line.
+             with the scipy, xla (cuSPARSE), merge, dia, split and hotcold
+             backends; every backend must verify.
+9. split main — the circuit5M class at full size (make_circuit_like(
+             5,558,326, 59,524,291), float32): suggest_backend's record; merge
+             op(x) as the baseline; build_split_operator_device (16 quantile
+             bands) with its setup and stage times; op(x),
+             op(x, y_in, 1.5, -0.5) and op.mm(X[:, :2]) verified against gold
+             with the launch counter read around exactly that run (one fused
+             launch per op(x) and per column) and two op(x) calls bitwise
+             equal; op(x) timed (CUDA graph and eager) beside merge op(x),
+             cuSPARSE and the bytes bound of each; the host builder
+             (geometric (8, 32) edges) full-row and compact, verified and
+             timed; build_suggested on the matrix.
+10. hotcold main — the kron class (R-MAT scale 20, 50M generated nonzeros,
+             float32): suggest_backend's record; build_hotcold_operator with
+             its hot windows and hot/cold nonzeros; op(x) and the alpha/beta
+             call verified with two fused launches per op(x); timed beside
+             merge op(x) and cuSPARSE; build_suggested on the matrix.
+11. router — build_suggested on grid3d(100) and the local-uniform fixture of
+             tests/test_suggest.py:48-57 (and the two matrices above): each
+             pick verified and timed against merge op(x).
+12. autotune — build_operator(grid3d(100), autotune=True) with the cache in
+             a temporary file: each candidate's time, then a second build
+             that reads the cache and times nothing (the tuner's counter).
+13. probe   — the op-class probe (P1): each class's kernel against its
+             plain version at a small size, the select kernel's timed loop
+             counted in its SASS, then every class at the full size (the
+             TPU probe's grid 4096 x unroll 64 x 8 chains) with its rates and
+             bounds (operations; shared memory, warp shuffles or instruction
+             issue where they bind), the plain version timed and compared at
+             that size too.
+14. the kernels line, nvidia-smi's name and power limit, and the last line.
 """
 
 import contextlib
 import io
 import json
+import os
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -81,6 +107,10 @@ TILE_ITEMS_CASES = 1024   # the JAX package's kernel tests use 1024-item tiles
 # uniform / power-law time per nonzero: below this, skew costs time
 SKEW_RATIO_MIN = 0.9
 HOST_CALLS = 200          # calls per host-clock sample of the eager breakdown
+# the circuit5M class (tools/bench_large.py:90-91) and the kron class's
+# generated nonzeros (tools/bench_hotcold.py:43-44), both at full size
+CIRCUIT_ROWS, CIRCUIT_NNZ = 5_558_326, 59_524_291
+KRON_NNZ = 50_000_000
 
 
 class MergeDirect:
@@ -93,6 +123,7 @@ class MergeDirect:
     def __init__(self, K, op, fused, device):
         self.K, self.op, self.fused = K, op, fused
         self.plan, self.abs_row_sum_max = op.plan, op.abs_row_sum_max
+        self.shape = op.shape
         self.run = K.launch_geometry(op.plan.num_tiles, op.plan.tile_items,
                                      op.values.dtype, device,
                                      fused=True).run_tiles
@@ -115,12 +146,35 @@ class DiaDirect:
         self.DK, self.op = DK, op
         self.rest = MergeDirect(K, op.rest_op, fused, device)
         self.plan, self.abs_row_sum_max = op.plan, op.abs_row_sum_max
+        self.shape = op.shape
 
     def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
         o = self.op
         y = self.DK.dia_matvec(o.vtab, x, o.offsets_t, o.num_rows,
                                o.num_cols, alpha)
         return self.rest(x, y, alpha, 1.0)
+
+
+def csr_bytes(rows, cols, nnz, vs=4):
+    """Bytes y = A @ x moves over a CSR when each input is read once and
+    each output written once: a value and a column index per nonzero, a
+    row end and a y element per row, x once."""
+    return nnz * (vs + 4) + rows * (4 + vs) + cols * vs
+
+
+def verified(got, csr, x, y_in=None, alpha=1.0, beta=0.0):
+    """``got`` (on the card) is finite, of the matrix's row count, and
+    agrees with the gold SpMV within the backward-error bound."""
+    import torch
+
+    from merge_spmv_tpu_torch.utils.compare import compare_results
+    if tuple(got.shape) != (csr.num_rows,) or not bool(
+            torch.isfinite(got).all()):
+        return False
+    return compare_results(
+        got.cpu().numpy(), csr.spmv_gold(x, y_in, alpha, beta),
+        verbose=False,
+        abs_bound=csr.spmv_abs_bound(x, y_in, alpha, beta)) is None
 
 
 def host_us(fn, sync):
@@ -147,14 +201,18 @@ def main() -> int:
     import numpy as np
 
     from merge_spmv_tpu_torch.bench.driver import run_benchmark
+    from merge_spmv_tpu_torch.bench.matrices import make_circuit_like, rmat
     from merge_spmv_tpu_torch.formats.coo import CooMatrix
     from merge_spmv_tpu_torch.formats.csr import CsrMatrix
     from merge_spmv_tpu_torch.ops import csrmv_cuda as K
+    from merge_spmv_tpu_torch.ops import autotune as A
     from merge_spmv_tpu_torch.ops import dia_cuda as DK
+    from merge_spmv_tpu_torch.ops import split as S
     from merge_spmv_tpu_torch.ops.dia import build_dia_operator
     from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
     from merge_spmv_tpu_torch.ops.operator import build_operator
     from merge_spmv_tpu_torch.ops.plan import DEFAULT_TILE_ITEMS
+    from merge_spmv_tpu_torch.ops.suggest import build_suggested, suggest_backend
     from merge_spmv_tpu_torch.tools import sm_ceiling as P
     from merge_spmv_tpu_torch.utils.compare import compare_results
     from merge_spmv_tpu_torch.utils.cuda_build import build_library
@@ -363,6 +421,9 @@ def main() -> int:
           "per SM)")
     if bad or not one_launch or not repeat_same:
         return 1
+    # merge_tile_fused launches of each path, counted from 0 around it
+    paths = {"main": launches["merge_tile_fused"]}
+    router = {}
 
     peak_gbps = info["peak_hbm_gbps"]
     xd = torch.from_numpy(x1).to(dev)
@@ -738,6 +799,7 @@ def main() -> int:
                                       "carry_fixup": 0}:
         return 1
     dia_launches["dia_matvec"] += mix_launches["dia_matvec"]
+    paths["dia_leftover"] = mix_launches["merge_tile_fused"]
 
     dia_op_ms = chained_rate_ms(op_dia, xd)
     dia_op_eager_ms = chained_rate_ms(op_dia, xd, graph=False)
@@ -844,18 +906,275 @@ def main() -> int:
     with contextlib.redirect_stdout(out):
         results = run_benchmark({"grid2d": 1000, "fp32": True, "i": 32,
                                  "backends": ["scipy", "xla", "merge",
-                                              "dia"]})
+                                              "dia", "split", "hotcold"]})
     driver_s = time.perf_counter() - t0
     summary = ", ".join(f"{b} {r['avg_ms']:.4f} ms verified={r['verified']}"
                         for b, r in results.items())
     print(f"driver: run_benchmark grid2d(1000) in {driver_s:.1f} s: "
           f"{summary}")
-    if (sorted(results) != ["dia", "merge", "scipy", "xla"]
+    if (sorted(results) != ["dia", "hotcold", "merge", "scipy", "split",
+                            "xla"]
             or not all(r["verified"] for r in results.values())):
         print(out.getvalue())
         return 1
 
-    # ------------------------------------------------------------ 9 probe
+    # ------------------------------------------------------------ 9 split main
+    # circuit5M class at full size (tools/bench_large.py:90-96), through
+    # the device-built 16-band split: one stacked fused launch per op(x)
+    t_phase = time.perf_counter()
+    rows_c, cols_c, vals_c = make_circuit_like(CIRCUIT_ROWS, CIRCUIT_NNZ,
+                                               seed=0)
+    circ = CsrMatrix.from_coo(CooMatrix(CIRCUIT_ROWS, CIRCUIT_ROWS, rows_c,
+                                        cols_c, vals_c)).astype(np.float32)
+    del rows_c, cols_c, vals_c
+    mc, nnz_c = circ.num_rows, circ.num_nonzeros
+    gen_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    rec_c = suggest_backend(circ)
+    suggest_s = time.perf_counter() - t0
+    print(f"split main: circuit5M class {mc} rows {nnz_c} nnz float32 "
+          f"(generated in {gen_s:.1f} s); suggest_backend "
+          f"({suggest_s:.1f} s): {rec_c}")
+    rc = np.random.RandomState(1)
+    xc = rc.uniform(0.1, 1.0, mc).astype(np.float32)
+    yc0 = rc.uniform(-1, 1, mc).astype(np.float32)
+    Xc = rc.uniform(-1, 1, (mc, 2)).astype(np.float32)
+    xcd = torch.from_numpy(xc).to(dev)
+    yc0d = torch.from_numpy(yc0).to(dev)
+
+    op_cm = build_operator(circ)
+    merge_c_ok = verified(op_cm(xcd), circ, xc)
+    merge_c = (chained_rate_ms(op_cm, xcd), chained_rate_ms(op_cm, xcd,
+                                                            graph=False))
+    csr_tc = torch.sparse_csr_tensor(
+        torch.from_numpy(circ.row_offsets.astype(np.int32)).to(dev),
+        op_cm.col_indices, op_cm.values, size=(mc, mc))
+    cusparse_c_ms = event_ms(lambda: torch.mv(csr_tc, xcd))
+    merge_c_bound = csr_bytes(mc, mc, nnz_c) / peak_gbps / 1e6
+    del op_cm
+
+    op_s = S.build_split_operator_device(circ)
+    K.reset_launches()
+    ys = op_s(xcd)
+    ys_ab = op_s(xcd, y_in=yc0d, alpha=1.5, beta=-0.5)
+    Ys = op_s.mm(torch.from_numpy(Xc).to(dev))
+    torch.cuda.synchronize()
+    split_launches = dict(K.LAUNCHES)
+    checks = {"op(x)": verified(ys, circ, xc),
+              "op(x,y_in,1.5,-0.5)": verified(ys_ab, circ, xc, yc0, 1.5,
+                                               -0.5)}
+    for k in range(Xc.shape[1]):
+        checks[f"mm[:, {k}]"] = verified(Ys[:, k], circ, Xc[:, k])
+    bad = [k for k, ok in checks.items() if not ok]
+    xr = torch.from_numpy(rc.uniform(-1, 1, mc).astype(np.float32)).to(dev)
+    split_same = bool(torch.equal(op_s(xr), op_s(xr)))
+    split_one = split_launches == {"merge_tile": 0, "merge_tile_fused": 4,
+                                   "carry_fixup": 0}
+    sp = op_s.plan
+    print(f"split main: {op_s.describe()}, m_pad {op_s._m_pad}, stack "
+          f"{sp.num_rows} rows {sp.num_nonzeros} merge nonzeros "
+          f"(tile_items {sp.tile_items}, {sp.num_tiles} tiles); setup_ms "
+          f"{op_s.setup_ms:.1f} (upload {op_s.upload_ms:.1f}, convert "
+          f"{op_s.convert_ms:.1f}), stage_ms {op_s.stage_ms}; launches "
+          f"{split_launches} (one fused launch per op(x) and per column: "
+          f"{split_one}), verified {len(checks) - len(bad)}/{len(checks)}"
+          f"{' FAILED ' + str(bad) if bad else ''}; two op(x) calls "
+          f"bitwise equal: {split_same}; merge op(x) verified {merge_c_ok}")
+    if bad or not split_one or not split_same or not merge_c_ok:
+        return 1
+
+    split_dev = (chained_rate_ms(op_s, xcd), chained_rate_ms(op_s, xcd,
+                                                             graph=False))
+    so = op_s.op
+    stack_ms = event_ms(lambda: K.merge_csrmv(
+        so.values, so.col_indices, so.row_end_offsets, xcd, so.tile_rows,
+        so.tile_nnz, sp.tile_items, tickets=so.tickets))
+    nb_c = op_s.num_bands
+    split_bytes = (csr_bytes(sp.num_rows, mc, sp.num_nonzeros)
+                   + nb_c * mc * 4 + mc * 4)
+    split_bound = split_bytes / peak_gbps / 1e6
+    paths["split"] = split_launches["merge_tile_fused"]
+    del op_s, so, ys, ys_ab, Ys
+
+    # the host builder (geometric (8, 32) edges), full rows and compact
+    host_split = {}
+    for name, kw in (("host", {}), ("compact", {"compact_rows": True})):
+        t0 = time.perf_counter()
+        op_h = S.build_split_operator(circ, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ok = (verified(op_h(xcd), circ, xc)
+              and verified(op_h(xcd, y_in=yc0d, alpha=1.5, beta=-0.5), circ,
+                           xc, yc0, 1.5, -0.5))
+        hp = op_h.plan
+        hb = csr_bytes(hp.num_rows, mc, hp.num_nonzeros) + mc * 4
+        hb += (op_h._gather_idx.numel() * 8 + mc * 4 if kw
+               else op_h.num_bands * mc * 4)
+        host_split[name] = (op_h.describe(), build_s, ok,
+                            chained_rate_ms(op_h, xcd),
+                            chained_rate_ms(op_h, xcd, graph=False),
+                            hb / peak_gbps / 1e6, hp.num_rows)
+        del op_h
+    t0 = time.perf_counter()
+    op_r, rec = build_suggested(circ)
+    router["circuit5M"] = (rec["backend"], verified(op_r(xcd), circ, xc),
+                           chained_rate_ms(op_r, xcd), merge_c[0],
+                           time.perf_counter() - t0)
+    del op_r
+    print(f"split timing: device-built {nb_c} bands op(x) "
+          f"{split_dev[0]:.4f} ms on the device (CUDA graph), "
+          f"{split_dev[1]:.4f} ms eager, of which the stacked fused kernel "
+          f"{stack_ms:.4f} ms; bytes bound {split_bound:.4f} ms for "
+          f"{split_bytes} B; merge op(x) {merge_c[0]:.4f} ms device, "
+          f"{merge_c[1]:.4f} eager, bound {merge_c_bound:.4f}; cuSPARSE "
+          f"{cusparse_c_ms:.4f}; split / merge {split_dev[0] / merge_c[0]:.3f}"
+          f" (byte-model ratio {split_bound / merge_c_bound:.3f})")
+    for name, (desc, build_s, ok, d_ms, e_ms, bnd, rows) in host_split.items():
+        print(f"split {name} builder: {desc}, {rows} stacked rows, built in "
+              f"{build_s:.1f} s, verified {ok}; op(x) {d_ms:.4f} ms device, "
+              f"{e_ms:.4f} eager, bytes bound {bnd:.4f}")
+    print(f"split phase: {time.perf_counter() - t_phase:.1f} s")
+    if not all(h[2] for h in host_split.values()):
+        return 1
+    del csr_tc
+
+    # ------------------------------------------------------------ 10 hotcold
+    # kron class: R-MAT scale 20, 50M generated nonzeros
+    # (tools/bench_hotcold.py:43-56), through the hot/cold split
+    t_phase = time.perf_counter()
+    r_k, c_k, v_k = rmat(20, KRON_NNZ, 16, np.float32)
+    nk_ = int(max(r_k.max(), c_k.max())) + 1
+    kron = CsrMatrix.from_coo(CooMatrix(nk_, nk_, r_k, c_k, v_k)
+                              ).astype(np.float32)
+    del r_k, c_k, v_k
+    gen_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    rec_k = suggest_backend(kron)
+    suggest_s = time.perf_counter() - t0
+    nnz_k = kron.num_nonzeros
+    print(f"hotcold main: kron class {nk_} rows {nnz_k} nnz float32 "
+          f"(generated in {gen_s:.1f} s); suggest_backend ({suggest_s:.1f} "
+          f"s): {rec_k}")
+    rk = np.random.RandomState(1)
+    xk = rk.uniform(0.5, 1.5, nk_).astype(np.float32)
+    yk0 = rk.uniform(-1, 1, nk_).astype(np.float32)
+    xkd = torch.from_numpy(xk).to(dev)
+    op_km = build_operator(kron)
+    merge_k_ok = verified(op_km(xkd), kron, xk)
+    merge_k = (chained_rate_ms(op_km, xkd), chained_rate_ms(op_km, xkd,
+                                                            graph=False))
+    csr_tk = torch.sparse_csr_tensor(
+        torch.from_numpy(kron.row_offsets.astype(np.int32)).to(dev),
+        op_km.col_indices, op_km.values, size=(nk_, nk_))
+    cusparse_k_ms = event_ms(lambda: torch.mv(csr_tk, xkd))
+    merge_k_bound = csr_bytes(nk_, nk_, nnz_k) / peak_gbps / 1e6
+    del op_km, csr_tk
+
+    t0 = time.perf_counter()
+    op_hc = S.build_hotcold_operator(kron)
+    torch.cuda.synchronize()
+    hc_build_s = time.perf_counter() - t0
+    K.reset_launches()
+    yh = op_hc(xkd)
+    yh_ab = op_hc(xkd, y_in=torch.from_numpy(yk0).to(dev), alpha=1.5,
+                  beta=-0.5)
+    torch.cuda.synchronize()
+    hc_launches = dict(K.LAUNCHES)
+    hc_ok = (verified(yh, kron, xk)
+             and verified(yh_ab, kron, xk, yk0, 1.5, -0.5))
+    hc_same = bool(torch.equal(op_hc(xkd), op_hc(xkd)))
+    hc_two = (op_hc.hot_op is not None and op_hc.cold_op is not None
+              and hc_launches == {"merge_tile": 0, "merge_tile_fused": 4,
+                                  "carry_fixup": 0})
+    paths["hotcold"] = hc_launches["merge_tile_fused"]
+    hc = (chained_rate_ms(op_hc, xkd), chained_rate_ms(op_hc, xkd,
+                                                       graph=False))
+    hot_slots = op_hc.num_hot_windows * 128
+    hc_bytes = (csr_bytes(nk_, hot_slots, op_hc.hot_nnz)
+                + hot_slots * 4 * 2                     # x gathered, written
+                + csr_bytes(nk_, nk_, op_hc.cold_nnz) + nk_ * 4)  # y_in read
+    hc_bound = hc_bytes / peak_gbps / 1e6
+    print(f"hotcold main: {op_hc.describe()}, built in {hc_build_s:.1f} s; "
+          f"launches {hc_launches} (two fused launches per op(x): "
+          f"{hc_two}), verified op(x) and op(x,y_in,1.5,-0.5) {hc_ok}, two "
+          f"op(x) calls bitwise equal {hc_same}; merge op(x) verified "
+          f"{merge_k_ok}")
+    print(f"hotcold timing: op(x) {hc[0]:.4f} ms on the device (CUDA "
+          f"graph), {hc[1]:.4f} ms eager, bytes bound {hc_bound:.4f} for "
+          f"{hc_bytes} B; merge op(x) {merge_k[0]:.4f} ms device, "
+          f"{merge_k[1]:.4f} eager, bound {merge_k_bound:.4f}; cuSPARSE "
+          f"{cusparse_k_ms:.4f}; hotcold / merge {hc[0] / merge_k[0]:.3f}")
+    if not (hc_ok and hc_two and hc_same and merge_k_ok):
+        return 1
+    del op_hc, yh, yh_ab
+    t0 = time.perf_counter()
+    op_r, rec = build_suggested(kron)
+    router["kron"] = (rec["backend"], verified(op_r(xkd), kron, xk),
+                      chained_rate_ms(op_r, xkd), merge_k[0],
+                      time.perf_counter() - t0)
+    del op_r, kron, xkd
+    print(f"hotcold phase: {time.perf_counter() - t_phase:.1f} s")
+
+    # ------------------------------------------------------------ 11 router
+    # build_suggested on each class (the circuit and kron rows above), each
+    # pick verified and timed against merge op(x) on the same matrix
+    t_phase = time.perf_counter()
+    g3 = CsrMatrix.from_coo(CooMatrix.grid3d(100)).astype(np.float32)
+    rl = np.random.RandomState(5)                  # tests/test_suggest.py:48
+    n_l = 50_000
+    rows_l = np.repeat(np.arange(n_l, dtype=np.int64), 8)
+    cols_l = np.clip(rows_l + rl.randint(-2048, 2049, rows_l.size), 0,
+                     n_l - 1)
+    local = CsrMatrix.from_coo(CooMatrix(n_l, n_l, rows_l, cols_l,
+                                         rl.uniform(-1, 1, rows_l.size))
+                               ).astype(np.float32)
+    for name, c in (("grid3d100", g3), ("local_uniform", local)):
+        xv = np.random.RandomState(2).uniform(0.5, 1.5, c.num_cols).astype(
+            np.float32)
+        xvd = torch.from_numpy(xv).to(dev)
+        t0 = time.perf_counter()
+        op_r, rec = build_suggested(c)
+        build_s = time.perf_counter() - t0
+        router[name] = (rec["backend"], verified(op_r(xvd), c, xv),
+                        chained_rate_ms(op_r, xvd),
+                        chained_rate_ms(build_operator(c), xvd), build_s)
+    want = {"grid3d100": "dia", "circuit5M": "split", "kron": "hotcold",
+            "local_uniform": "merge"}
+    for name, (backend, ok, r_ms, m_ms, build_s) in router.items():
+        print(f"router {name}: {backend} (the JAX package's class answer "
+              f"{want[name]}), verified {ok}, op(x) {r_ms:.4f} ms vs merge "
+              f"op(x) {m_ms:.4f} ({r_ms / m_ms:.3f}x), built in "
+              f"{build_s:.1f} s")
+    print(f"router phase: {time.perf_counter() - t_phase:.1f} s")
+    if not all(r[1] for r in router.values()):
+        return 1
+
+    # ------------------------------------------------------------ 12 autotune
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tune_dir:
+        os.environ[A.CACHE_ENV] = os.path.join(tune_dir, "tune.json")
+        A.reset_timed()
+        op_a = build_operator(g3, autotune=True)
+        timed_first = A.TIMED["candidates"]
+        with open(A.cache_path()) as f:
+            entries = json.load(f)
+        A.reset_timed()
+        op_b = build_operator(g3, autotune=True)
+        timed_second = A.TIMED["candidates"]
+        del os.environ[A.CACHE_ENV]
+    x1g = np.ones(g3.num_cols, np.float32)
+    tune_ok = (verified(op_b(torch.from_numpy(x1g).to(dev)), g3, x1g)
+               and op_a.plan.tile_items == op_b.plan.tile_items)
+    print(f"autotune: grid3d(100) {entries}; winner tile_items "
+          f"{op_a.plan.tile_items}; candidates timed by the first build "
+          f"{timed_first}, by the second {timed_second}; verified {tune_ok}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if (timed_first != len(A.DEFAULT_CANDIDATES) or timed_second != 0
+            or not tune_ok):
+        return 1
+    del op_a, op_b, g3, local
+
+    # ------------------------------------------------------------ 13 probe
     xp = torch.from_numpy(np.random.RandomState(0).uniform(
         -1, 1, (8, 128)).astype(np.float32)).to(dev)
     small = (5, 8, P.CHAINS, 64)   # grid, unroll, chains, table rows
@@ -873,6 +1192,12 @@ def main() -> int:
           f"{bad or 'none'}")
     if bad:
         return 1
+    sass = P.sass_loop_counts("select")
+    sass_same = all(sass[k] == v for k, v in P.SASS_PER_STEP["select"].items()
+                    if k in sass)
+    print(f"probe select SASS of sm_ceiling_kernel<1, {P.CHAINS}>'s timed "
+          f"loop: {sass}; the counts tools/sm_ceiling.py bounds with "
+          f"{P.SASS_PER_STEP['select']}: the same {sass_same}")
     P.reset_launches()
     rates = P.measure(x=xp)
     probe_launches = dict(P.LAUNCHES)
@@ -894,6 +1219,13 @@ def main() -> int:
                 if "smem_bound_ms" in r else "")
         if "shuffle_bound_ms" in r:
             smem += f", shuffle bound {r['shuffle_bound_ms']:.4f} ms"
+        if "issue_bound_ms" in r:
+            smem += (f", issue bound {r['issue_bound_ms']:.4f} ms "
+                     f"({100 * r['issue_bound_ms'] / r['ms_per_launch']:.1f}"
+                     f"% of it), integer-pipe bound "
+                     f"{r['int_pipe_bound_ms']:.4f} ms "
+                     f"({100 * r['int_pipe_bound_ms'] / r['ms_per_launch']:.1f}"
+                     "%)")
         print(f"probe {cls}: {r['ms_per_launch']:.4f} ms per launch of "
               f"{r['blocks']} blocks, {r['ops_per_s']:.4e} ops/s, "
               f"{r['ops_per_sm_per_clock']:.2f} per SM per clock at "
@@ -904,7 +1236,7 @@ def main() -> int:
             or min(probe_launches.values()) < 1):
         return 1
 
-    # ------------------------------------------------------------ 10 report
+    # ------------------------------------------------------------ 14 report
     # main_path: false marks the unfused instantiation and the separate
     # fix-up, which op(x) no longer launches (their launches are 0 there)
     src = "merge_spmv_tpu_torch/csrc/merge_csrmv.cu"
@@ -913,7 +1245,8 @@ def main() -> int:
          "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
          "launches": launches["merge_tile_fused"], "max_abs_err": fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
-         "bound_by": "bytes", "library_ms": cusparse_ms, "main_path": True},
+         "bound_by": "bytes", "library_ms": cusparse_ms, "main_path": True,
+         "launches_by_path": paths},
         {"name": "merge_tile", "route": "cuda", "source": src,
          "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
          "launches": launches["merge_tile"], "max_abs_err": tile_err,

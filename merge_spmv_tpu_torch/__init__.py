@@ -9,8 +9,11 @@ The port of merge_spmv_tpu (JAX / Pallas on a TPU), module for module:
   (csrmv_torch), the CUDA merge kernels and their plain versions
   (csrmv_cuda, csrc/merge_csrmv.cu), the public csrmv/csrmm API and the
   SpmvOperator; the DIA split operator (dia) with its CUDA kernel
-  (dia_cuda, csrc/dia_matvec.cu),
+  (dia_cuda, csrc/dia_matvec.cu); the banded and hot/cold split operators
+  (split), the structure router (suggest) and the tile autotuner
+  (autotune),
 * bench/ and cli.py — the verify-then-time benchmark driver and its CLI,
+  and the large-matrix generators (bench/matrices.py),
 * tools/ — the op-class throughput probe (sm_ceiling, csrc/sm_ceiling.cu),
 * utils/ — the ULP comparator, host RNG helpers, device table, kernel
   build and timers on the card.
@@ -27,6 +30,10 @@ from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.ops.csrmv import csrmv, csrmm
 from merge_spmv_tpu_torch.ops.operator import SpmvOperator, build_operator
 from merge_spmv_tpu_torch.ops.dia import DiaSpmvOperator, build_dia_operator
+from merge_spmv_tpu_torch.ops.split import (build_hotcold_operator,
+                                            build_split_operator,
+                                            build_split_operator_device)
+from merge_spmv_tpu_torch.ops.suggest import build_suggested, suggest_backend
 from merge_spmv_tpu_torch.ops.merge_path import (merge_path_search,
                                                  merge_tile_coordinates)
 
@@ -41,6 +48,11 @@ __all__ = [
     "build_operator",
     "DiaSpmvOperator",
     "build_dia_operator",
+    "build_hotcold_operator",
+    "build_split_operator",
+    "build_split_operator_device",
+    "build_suggested",
+    "suggest_backend",
     "make_plan",
     "csrmv",
     "csrmm",

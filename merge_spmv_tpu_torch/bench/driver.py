@@ -8,15 +8,20 @@ bound), then timed calls, and a perf line with GFLOP/s, effective GB/s and
 % of the card's HBM peak.  ``--quiet`` switches to CSV fragments.
 
 Backends:
-  merge   — the merge-path CUDA kernels (ops/operator.py)
+  merge   — the merge-path CUDA kernels (ops/operator.py); ``--autotune``
+            takes the autotuner's tile size (ops/autotune.py)
   dia     — the DIA kernel plus the merge kernels for the leftover
             (ops/dia.py)
+  split   — the banded split, one stacked merge-kernel launch plus a
+            reshape-sum (ops/split.py): ``--split=<n>`` gives n quantile
+            bands, else the geometric (8, 32) edges
+  hotcold — the hot/cold column split, two merge-kernel launches
+            (ops/split.py)
   xla     — the device library baseline: cuSPARSE through ``torch.mv`` on a
             ``sparse_csr_tensor`` with int32 indices (the JAX package's
             XLA segment sum has the same role)
   scipy   — SciPy csr_matrix @ x on the host (MKL-analog baseline)
   torch   — torch.sparse.csr on the host (second vendor baseline)
-  split, hotcold — not ported yet: they raise NotImplementedError.
 
 Device times are CUDA-graph replays of a chain of dependent calls
 (utils/timers.py::chained_rate_ms); with alpha/beta set every timed call
@@ -37,6 +42,8 @@ from merge_spmv_tpu_torch.formats.coo import CooMatrix
 from merge_spmv_tpu_torch.formats.csr import CsrMatrix
 from merge_spmv_tpu_torch.ops.dia import build_dia_operator
 from merge_spmv_tpu_torch.ops.operator import build_operator
+from merge_spmv_tpu_torch.ops.split import (build_hotcold_operator,
+                                            build_split_operator)
 from merge_spmv_tpu_torch.utils.compare import compare_results
 from merge_spmv_tpu_torch.utils.device import (device_info,
                                                resolve_device, torch_dtype)
@@ -153,10 +160,6 @@ class _LibrarySpmv:
 
 def _bench_device_backend(backend, csr, x, gold, args, abs_bound=None):
     """Verify + time a device backend through its public call."""
-    if backend in ("split", "hotcold"):
-        raise NotImplementedError(
-            f"the {backend!r} backend is not ported yet: it is ROADMAP "
-            "Queue 1 item 9 (split operators)")
     dev = resolve_device(args.get("device"))
     quiet = args.get("quiet", False)
     dtype = torch_dtype(csr.values.dtype)
@@ -170,7 +173,23 @@ def _bench_device_backend(backend, csr, x, gold, args, abs_bound=None):
     # tile search or diagonal table), then the first call, which loads
     # the kernel library (built by nvcc once per source and process)
     prep_t = Timer().start()
-    if backend == "dia":
+    if backend == "split":
+        nb = args.get("split")
+        quantile = isinstance(nb, int) and nb > 1
+        op = build_split_operator(
+            csr, dtype=csr.values.dtype,
+            edges_chunks="quantile" if quantile else (8, 32),
+            num_bands=nb if quantile else 5,
+            tile_items=args.get("tile_items"), device=dev)
+        if not quiet:
+            print(f"({op.describe()}) ", end="", flush=True)
+    elif backend == "hotcold":
+        op = build_hotcold_operator(csr, dtype=csr.values.dtype,
+                                    tile_items=args.get("tile_items"),
+                                    device=dev)
+        if not quiet:
+            print(f"({op.describe()}) ", end="", flush=True)
+    elif backend == "dia":
         op = build_dia_operator(csr, dtype=csr.values.dtype,
                                 tile_items=args.get("tile_items"),
                                 device=dev)
@@ -361,5 +380,7 @@ def _display_name(backend, on_card: bool = True):
     if not on_card:
         names.update({"merge": "Merge CsrMV (plain, CPU)",
                       "xla": "torch.sparse CsrMV (CPU)",
+                      "split": "Banded-split CsrMV (stacked, plain, CPU)",
+                      "hotcold": "Hot/cold-split CsrMV (plain, CPU)",
                       "dia": "DIA-split CsrMV (plain, CPU)"})
     return names.get(backend, backend)

@@ -14,21 +14,26 @@ Options:
     --i=<timing iterations>          default: adaptive 16G-nnz rule
     --quiet                          CSV output for corpus sweeps
     --v / --v2                       verbose / dump matrix
-    --backends=merge,dia,xla,scipy,torch
+    --backends=merge,dia,split,hotcold,xla,scipy,torch
                                      comma list (default scipy,xla,merge):
                                      merge = the merge-path CUDA kernels,
                                      dia = the diagonal split (DIA kernel +
-                                     merge kernels for the leftover), xla =
-                                     cuSPARSE (the device library baseline),
-                                     scipy / torch = host baselines;
-                                     split and hotcold are not ported yet
-                                     and raise
-    --tile-items=<n>                 merge items per thread block
-    --gather-group=<n>, --gather-cluster, --autotune
+                                     merge kernels for the leftover),
+                                     split = the banded stack (one merge
+                                     launch + reshape-sum), hotcold = the
+                                     hot/cold column split (two merge
+                                     launches), xla = cuSPARSE (the device
+                                     library baseline), scipy / torch =
+                                     host baselines
+    --tile-items=<n>                 merge items per thread block (a
+                                     multiple of 1024 for split)
+    --autotune                       merge: the autotuner's tile size
+    --gather-group=<n>, --gather-cluster
                                      the TPU package's tuning knobs:
                                      accepted and ignored
     --split=<n>                      quantile band count for the split
-                                     backend
+                                     backend (default: geometric (8, 32)
+                                     edges)
     --seed=<n>                       generator seed
     --cpu                            run the kernels' plain versions on the
                                      CPU (default: the card; raises without

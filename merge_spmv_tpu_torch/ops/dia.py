@@ -184,6 +184,10 @@ class DiaSpmvOperator:
                             int(offsets.size), self.rest_nnz)
         self.setup_ms = (time.perf_counter() - t0) * 1e3
 
+    @property
+    def shape(self):
+        return (self.num_rows, self.num_cols)
+
     def _rounded(self, t):
         """Values rounded to the operator's dtype, held in its compute
         dtype."""

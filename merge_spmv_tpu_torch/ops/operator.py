@@ -32,7 +32,8 @@ from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.utils.device import resolve_device, torch_dtype
 
-__all__ = ["SpmvOperator", "build_operator", "row_abs_sums"]
+__all__ = ["SpmvOperator", "build_operator", "assemble_operator",
+           "row_abs_sums"]
 
 
 def row_abs_sums(values, row_end_offsets, num_rows: int):
@@ -69,6 +70,10 @@ class SpmvOperator:
         self.abs_row_sum_max = 0.0
         self.tickets = ticket_counter(self.device)
 
+    @property
+    def shape(self):
+        return (self.plan.num_rows, self.plan.num_cols)
+
     def _vec(self, v):
         return None if v is None else torch.as_tensor(v, device=self.device)
 
@@ -103,6 +108,22 @@ class SpmvOperator:
                 "effect here]")
 
 
+def assemble_operator(plan: SpmvPlan, values, row_end_offsets, col_indices,
+                      ignored: Optional[dict] = None) -> SpmvOperator:
+    """The operator over CSR arrays already on its device: the values in
+    the plan's compute dtype, the tile search and the row norm (which
+    waits for the arrays).  build_operator's second half, and the device
+    split builder's (ops/split.py), which makes its stack on the card."""
+    values = values.to(compute_dtype(plan.dtype))
+    tile_rows, tile_nnz = merge_tile_coordinates(
+        row_end_offsets, plan.num_nonzeros, plan.tile_items)
+    sums = row_abs_sums(values, row_end_offsets, plan.num_rows)
+    op = SpmvOperator(plan, values, row_end_offsets, col_indices, tile_rows,
+                      tile_nnz, ignored=ignored)
+    op.abs_row_sum_max = float(sums.max()) if sums.numel() else 0.0
+    return op
+
+
 def build_operator(csr, dtype="float32", backend: str = "auto",
                    tile_items: Optional[int] = None,
                    autotune: bool = False,
@@ -115,11 +136,17 @@ def build_operator(csr, dtype="float32", backend: str = "auto",
     ``device=None`` means the card, and raises when there is none;
     ``device="cpu"`` runs the kernels' plain versions.  ``backend`` must
     agree with the device ("cuda" on the card, "torch" on the CPU).
-    ``autotune``, ``runtime_skip``, ``gather_group`` and ``gather_cluster``
-    are the TPU package's tuning knobs: accepted and ignored, and
+    ``autotune=True`` with ``tile_items=None`` takes the tile size that
+    ops/autotune.py found fastest for the matrix's shape class on this
+    card (timed once per class, then cached; the plan's choice on the
+    CPU).  ``runtime_skip``, ``gather_group`` and ``gather_cluster`` are
+    the TPU package's tuning knobs: accepted and ignored, and
     ``describe()`` says so.
     """
     dev = resolve_device(device)
+    if autotune and tile_items is None:
+        from merge_spmv_tpu_torch.ops.autotune import autotune_tile_items
+        tile_items = autotune_tile_items(csr, dtype=dtype, device=dev)
     t0 = time.perf_counter()
     plan = make_plan(csr.num_rows, csr.num_cols, csr.num_nonzeros,
                      dtype=dtype, tile_items=tile_items, backend=backend,
@@ -127,17 +154,10 @@ def build_operator(csr, dtype="float32", backend: str = "auto",
     t1 = time.perf_counter()
     values, rowends, cols = csr.to_device(dtype=torch_dtype(plan.dtype),
                                           device=dev)
-    values = values.to(compute_dtype(plan.dtype))
-    tile_rows, tile_nnz = merge_tile_coordinates(rowends, csr.num_nonzeros,
-                                                 plan.tile_items)
-    sums = row_abs_sums(values, rowends, csr.num_rows)
-    abs_max = float(sums.max()) if sums.numel() else 0.0   # waits for the copy
+    ignored = {"runtime_skip": runtime_skip, "gather_group": gather_group,
+               "gather_cluster": gather_cluster}
+    op = assemble_operator(plan, values, rowends, cols, ignored=ignored)
     t2 = time.perf_counter()
-    ignored = {"autotune": autotune, "runtime_skip": runtime_skip,
-               "gather_group": gather_group, "gather_cluster": gather_cluster}
-    op = SpmvOperator(plan, values, rowends, cols, tile_rows, tile_nnz,
-                      ignored=ignored)
-    op.abs_row_sum_max = abs_max
     # setup-cost attribution (gpu_spmv.cu:114-134 reports conversion setup
     # apart from run time): plan = policy; prepare = copy to the device +
     # the tile search + the row norm

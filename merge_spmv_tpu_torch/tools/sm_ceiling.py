@@ -26,13 +26,19 @@ during the run, beside the bound.  It writes no file.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import json
+import re
+import shutil
+import subprocess
 import sys
 
 import torch
 
-from merge_spmv_tpu_torch.utils.cuda_build import (check_operand,
+from merge_spmv_tpu_torch.utils.cuda_build import (_library_path,
+                                                   build_library,
+                                                   check_operand,
                                                    load_library, on_cpu,
                                                    raise_on_launch)
 from merge_spmv_tpu_torch.utils.device import (PEAK_FP32_GFLOPS, device_info,
@@ -41,6 +47,7 @@ from merge_spmv_tpu_torch.utils.device import (PEAK_FP32_GFLOPS, device_info,
 __all__ = ["CLASSES", "OPS_PER_ELEMENT", "GRID", "UNROLL", "CHAINS",
            "TABLE_ROWS", "LAUNCHES", "reset_launches", "probe", "probe_plain",
            "probe_launch", "probe_blocks", "operations", "measure",
+           "issue_bounds_ms", "SASS_PER_STEP", "sass_loop_counts",
            "KERNEL_SOURCE"]
 
 KERNEL_SOURCE = "sm_ceiling"
@@ -53,6 +60,25 @@ OPS_PER_ELEMENT = {"fma": 1, "select": 1, "gather": 2, "dynfetch": 1,
 # C++ Programming Guide's table of arithmetic instruction throughput, row
 # "warp shuffle"); the gather kernel shuffles each element once.
 SHUFFLE_LANES_PER_CLOCK = 32
+# Instruction-issue bounds.  An SM issues one warp instruction per clock
+# from each of its 4 schedulers (128 lane-instructions per clock); the
+# integer pipe that runs ISETP, FSEL and LOP3 takes 64 lanes per clock (the
+# CUDA C++ Programming Guide's throughput of 32-bit integer compare and
+# logic on compute capability 9.0).  SASS_PER_STEP counts, for a class, the
+# instructions of one pass of its unrolled timed loop in
+# sm_ceiling_kernel<CLS, 8> (cuobjdump -sass of the sm_90a build, CUDA
+# 12.8), the integer-pipe ones among them, and the elements the pass
+# updates per thread.  select: 187 instructions (125 ISETP, 32 FSEL,
+# 4 LOP3, 12 UIADD3, 11 ULOP3, 1 S2R, 1 VIADD, 1 BRA) for 4 steps x 8
+# chains x 4 slots = 128 elements; the compiler folds the 4 steps'
+# compares into ISETP.EQ.OR chains and issues one FSEL per chain and slot.
+ISSUE_LANES_PER_CLOCK = 128
+INT_PIPE_LANES_PER_CLOCK = 64
+SASS_PER_STEP = {"select": {"instructions": 187, "int_pipe": 161,
+                            "elements": 128}}
+INT_PIPE_OPS = ("ISETP", "FSEL", "LOP3")
+_SASS_INSN = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 GRID = 4096
 UNROLL = 64
 CHAINS = 8
@@ -187,6 +213,54 @@ def operations(cls, grid=GRID, unroll=UNROLL, chains=CHAINS, blocks=1):
     return (blocks * grid * unroll * chains * OPS_PER_ELEMENT[cls] * 1024)
 
 
+def sass_loop_counts(cls, chains=CHAINS) -> dict:
+    """Instructions of the timed loop of ``sm_ceiling_kernel<cls, chains>``
+    as compiled: ``cuobjdump -sass`` of the built library, the innermost
+    backward-branch loop with the most instructions, its instruction count,
+    its INT_PIPE_OPS count and its opcode histogram.  Needs the CUDA
+    toolkit (the card's machine)."""
+    build_library(KERNEL_SOURCE)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(_library_path(KERNEL_SOURCE))],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    tag = f"sm_ceiling_kernelILi{CLASSES.index(cls)}ELi{chains}EE"
+    body = text.split("Function : ")
+    body = next(b for b in body[1:] if b.split(None, 1)[0].endswith(
+        tag + "EvPKfiiiPf"))
+    insns = [(int(a, 16), op.split(".")[0], rest)
+             for a, op, rest in _SASS_INSN.findall(body)]
+    loops = []
+    for addr, op, rest in insns:
+        target = re.search(r"0x([0-9a-f]+)", rest)
+        if op == "BRA" and target and int(target.group(1), 16) < addr:
+            loops.append((int(target.group(1), 16), addr))
+    inner = [lp for lp in loops if not any(
+        o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    start, end = max(inner, key=lambda lp: lp[1] - lp[0])
+    ops = [op for addr, op, _ in insns if start <= addr <= end]
+    return {"instructions": len(ops),
+            "int_pipe": sum(op in INT_PIPE_OPS for op in ops),
+            "opcodes": dict(collections.Counter(ops).most_common())}
+
+
+def issue_bounds_ms(cls, ops, sms, clock_mhz) -> dict:
+    """The class's instruction-issue bounds for ``ops`` element operations
+    on ``sms`` SMs at ``clock_mhz``: ``issue_bound_ms`` (every instruction
+    of the timed loop at ISSUE_LANES_PER_CLOCK) and ``int_pipe_bound_ms``
+    (its integer-pipe instructions at INT_PIPE_LANES_PER_CLOCK); empty for
+    a class whose SASS is not counted."""
+    sass = SASS_PER_STEP.get(cls)
+    if sass is None:
+        return {}
+    sm_clocks_per_ms = sms * clock_mhz * 1e3
+    per_elem = ops / sass["elements"]
+    return {"issue_bound_ms": per_elem * sass["instructions"]
+            / (ISSUE_LANES_PER_CLOCK * sm_clocks_per_ms),
+            "int_pipe_bound_ms": per_elem * sass["int_pipe"]
+            / (INT_PIPE_LANES_PER_CLOCK * sm_clocks_per_ms)}
+
+
 def measure(classes=CLASSES, x=None) -> dict:
     """Rates on the card at the full size (GRID, UNROLL, CHAINS,
     TABLE_ROWS), for ``x`` (default ones) on the card.  Per class: ms per
@@ -195,7 +269,8 @@ def measure(classes=CLASSES, x=None) -> dict:
     nvidia-smi reads while the launches run.  ``bound_ms`` counts one
     operation per FFMA lane per clock; beside it ``smem_bound_ms`` (the
     fetch classes) and ``shuffle_bound_ms`` (gather) count the unit those
-    classes meet, at the same clock."""
+    classes meet, at the same clock; ``issue_bound_ms`` and
+    ``int_pipe_bound_ms`` (select) count its instructions as compiled."""
     if x is None:
         x = torch.ones(8, 128, dtype=torch.float32, device="cuda")
     dev = x.device
@@ -231,6 +306,7 @@ def measure(classes=CLASSES, x=None) -> dict:
             # 32 banks x 4 B per clock per SM; each operation reads 4 B
             result[cls]["smem_bound_ms"] = (
                 ops * 4 / (sms * 128 * clock_mhz * 1e6) * 1e3)
+        result[cls].update(issue_bounds_ms(cls, ops, sms, clock_mhz))
         if cls == "gather":
             lanes = ops // OPS_PER_ELEMENT["gather"]   # lane-shuffles
             result[cls]["shuffle_bound_ms"] = (

@@ -103,8 +103,9 @@ def chained_rate_ms(op, x0, n: int = 64, reps: int = 5,
                     beta: float = 0.0) -> float:
     """Milliseconds per ``op(x, y_in, alpha, beta)`` call on the card.
 
-    ``op`` is any operator whose ``plan`` has ``num_rows``/``num_cols``
-    and which has ``abs_row_sum_max``; ``op(x)`` must not synchronise.
+    ``op`` is any operator with a logical ``shape`` (rows, cols) and
+    ``abs_row_sum_max``; ``op(x)`` must not synchronise.  The shape, not
+    ``op.plan``, decides: a split operator's plan is its stack's.
     For a square matrix call k+1 takes call k's output as its x, with
     ``alpha = chain_alpha(op)``, so the chain neither overflows nor
     underflows within ``n`` calls; alpha costs nothing in the kernels'
@@ -113,7 +114,8 @@ def chained_rate_ms(op, x0, n: int = 64, reps: int = 5,
     the calls in order either way.
     """
     _require_cuda(x0)
-    square = op.plan.num_rows == op.plan.num_cols
+    rows, cols = op.shape
+    square = rows == cols
     alpha = chain_alpha(op) if square else 1.0
 
     def chain(k):

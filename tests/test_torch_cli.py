@@ -132,11 +132,39 @@ def test_cli_dia_backend_runs():
 
 @pytest.mark.parametrize("backend", ["split", "hotcold"])
 def test_cli_split_backends_raise(backend):
-    """The split operators are not ported yet: they raise, naming the
-    roadmap item, and are never skipped silently."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        _run({"uniform": 600, "fp32": True, "quiet": True,
-              "backends": [backend], "split": 3, "i": 3})
+    """The split backends raise on a tile size a stack cannot take (not a
+    multiple of 1024; hot/cold stacks nothing and takes it), and otherwise
+    verify on the JAX package's test_cli split/hotcold inputs."""
+    args = {"uniform": 600, "fp32": True, "quiet": True,
+            "backends": [backend], "split": 3, "i": 3}
+    if backend == "split":
+        with pytest.raises(ValueError, match="multiple of 1024"):
+            _run(dict(args, tile_items=1536))
+    else:
+        args = {"powerlaw": 4000, "fp32": True, "quiet": True,
+                "backends": [backend], "i": 3, "tile_items": 1536}
+    results, _ = _run(args)
+    assert results[backend]["verified"]
+
+
+@pytest.mark.parametrize("split", [3, None])
+def test_cli_split_backend_runs(split):
+    """--backends=split drives the stacked banded operator end to end:
+    --split=3 quantile bands, or the geometric (8, 32) edges."""
+    results, text = _run({"grid2d": 60, "fp32": True, "backends": ["split"],
+                          "split": split, "i": 3})
+    assert results["split"]["verified"]
+    assert "SplitSpmvOperator(" in text
+
+
+def test_cli_hotcold_backend_runs():
+    """--backends=hotcold drives the popularity split end to end; on the
+    uniform powerlaw generator the hot set declines and one cold launch
+    runs (tests/test_cli.py:129-136)."""
+    results, text = _run({"powerlaw": 4000, "fp32": True,
+                          "backends": ["hotcold"], "i": 3})
+    assert results["hotcold"]["verified"]
+    assert "no hot set" in text
 
 
 def test_driver_defaults_to_the_card():

@@ -260,9 +260,11 @@ def test_operator_describe_names_ignored_knobs():
     _, t, _, _ = _inputs(CASES["grid2d_small"])
     op = build_operator(t, device="cpu", gather_group=4, runtime_skip=True)
     text = op.describe()
-    for knob in ("gather_group=4", "runtime_skip=True", "autotune",
-                 "gather_cluster", "ignored"):
+    for knob in ("gather_group=4", "runtime_skip=True", "gather_cluster",
+                 "ignored"):
         assert knob in text
+    # autotune is a knob of the port's own (ops/autotune.py), not ignored
+    assert "autotune" not in text
     assert set(op.setup_s) == {"plan", "prepare"}
 
 
@@ -484,7 +486,9 @@ def test_package_imports_no_jax():
     code = ("import sys, merge_spmv_tpu_torch, merge_spmv_tpu_torch.ops, "
             "merge_spmv_tpu_torch.ops.csrmv_cuda, "
             "merge_spmv_tpu_torch.ops.dia, merge_spmv_tpu_torch.ops.dia_cuda, "
-            "merge_spmv_tpu_torch.ops.split, "
+            "merge_spmv_tpu_torch.ops.split, merge_spmv_tpu_torch.ops.suggest, "
+            "merge_spmv_tpu_torch.ops.autotune, "
+            "merge_spmv_tpu_torch.bench.matrices, "
             "merge_spmv_tpu_torch.bench.driver, merge_spmv_tpu_torch.cli, "
             "merge_spmv_tpu_torch.tools.sm_ceiling, "
             "merge_spmv_tpu_torch.utils.timers, "

@@ -1,5 +1,6 @@
 """The CUDA kernels (merge path, DIA, the op-class probe) against their
-plain PyTorch versions, on the card.  Every test needs an NVIDIA GPU with nvcc and skips without one;
+plain PyTorch versions, on the card, and the operators built on them (the
+split and hot/cold operators, the device split builder, the autotuner).  Every test needs an NVIDIA GPU with nvcc and skips without one;
 run them there with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -7,6 +8,8 @@ run them there with
 (--noconftest: tests/conftest.py configures JAX, which the card's machine
 need not have; this file imports only the port).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -561,3 +564,139 @@ def test_probe_kernel_vs_plain(card, cls, chains, grid):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
     else:
         assert torch.equal(got, want)
+
+
+# ------------------------------------------------------- split operators
+
+def _split_matrix(n=6000, deg=7, spread=900, seed=11):
+    """The scattered-column fixture of tests/test_split.py."""
+    rs = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    cols = np.clip(rows + rs.laplace(0.0, spread, rows.size).astype(np.int64),
+                   0, n - 1)
+    return CsrMatrix.from_coo(CooMatrix(n, n, rows, cols, rs.uniform(
+        -1, 1, rows.size))).astype(np.float32)
+
+
+def _hub_matrix(n=20000, deg=8, hubs=40, seed=7):
+    rs = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), deg)
+    hub = rs.choice(n, hubs, replace=False)
+    cols = np.where(rs.random(rows.size) < 0.6,
+                    hub[rs.randint(0, hubs, rows.size)],
+                    rs.randint(0, n, rows.size))
+    return CsrMatrix.from_coo(CooMatrix(n, n, rows, cols, rs.uniform(
+        -1, 1, rows.size))).astype(np.float32)
+
+
+def _split_ops(kind, dev):
+    from merge_spmv_tpu_torch.ops import split as S
+    if kind == "hotcold":
+        csr = _hub_matrix()
+        return csr, S.build_hotcold_operator(csr, device=dev), 2
+    csr = _split_matrix()
+    if kind == "device":
+        return csr, S.build_split_operator_device(csr, num_bands=4,
+                                                  device=dev), 1
+    return csr, S.build_split_operator(
+        csr, edges_chunks="quantile", num_bands=4,
+        compact_rows=kind == "compact", device=dev), 1
+
+
+@pytest.mark.parametrize("kind", ["full", "compact", "device", "hotcold"])
+def test_split_operators_on_the_card(card, kind):
+    """op(x), op(x, y_in, alpha, beta) and op.mm on the card against the
+    same operator on the CPU (the plain versions) and gold, with the
+    launches each op(x) makes: one fused merge launch for a split, two
+    for hot/cold."""
+    csr, op, per_call = _split_ops(kind, card)
+    _, cpu_op, _ = _split_ops(kind, "cpu")
+    rs = np.random.RandomState(3)
+    x = rs.uniform(-1, 1, csr.num_cols).astype(np.float32)
+    y0 = rs.uniform(-1, 1, csr.num_rows).astype(np.float32)
+    X = rs.uniform(-1, 1, (csr.num_cols, 3)).astype(np.float32)
+    K.reset_launches()
+    y = op(torch.from_numpy(x).to(card))
+    y_ab = op(torch.from_numpy(x).to(card), y_in=torch.from_numpy(y0).to(
+        card), alpha=1.5, beta=-0.5)
+    Y = op.mm(torch.from_numpy(X).to(card))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["merge_tile_fused"] == per_call * (2 + X.shape[1])
+    assert K.LAUNCHES["merge_tile"] == K.LAUNCHES["carry_fixup"] == 0
+    cases = [(y, cpu_op(torch.from_numpy(x)), csr.spmv_gold(x),
+              csr.spmv_abs_bound(x)),
+             (y_ab, cpu_op(torch.from_numpy(x), y_in=torch.from_numpy(y0),
+                           alpha=1.5, beta=-0.5),
+              csr.spmv_gold(x, y0, 1.5, -0.5),
+              csr.spmv_abs_bound(x, y0, 1.5, -0.5))]
+    cpu_Y = cpu_op.mm(torch.from_numpy(X))
+    cases += [(Y[:, k], cpu_Y[:, k], csr.spmv_gold(X[:, k]),
+               csr.spmv_abs_bound(X[:, k])) for k in range(X.shape[1])]
+    for got, plain, gold, bound in cases:
+        got = got.cpu().numpy()
+        assert compare_results(got, gold, verbose=False,
+                               abs_bound=bound) is None
+        assert compare_results(got, plain.numpy(), verbose=False,
+                               abs_bound=bound) is None
+
+
+@pytest.mark.parametrize("kind", ["full", "compact", "device", "hotcold"])
+def test_split_graph_replays_then_eager_call_bitwise_equal(card, kind):
+    """Each operator's op(x) captured in a CUDA graph (no synchronisation,
+    no counter allocated under capture) and replayed 20 times, then an
+    eager call: every result has the eager call's bits."""
+    csr, op, _ = _split_ops(kind, card)
+    x = torch.from_numpy(np.random.RandomState(10).uniform(
+        -1, 1, csr.num_cols).astype(np.float32)).to(card)
+    eager = op(x)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = op(x)
+    replays = []
+    for _ in range(20):
+        graph.replay()
+        replays.append(captured.clone())
+    after = op(x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, eager) for r in replays)
+    assert torch.equal(after, eager)
+
+
+def test_device_split_builder_on_the_card_matches_the_cpu(card):
+    """build_split_operator_device on the card gives the CPU run's edges
+    (band count and band nnz), m_pad and stacked arrays."""
+    from merge_spmv_tpu_torch.ops import split as S
+    csr = _split_matrix(n=20000, deg=9, spread=3000, seed=5)
+    on_card = S.build_split_operator_device(csr, num_bands=16, device=card)
+    on_cpu = S.build_split_operator_device(csr, num_bands=16, device="cpu")
+    assert on_card.num_bands == on_cpu.num_bands > 2
+    assert on_card.band_nnz == on_cpu.band_nnz
+    assert on_card._m_pad == on_cpu._m_pad
+    assert on_card.plan == dataclasses.replace(on_cpu.plan, backend="cuda")
+    for name in ("values", "row_end_offsets", "col_indices"):
+        assert torch.equal(getattr(on_card.op, name).cpu(),
+                           getattr(on_cpu.op, name)), name
+    assert on_card.abs_row_sum_max == pytest.approx(on_cpu.abs_row_sum_max,
+                                                    rel=1e-12)
+
+
+def test_autotune_times_once_then_reads_the_cache(card, tmp_path,
+                                                  monkeypatch):
+    """The tuner times each candidate once per shape class on the card,
+    stores the fastest, and a second build reads it and times nothing."""
+    from merge_spmv_tpu_torch.ops import autotune as A
+    monkeypatch.setenv(A.CACHE_ENV, str(tmp_path / "tune.json"))
+    csr = CsrMatrix.from_coo(CooMatrix.grid3d(30)).astype(np.float32)
+    A.reset_timed()
+    op = build_operator(csr, autotune=True)
+    assert A.TIMED["candidates"] == len(A.DEFAULT_CANDIDATES)
+    assert op.plan.tile_items in A.DEFAULT_CANDIDATES
+    A.reset_timed()
+    again = build_operator(csr, autotune=True)
+    assert A.TIMED["candidates"] == 0
+    assert again.plan.tile_items == op.plan.tile_items
+    x = np.ones(csr.num_cols, np.float32)
+    assert compare_results(again(torch.from_numpy(x).to(card)).cpu().numpy(),
+                           csr.spmv_gold(x), verbose=False,
+                           abs_bound=csr.spmv_abs_bound(x)) is None

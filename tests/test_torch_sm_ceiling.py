@@ -97,3 +97,23 @@ def test_probe_refuses_what_the_kernel_does_not_take(bad):
     cls = kw.pop("cls")
     with pytest.raises(ValueError):
         P.probe(cls, torch.ones(8, 128), **kw)
+
+
+def test_select_issue_bounds():
+    """The select class's issue bounds from its SASS count (187
+    instructions, 161 on the integer pipe, per 128 elements): at 1 element
+    operation per clock per lane the operation bound of one SM for N
+    operations is N / 128 clocks; the issue bound is 187/128 of it and the
+    integer-pipe bound 2 x 161/128 of it."""
+    sms, mhz = 132, 1980.0
+    ops = P.operations("select", blocks=sms * 8)
+    op_ms = ops / (sms * 128 * mhz * 1e3)
+    b = P.issue_bounds_ms("select", ops, sms, mhz)
+    assert b["issue_bound_ms"] == pytest.approx(op_ms * 187 / 128, rel=1e-12)
+    assert b["int_pipe_bound_ms"] == pytest.approx(op_ms * 2 * 161 / 128,
+                                                   rel=1e-12)
+    # the rate the integer pipe allows: 64 * 128 / 161 elements per SM
+    # per clock
+    assert ops / (b["int_pipe_bound_ms"] * sms * mhz * 1e3) == \
+        pytest.approx(64 * 128 / 161, rel=1e-12)
+    assert P.issue_bounds_ms("fma", ops, sms, mhz) == {}
