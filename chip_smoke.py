@@ -10,7 +10,8 @@ Phases, one line of output each (any failure exits non-zero and prints no
              nvcc per source, all started together; print the seconds, the
              compiler's register report, and the tile kernel's registers,
              dynamic shared memory and resident blocks per SM at the
-             default tile size, in float32 and float64.
+             default tile size, in float32 and float64, for each gather
+             policy (ops/plan.py::POLICIES).
 2. cases   — the merge kernels against their plain PyTorch versions and the
              sequential gold SpMV on the corner cases of the JAX package's
              tests (tile-spanning hub row, empty rows, duplicates, a row
@@ -30,7 +31,10 @@ Phases, one line of output each (any failure exits non-zero and prints no
              fused kernel against merge_tile + carry_fixup at the same runs
              (bitwise equal; device and eager, in turns), eager op(x)
              broken down by the host's clock (operator layers, operand
-             checks, allocation, device context, ctypes launch), each
+             checks, allocation, device context, ctypes launch) and eager
+             op(x) through the wrappers' host path against the one they
+             had before (a device context and a Stream object per call),
+             in turns, each
              kernel timed beside its plain version, its bound and its
              PyTorch library counterpart (cuSPARSE for the tile kernels,
              index_add_ for the fix-up), the kernels and cuSPARSE also
@@ -61,9 +65,18 @@ Phases, one line of output each (any failure exits non-zero and prints no
 8. driver  — merge_spmv_tpu_torch.bench.driver.run_benchmark on grid2d(1000)
              with the scipy, xla (cuSPARSE), merge, dia, split and hotcold
              backends; every backend must verify.
+   gather  — the gather-rate probe (tools/gather_rate.py): the kernel
+             against its plain version, then random 4-byte reads over x of
+             22 MB and 4 MB (the circuit and kron classes' x) and of 128
+             and 32 KB: the L2 sector rate behind each class's gather
+             bound.
 9. split main — the circuit5M class at full size (make_circuit_like(
              5,558,326, 59,524,291), float32): suggest_backend's record; merge
-             op(x) as the baseline; build_split_operator_device (16 quantile
+             op(x) as the baseline, with its gather policy and launch, timed
+             on the device and eagerly, the fused kernel alone warm and with
+             a cold L2 under both policies in turns, against its plain
+             version, beside cuSPARSE on the same timer, the bytes bound and
+             the gather bound; build_split_operator_device (16 quantile
              bands) with its setup and stage times; op(x),
              op(x, y_in, 1.5, -0.5) and op.mm(X[:, :2]) verified against gold
              with the launch counter read around exactly that run (one fused
@@ -73,7 +86,8 @@ Phases, one line of output each (any failure exits non-zero and prints no
              (geometric (8, 32) edges) full-row and compact, verified and
              timed; build_suggested on the matrix.
 10. hotcold main — the kron class (R-MAT scale 20, 50M generated nonzeros,
-             float32): suggest_backend's record; build_hotcold_operator with
+             float32): suggest_backend's record; merge op(x) reported as on
+             the circuit class; build_hotcold_operator with
              its hot windows and hot/cold nonzeros; op(x) and the alpha/beta
              call verified with two fused launches per op(x); timed beside
              merge op(x) and cuSPARSE; build_suggested on the matrix.
@@ -124,9 +138,10 @@ class MergeDirect:
         self.K, self.op, self.fused = K, op, fused
         self.plan, self.abs_row_sum_max = op.plan, op.abs_row_sum_max
         self.shape = op.shape
+        self.policy = op.plan.policy
         self.run = K.launch_geometry(op.plan.num_tiles, op.plan.tile_items,
-                                     op.values.dtype, device,
-                                     fused=True).run_tiles
+                                     op.values.dtype, device, fused=True,
+                                     policy=self.policy).run_tiles
 
     def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
         o, K = self.op, self.K
@@ -134,8 +149,9 @@ class MergeDirect:
                 o.tile_nnz, o.plan.tile_items, y_in, alpha, beta)
         if self.fused:
             return K.merge_csrmv(*args, run_tiles=self.run,
-                                 tickets=o.tickets)
-        return K.carry_fixup(*K.merge_tile(*args, run_tiles=self.run), alpha)
+                                 tickets=o.tickets, policy=self.policy)
+        return K.carry_fixup(*K.merge_tile(*args, run_tiles=self.run,
+                                           policy=self.policy), alpha)
 
 
 class DiaDirect:
@@ -162,6 +178,95 @@ def csr_bytes(rows, cols, nnz, vs=4):
     return nnz * (vs + 4) + rows * (4 + vs) + cols * vs
 
 
+def k1_report(name, csr, op, x, K, GR, rates, peak_gbps, flush, flush_ms,
+              cusparse):
+    """The fused tile kernel on one matrix at full size, through ``op``'s
+    own launch (its gather policy, runs and counter): against its plain
+    version on the same inputs, warm and with a cold L2 (``flush`` written
+    before each launch, ``flush_ms`` taken off) under the chosen policy
+    and the other one in turns, beside cuSPARSE (``cusparse``, a callable)
+    on the same timer, the bytes bound (each input read once, each output
+    written once) and the gather bound (the distinct sectors of each warp
+    request at the probe's L2 sector rate for an x of this size, plus the
+    streams at the HBM peak).  Prints one line; returns the kernels-line
+    entry and the numbers."""
+    import torch
+
+    from merge_spmv_tpu_torch.ops.csrmv_torch import row_ids_from_offsets
+    from merge_spmv_tpu_torch.ops.plan import POLICIES
+    from merge_spmv_tpu_torch.utils.compare import compare_results
+    from merge_spmv_tpu_torch.utils.timers import event_ms
+    plan, dev = op.plan, op.device
+    T, n, nnz = plan.tile_items, csr.num_rows, csr.num_nonzeros
+    args = (op.values, op.col_indices, op.row_end_offsets, x, op.tile_rows,
+            op.tile_nnz, T)
+    geo = {p: K.launch_geometry(plan.num_tiles, T, torch.float32, dev,
+                                fused=True, policy=p) for p in POLICIES}
+    chosen = plan.policy
+    other = next(p for p in POLICIES if p != chosen)
+    y = K.merge_csrmv(*args, tickets=op.tickets, policy=chosen)
+    yp = K.merge_csrmv_plain(*args, run_tiles=geo[chosen].run_tiles)
+    err = float((y - yp).abs().max())
+    # |A| |x|, the scale of the two versions' rounding
+    rows = row_ids_from_offsets(op.row_end_offsets, nnz)
+    bound = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+        0, rows, op.values.abs().double()
+        * x.abs().double()[op.col_indices.long()])
+    ok = compare_results(y.cpu().numpy(), yp.cpu().numpy(), verbose=False,
+                         abs_bound=bound.cpu().numpy()) is None
+    plain_ms = event_ms(lambda: K.merge_csrmv_plain(
+        *args, run_tiles=geo[chosen].run_tiles), iters=3, reps=2,
+        graph=False)
+    ms = {chosen: [], other: []}
+    cold = {chosen: [], other: []}
+    for p in (chosen, other, other, chosen):
+        ms[p].append(event_ms(lambda: K.merge_csrmv(
+            *args, tickets=op.tickets, policy=p), iters=20))
+        cold[p].append(event_ms(lambda: (flush.fill_(1.0), K.merge_csrmv(
+            *args, tickets=op.tickets, policy=p)), iters=10) - flush_ms)
+    lib_ms = event_ms(cusparse, iters=20)
+    lib_cold = event_ms(lambda: (flush.fill_(1.0), cusparse()),
+                        iters=10) - flush_ms
+    coord_bytes = 2 * (plan.num_tiles + 1) * 4
+    streams = nnz * 8 + n * 4 + n * 4 + coord_bytes
+    fused_bytes = streams + csr.num_cols * 4
+    bytes_bound = fused_bytes / peak_gbps / 1e6
+    sectors = GR.warp_sectors(op.col_indices)
+    probe = min(rates.values(), key=lambda r: abs(r["x_bytes"]
+                                                  - csr.num_cols * 4))
+    gather_bound = GR.gather_bound_ms(sectors, streams,
+                                      probe["sector_rate_gbps"], peak_gbps)
+    best = {p: min(v) for p, v in ms.items()}
+    best_cold = {p: min(v) for p, v in cold.items()}
+    g = geo[chosen]
+    print(f"{name} K1: policy {chosen} ({plan.describe()}), launch G = "
+          f"{g.grid} blocks of {g.threads} threads ({g.blocks_per_sm} per "
+          f"SM), {g.run_tiles} tiles per run over {plan.num_tiles} tiles; "
+          f"fused kernel warm {best[chosen]:.4f} ms ({other}: "
+          f"{best[other]:.4f}; in turns {[round(v, 5) for v in ms[chosen]]}"
+          f" vs {[round(v, 5) for v in ms[other]]}), cold L2 "
+          f"{best_cold[chosen]:.4f} ({other}: {best_cold[other]:.4f}); "
+          f"cuSPARSE {lib_ms:.4f} warm, {lib_cold:.4f} cold; fused / "
+          f"cuSPARSE {best[chosen] / lib_ms:.3f} warm, "
+          f"{best_cold[chosen] / lib_cold:.3f} cold; bytes bound "
+          f"{bytes_bound:.4f} ms for {fused_bytes} B "
+          f"({100 * bytes_bound / best[chosen]:.1f}%); gather bound "
+          f"{gather_bound:.4f} ms ({sectors} sectors, "
+          f"{sectors / max(nnz, 1):.3f} per nonzero, at the "
+          f"{probe['x_bytes']} B probe's {probe['sector_rate_gbps']:.0f} "
+          f"GB/s; {100 * gather_bound / best[chosen]:.1f}%); plain "
+          f"{plain_ms:.2f} ms, kernel vs plain max|err| {err:.3e} ok={ok}")
+    entry = {"name": f"merge_tile_fused@{name}", "route": "cuda",
+             "source": "merge_spmv_tpu_torch/csrc/merge_csrmv.cu",
+             "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
+             "launches": 0, "max_abs_err": err, "ms": best[chosen],
+             "plain_ms": plain_ms, "bound_ms": bytes_bound,
+             "bound_by": "bytes", "library_ms": lib_ms, "main_path": True,
+             "policy": chosen, "cold_ms": best_cold[chosen],
+             "gather_bound_ms": gather_bound}
+    return entry, ok
+
+
 def verified(got, csr, x, y_in=None, alpha=1.0, beta=0.0):
     """``got`` (on the card) is finite, of the matrix's row count, and
     agrees with the gold SpMV within the backward-error bound."""
@@ -175,6 +280,26 @@ def verified(got, csr, x, y_in=None, alpha=1.0, beta=0.0):
         got.cpu().numpy(), csr.spmv_gold(x, y_in, alpha, beta),
         verbose=False,
         abs_bound=csr.spmv_abs_bound(x, y_in, alpha, beta)) is None
+
+
+@contextlib.contextmanager
+def wrapper_host_path(modules, before):
+    """With ``before``, the kernel wrappers of ``modules`` make each launch
+    the way they did before: inside ``torch.cuda.device`` and with a
+    ``torch.cuda.Stream`` object looked up per call; otherwise as they do
+    now (the context only off the current device, the raw stream handle).
+    For a same-run A/B of the eager host cost."""
+    import torch
+    saved = [(m, m.device_context, m.raw_stream) for m in modules]
+    if before:
+        for m in modules:
+            m.device_context = torch.cuda.device
+            m.raw_stream = lambda d: torch.cuda.current_stream(d).cuda_stream
+    try:
+        yield
+    finally:
+        for m, ctx, stream in saved:
+            m.device_context, m.raw_stream = ctx, stream
 
 
 def host_us(fn, sync):
@@ -211,11 +336,14 @@ def main() -> int:
     from merge_spmv_tpu_torch.ops.dia import build_dia_operator
     from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
     from merge_spmv_tpu_torch.ops.operator import build_operator
-    from merge_spmv_tpu_torch.ops.plan import DEFAULT_TILE_ITEMS
+    from merge_spmv_tpu_torch.ops.plan import DEFAULT_TILE_ITEMS, POLICIES
     from merge_spmv_tpu_torch.ops.suggest import build_suggested, suggest_backend
+    from merge_spmv_tpu_torch.tools import gather_rate as GR
     from merge_spmv_tpu_torch.tools import sm_ceiling as P
     from merge_spmv_tpu_torch.utils.compare import compare_results
-    from merge_spmv_tpu_torch.utils.cuda_build import build_library
+    from merge_spmv_tpu_torch.utils.cuda_build import (build_library,
+                                                       device_context,
+                                                       raw_stream)
     from merge_spmv_tpu_torch.utils.device import (PEAK_FP32_GFLOPS,
                                                    device_info)
     from merge_spmv_tpu_torch.utils.timers import chained_rate_ms, event_ms
@@ -227,7 +355,8 @@ def main() -> int:
 
     # ------------------------------------------------------------ 1 build
     t0 = time.perf_counter()
-    sources = (K.KERNEL_SOURCE, DK.KERNEL_SOURCE, P.KERNEL_SOURCE)
+    sources = (K.KERNEL_SOURCE, DK.KERNEL_SOURCE, P.KERNEL_SOURCE,
+               GR.KERNEL_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = list(pool.map(build_library, sources))
     build_s = time.perf_counter() - t0
@@ -237,13 +366,16 @@ def main() -> int:
     tile_kernel = []
     for dt in (torch.float32, torch.float64):
         for fused in (False, True):
-            blocks, regs = K.kernel_occupancy(dt, DEFAULT_TILE_ITEMS, dev,
-                                              fused)
-            g = K.launch_geometry(1, DEFAULT_TILE_ITEMS, dt, dev, fused)
-            tile_kernel.append(f"{str(dt)[6:]}{' fused' if fused else ''} "
-                               f"{regs} registers, {g.shared_bytes} B "
-                               f"dynamic shared memory, {blocks} blocks per "
-                               "SM")
+            for pol in POLICIES:
+                blocks, regs = K.kernel_occupancy(dt, DEFAULT_TILE_ITEMS, dev,
+                                                  fused, pol)
+                g = K.launch_geometry(1, DEFAULT_TILE_ITEMS, dt, dev, fused,
+                                      pol)
+                tile_kernel.append(
+                    f"{str(dt)[6:]}{' fused' if fused else ''} {pol} "
+                    f"{regs} registers, {g.shared_bytes} B dynamic shared "
+                    f"memory, {blocks} blocks per SM (launched: "
+                    f"{g.blocks_per_sm})")
     print(f"build: {len(sources)} sources in {build_s:.2f} s; "
           f"{' | '.join(ptxas) or 'cached'}; merge_tile at "
           f"{DEFAULT_TILE_ITEMS} items: {'; '.join(tile_kernel)}; "
@@ -399,10 +531,11 @@ def main() -> int:
         -1, 1, n).astype(np.float32)).to(dev)
     repeat_same = bool(torch.equal(op(xr), op(xr)))
     plan = op.plan
+    pol = plan.policy
     geo = K.launch_geometry(plan.num_tiles, plan.tile_items, torch.float32,
-                            dev)
+                            dev, policy=pol)
     geo_f = K.launch_geometry(plan.num_tiles, plan.tile_items, torch.float32,
-                              dev, fused=True)
+                              dev, fused=True, policy=pol)
     # op(x), op(x, y_in, 2, 1) and 4 columns: one fused launch each
     one_launch = launches == {"merge_tile": 0, "merge_tile_fused": 6,
                               "carry_fixup": 0}
@@ -475,7 +608,8 @@ def main() -> int:
     def checks_only():
         K.num_merge_tiles(n, nnz, T)
         K._is_cpu(vals, cols, rowends, xd, tr, tn, None)
-        K.launch_geometry(plan.num_tiles, T, torch.float32, dev, True)
+        K.launch_geometry(plan.num_tiles, T, torch.float32, dev, True,
+                          policy=pol)
         K._check("values", vals, torch.float32)
         K._check("col_indices", cols, torch.int32, vals.shape)
         K._check("row_end_offsets", rowends, torch.int32)
@@ -488,26 +622,35 @@ def main() -> int:
         torch.empty(geo_f.grid, dtype=torch.int32, device=dev)
         torch.empty(geo_f.grid, dtype=torch.float32, device=dev)
 
-    def context_only():
+    def context_before():
         with torch.cuda.device(dev):
             torch.cuda.current_stream(dev).cuda_stream
+
+    def context_only():
+        with device_context(dev):
+            raw_stream(dev)
 
     def launch_only():
         lib.merge_tile_f32(vals.data_ptr(), cols.data_ptr(),
                            rowends.data_ptr(), xd.data_ptr(), None,
                            tr.data_ptr(), tn.data_ptr(), 1.0, 0.0,
                            yb.data_ptr(), crb.data_ptr(), cvb.data_ptr(), n,
-                           plan.num_tiles, geo_f.run_tiles, geo_f.threads,
-                           geo_f.shared_bytes, 1, op.tickets.data_ptr(),
-                           stream)
+                           plan.num_tiles, geo_f.run_tiles,
+                           geo_f.blocks_per_sm
+                           if geo_f.grid % geo_f.blocks_per_sm == 0 else 1,
+                           geo_f.threads, geo_f.shared_bytes, 1,
+                           POLICIES.index(plan.policy),
+                           op.tickets.data_ptr(), stream)
 
     host = {"op(x)": host_us(lambda: op(xd), sync),
             "merge_csrmv": host_us(lambda: K.merge_csrmv(
-                vals, cols, rowends, xd, tr, tn, T, tickets=op.tickets),
+                vals, cols, rowends, xd, tr, tn, T, tickets=op.tickets,
+                policy=pol),
                 sync),
             "checks": host_us(checks_only, sync),
             "allocation": host_us(alloc_only, sync),
             "context": host_us(context_only, sync),
+            "context before": host_us(context_before, sync),
             "launch": host_us(launch_only, sync),
             "two": host_us(lambda: two_op(xd), sync)}
     rest_us = (host["merge_csrmv"] - host["checks"] - host["allocation"]
@@ -518,12 +661,25 @@ def main() -> int:
           f"merge_csrmv wrapper {host['merge_csrmv']:.2f}, of which checks "
           f"and geometry {host['checks']:.2f}, allocation "
           f"{host['allocation']:.2f}, device context and stream "
-          f"{host['context']:.2f}, ctypes launch {host['launch']:.2f}, rest "
-          f"{rest_us:.2f}; the two-kernel path through its wrappers "
-          f"{host['two']:.2f}")
+          f"{host['context']:.2f} (before: {host['context before']:.2f}), "
+          f"ctypes launch {host['launch']:.2f}, rest {rest_us:.2f}; the "
+          f"two-kernel path through its wrappers {host['two']:.2f}")
+    # eager op(x) through the wrappers' host path now and before, in turns
+    host_ab = {"now": [], "before": []}
+    for name in ("now", "before", "before", "now"):
+        with wrapper_host_path((K, DK), name == "before"):
+            host_ab[name].append(chained_rate_ms(op, xd, graph=False))
+    print(f"main eager host path A/B (now, before, before, now): "
+          f"{[round(v, 5) for v in host_ab['now']]} vs "
+          f"{[round(v, 5) for v in host_ab['before']]} ms per eager op(x); "
+          f"best now {min(host_ab['now']):.4f}, before "
+          f"{min(host_ab['before']):.4f}; device {op_ms:.4f}; eager - device "
+          f"now {min(host_ab['now']) - op_ms:+.4f}, before "
+          f"{min(host_ab['before']) - op_ms:+.4f}")
 
     # each kernel on the main path's inputs: time, plain time, bound, library
-    yk, crk, cvk = K.merge_tile(vals, cols, rowends, xd, tr, tn, T)
+    yk, crk, cvk = K.merge_tile(vals, cols, rowends, xd, tr, tn, T,
+                                policy=pol)
     run = geo.run_tiles
     yp, crp, cvp = K.merge_tile_plain(vals, cols, rowends, xd, tr, tn, T,
                                       run_tiles=run)
@@ -545,7 +701,7 @@ def main() -> int:
     fix_ok = compare_results(fk.cpu().numpy(), fp.cpu().numpy(),
                              verbose=False) is None
     run_f = geo_f.run_tiles
-    yf = K.merge_csrmv(vals, cols, rowends, xd, tr, tn, T)
+    yf = K.merge_csrmv(vals, cols, rowends, xd, tr, tn, T, policy=pol)
     yfp = K.merge_csrmv_plain(vals, cols, rowends, xd, tr, tn, T,
                               run_tiles=run_f)
     fused_err = float((yf - yfp).abs().max())
@@ -560,9 +716,9 @@ def main() -> int:
         return 1
 
     fused_ms = event_ms(lambda: K.merge_csrmv(vals, cols, rowends, xd, tr,
-                                              tn, T))
+                                              tn, T, policy=pol))
     tile_ms = event_ms(lambda: K.merge_tile(vals, cols, rowends, xd, tr, tn,
-                                            T))
+                                            T, policy=pol))
     # the plain versions synchronise (data-dependent sizes): timed eagerly
     tile_plain_ms = event_ms(lambda: K.merge_tile_plain(
         vals, cols, rowends, xd, tr, tn, T, run_tiles=run), iters=5,
@@ -589,25 +745,29 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
     flush_ms = event_ms(lambda: flush.fill_(1.0), iters=20)
     fused_cold_ms = event_ms(lambda: (flush.fill_(1.0), K.merge_csrmv(
-        vals, cols, rowends, xd, tr, tn, T)), iters=20) - flush_ms
+        vals, cols, rowends, xd, tr, tn, T, policy=pol)),
+        iters=20) - flush_ms
     two_cold_ms = event_ms(lambda: (flush.fill_(1.0), K.carry_fixup(
-        *K.merge_tile(vals, cols, rowends, xd, tr, tn, T, run_tiles=run_f))),
+        *K.merge_tile(vals, cols, rowends, xd, tr, tn, T, run_tiles=run_f,
+                      policy=pol))),
         iters=20) - flush_ms
     tile_cold_ms = event_ms(lambda: (flush.fill_(1.0), K.merge_tile(
-        vals, cols, rowends, xd, tr, tn, T)), iters=20) - flush_ms
+        vals, cols, rowends, xd, tr, tn, T, policy=pol)),
+        iters=20) - flush_ms
     cusparse_cold_ms = event_ms(lambda: (flush.fill_(1.0), torch.mv(
         csr_t, xd)), iters=20) - flush_ms
     vals64, xd64 = vals.double(), xd.double()
     geo64 = K.launch_geometry(plan.num_tiles, T, torch.float64, dev,
-                              fused=True)
-    y64 = K.merge_csrmv(vals64, cols, rowends, xd64, tr, tn, T)
+                              fused=True, policy=pol)
+    y64 = K.merge_csrmv(vals64, cols, rowends, xd64, tr, tn, T, policy=pol)
     ok64 = np.allclose(y64.cpu().numpy(),
                        csr.astype(np.float64).spmv_gold(np.ones(n)),
                        rtol=1e-12, atol=0.0) and torch.equal(
         y64, K.carry_fixup(*K.merge_tile(vals64, cols, rowends, xd64, tr, tn,
-                                         T, run_tiles=geo64.run_tiles)))
+                                         T, run_tiles=geo64.run_tiles,
+                                         policy=pol)))
     fused64_ms = event_ms(lambda: K.merge_csrmv(vals64, cols, rowends, xd64,
-                                                tr, tn, T))
+                                                tr, tn, T, policy=pol))
     del vals64, xd64, y64
 
     # bound: each input read once, each output written once, at the
@@ -803,6 +963,16 @@ def main() -> int:
 
     dia_op_ms = chained_rate_ms(op_dia, xd)
     dia_op_eager_ms = chained_rate_ms(op_dia, xd, graph=False)
+    dia_host_ab = {"now": [], "before": []}
+    for name in ("now", "before", "before", "now"):
+        with wrapper_host_path((K, DK), name == "before"):
+            dia_host_ab[name].append(chained_rate_ms(op_dia, xd,
+                                                     graph=False))
+    print(f"dia eager host path A/B (now, before, before, now): "
+          f"{[round(v, 5) for v in dia_host_ab['now']]} vs "
+          f"{[round(v, 5) for v in dia_host_ab['before']]} ms per eager "
+          f"op(x); best now {min(dia_host_ab['now']):.4f}, before "
+          f"{min(dia_host_ab['before']):.4f}; device {dia_op_ms:.4f}")
     mix_op_ms = chained_rate_ms(op_mix, xd)
     mix_fused = DiaDirect(K, DK, op_mix, True, dev)
     mix_two = DiaDirect(K, DK, op_mix, False, dev)
@@ -833,7 +1003,6 @@ def main() -> int:
     # the DIA kernel's 32 MB fits the 50 MB L2: cold = after a 256 MB write
     dia_cold_ms = event_ms(lambda: (flush.fill_(1.0), DK.dia_matvec(
         vt, xd, offs_t, n, n)), iters=20) - flush_ms
-    del flush
     dia_bytes = op_dia.plan.table_bytes_accessed()
     dia_bound = max(dia_bytes / peak_gbps / 1e6,
                     2 * D * n / PEAK_FP32_GFLOPS / 1e6)
@@ -918,6 +1087,44 @@ def main() -> int:
         print(out.getvalue())
         return 1
 
+    # ------------------------------------------------------------ gather
+    # the L2 sector rate a scattered gather meets (tools/gather_rate.py)
+    t_phase = time.perf_counter()
+    gx = torch.from_numpy(np.random.RandomState(8).uniform(
+        -1, 1, 1000).astype(np.float32)).to(dev)
+    gi = torch.from_numpy(np.random.RandomState(9).randint(
+        0, 1000, 100_003).astype(np.int32)).to(dev)
+    gk = GR.gather_sum(gx, gi, 3)
+    gp = GR.gather_sum_plain(gx, gi, 3 * GR.THREADS)
+    probe_same = bool(torch.equal(gk, gp))
+    GR.reset_launches()
+    grates = GR.measure()
+    gather_launches = GR.LAUNCHES["gather_rate"]
+    gbig = grates[str(GR.SIZES[0])]
+    gidx = torch.randint(0, GR.SIZES[0], (GR.COUNT,), device=dev,
+                         dtype=torch.int32)
+    gxx = torch.rand(GR.SIZES[0], device=dev)
+    gfull = GR.gather_sum(gxx, gidx)
+    t0 = time.perf_counter()
+    gfull_plain = GR.gather_sum_plain(gxx, gidx, gfull.shape[0])
+    torch.cuda.synchronize()
+    gather_plain_ms = (time.perf_counter() - t0) * 1e3
+    gather_err = float((gfull - gfull_plain).abs().max())
+    gather_bound = (GR.COUNT * 4 + gfull.shape[0] * 4 + GR.SIZES[0] * 4) \
+        / peak_gbps / 1e6
+    del gidx, gxx, gfull, gfull_plain
+    for size, r in grates.items():
+        print(f"gather probe: x {r['x_bytes']} B, {r['count']} reads: random "
+              f"{r['random_ms']:.4f} ms ({r['reads_per_ns']:.1f} reads per "
+              f"ns, {r['sector_rate_gbps']:.0f} GB/s of 32-byte sectors with "
+              f"the index stream taken off at the HBM peak), coalesced "
+              f"{r['coalesced_ms']:.4f} ms")
+    print(f"gather probe: kernel vs plain bitwise equal {probe_same}, at "
+          f"full size max|err| {gather_err:.3e} (plain {gather_plain_ms:.1f} "
+          f"ms); {time.perf_counter() - t_phase:.1f} s")
+    if not probe_same or gather_err != 0.0:
+        return 1
+
     # ------------------------------------------------------------ 9 split main
     # circuit5M class at full size (tools/bench_large.py:90-96), through
     # the device-built 16-band split: one stacked fused launch per op(x)
@@ -943,7 +1150,12 @@ def main() -> int:
     yc0d = torch.from_numpy(yc0).to(dev)
 
     op_cm = build_operator(circ)
-    merge_c_ok = verified(op_cm(xcd), circ, xc)
+    K.reset_launches()
+    ycm = op_cm(xcd)
+    torch.cuda.synchronize()
+    paths["circuit5M"] = K.LAUNCHES["merge_tile_fused"]
+    merge_c_ok = (verified(ycm, circ, xc) and paths["circuit5M"] == 1
+                  and bool(torch.equal(op_cm(xcd), ycm)))
     merge_c = (chained_rate_ms(op_cm, xcd), chained_rate_ms(op_cm, xcd,
                                                             graph=False))
     csr_tc = torch.sparse_csr_tensor(
@@ -951,7 +1163,17 @@ def main() -> int:
         op_cm.col_indices, op_cm.values, size=(mc, mc))
     cusparse_c_ms = event_ms(lambda: torch.mv(csr_tc, xcd))
     merge_c_bound = csr_bytes(mc, mc, nnz_c) / peak_gbps / 1e6
-    del op_cm
+    print(f"circuit5M merge op(x): {merge_c[0]:.4f} ms on the device, "
+          f"{merge_c[1]:.4f} eager, cuSPARSE {cusparse_c_ms:.4f} "
+          f"({merge_c[0] / cusparse_c_ms:.3f}x), one launch, verified and "
+          f"bitwise repeatable {merge_c_ok}")
+    k1_c, k1_c_ok = k1_report("circuit5M", circ, op_cm, xcd, K, GR, grates,
+                              peak_gbps, flush, flush_ms,
+                              lambda: torch.mv(csr_tc, xcd))
+    k1_c["launches"] = paths["circuit5M"]
+    if not (merge_c_ok and k1_c_ok):
+        return 1
+    del op_cm, ycm
 
     op_s = S.build_split_operator_device(circ)
     K.reset_launches()
@@ -988,7 +1210,8 @@ def main() -> int:
     so = op_s.op
     stack_ms = event_ms(lambda: K.merge_csrmv(
         so.values, so.col_indices, so.row_end_offsets, xcd, so.tile_rows,
-        so.tile_nnz, sp.tile_items, tickets=so.tickets))
+        so.tile_nnz, sp.tile_items, tickets=so.tickets,
+        policy=sp.policy))
     nb_c = op_s.num_bands
     split_bytes = (csr_bytes(sp.num_rows, mc, sp.num_nonzeros)
                    + nb_c * mc * 4 + mc * 4)
@@ -1060,7 +1283,12 @@ def main() -> int:
     yk0 = rk.uniform(-1, 1, nk_).astype(np.float32)
     xkd = torch.from_numpy(xk).to(dev)
     op_km = build_operator(kron)
-    merge_k_ok = verified(op_km(xkd), kron, xk)
+    K.reset_launches()
+    ykm = op_km(xkd)
+    torch.cuda.synchronize()
+    paths["kron"] = K.LAUNCHES["merge_tile_fused"]
+    merge_k_ok = (verified(ykm, kron, xk) and paths["kron"] == 1
+                  and bool(torch.equal(op_km(xkd), ykm)))
     merge_k = (chained_rate_ms(op_km, xkd), chained_rate_ms(op_km, xkd,
                                                             graph=False))
     csr_tk = torch.sparse_csr_tensor(
@@ -1068,7 +1296,17 @@ def main() -> int:
         op_km.col_indices, op_km.values, size=(nk_, nk_))
     cusparse_k_ms = event_ms(lambda: torch.mv(csr_tk, xkd))
     merge_k_bound = csr_bytes(nk_, nk_, nnz_k) / peak_gbps / 1e6
-    del op_km, csr_tk
+    print(f"kron merge op(x): {merge_k[0]:.4f} ms on the device, "
+          f"{merge_k[1]:.4f} eager, cuSPARSE {cusparse_k_ms:.4f} "
+          f"({merge_k[0] / cusparse_k_ms:.3f}x), one launch, verified and "
+          f"bitwise repeatable {merge_k_ok}")
+    k1_k, k1_k_ok = k1_report("kron", kron, op_km, xkd, K, GR, grates,
+                              peak_gbps, flush, flush_ms,
+                              lambda: torch.mv(csr_tk, xkd))
+    k1_k["launches"] = paths["kron"]
+    if not (merge_k_ok and k1_k_ok):
+        return 1
+    del op_km, csr_tk, ykm
 
     t0 = time.perf_counter()
     op_hc = S.build_hotcold_operator(kron)
@@ -1267,6 +1505,15 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": dia_cusparse_ms,
          "main_path": True},
     ]
+    kernels += [k1_c, k1_k]
+    kernels.append(
+        {"name": "gather_rate", "route": "cuda",
+         "source": "merge_spmv_tpu_torch/csrc/gather_rate.cu",
+         "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
+         "launches": 0, "max_abs_err": gather_err, "ms": gbig["random_ms"],
+         "plain_ms": gather_plain_ms, "bound_ms": gather_bound,
+         "bound_by": "bytes", "library_ms": None, "main_path": False,
+         "probe_launches": gather_launches})
     for cls in P.CLASSES:
         r = rates[cls]
         kernels.append(

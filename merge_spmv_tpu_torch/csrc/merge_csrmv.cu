@@ -6,8 +6,8 @@
 // work goes back to the reference's pipeline (CUB's DeviceSpmvKernel +
 // DeviceSegmentFixupKernel), run by persistent blocks:
 //
-//   merge_tile_kernel   block b owns the contiguous run of merge tiles
-//                       [b * run_tiles, (b + 1) * run_tiles), each of
+//   merge_tile_kernel   each block owns a contiguous run of merge tiles
+//                       [r * run_tiles, (r + 1) * run_tiles), each of
 //                       blockDim.x * kItems merge items (rows + nonzeros,
 //                       equal work by construction), and walks it in order as
 //                       the TPU kernel walks its grid: the partial of the row
@@ -56,17 +56,31 @@
 //                       carry_fixup_kernel runs the same fix-up as a launch
 //                       of its own, after the unfused instantiation.
 //
-// What bounds it: HBM bytes.  Per nonzero a value and a column index stream
-// once, x is gathered through the read-only cache, and per row one row end is
-// read and one y written (plan.bytes_accessed()).  The copies read the
-// streams once, whole, marked to leave L2 first so that x stays there; no
-// byte outside the arrays is copied whatever their alignment.  The host
-// launches at most one resident wave of blocks (ops/plan.py::tile_geometry),
-// so no partial last wave idles the card.  A block walks its run one tile
-// after another, so the kernel reaches HBM's rate only while a tile's steps
-// take less time than its bytes: hence the pipeline, a reduce with no search
-// and no branch per item, and no global load waited on inside a tile.  The
-// arithmetic is 2 flops per nonzero, far below the card's rate.
+// What bounds it.  Per nonzero a value and a column index stream once and
+// x[col] is gathered through the read-only cache; per row one row end is
+// read and one y written (plan.bytes_accessed()).  The arithmetic is 2 flops
+// per nonzero, far below the card's rate.
+//   Local columns (a stencil: a warp's 32 gathers touch 8 of x's 32-byte
+//   sectors on grid3d100): HBM bytes.  The copies read the streams once,
+//   whole, marked to leave L2 first so that x stays there; no byte outside
+//   the arrays is copied whatever their alignment.  The host launches at
+//   most one resident wave of blocks (ops/plan.py::tile_geometry), so no
+//   partial last wave idles the card.  A block walks its run one tile after
+//   another, so the kernel reaches HBM's rate only while a tile's steps take
+//   less time than its bytes: hence the pipeline, a reduce with no search
+//   and no branch per item, and no global load waited on inside a tile.
+//   Scattered columns (the circuit5M and kron classes: 31 and 26 sectors per
+//   warp request): the gather.  Each gather that misses L1 moves a 32-byte
+//   L2 sector for its 4 bytes, and scattered sectors come from L2 at about
+//   4.4-4.8 TB/s (tools/gather_rate.py), so the gather bound (those
+//   sectors at that rate, plus the streams at HBM's) is 3.2-3.5x the bytes
+//   bound, and only L1 hits go below it.  Four blocks per SM leave 28 KB of
+//   L1: the kernel took 1.2-1.3x its gather bound, 1.5-1.7x cuSPARSE's
+//   time.  The kL1 policy (below) gives each SM 192 KB of L1 and puts the
+//   blocks of one SM on neighbouring runs, so that they gather from one
+//   window of x (circuit) and keep the hot columns (kron) in L1.
+//   With only 8 warps per SM the one-tile gather lead then matters (issued
+//   right before use it was 10-16% slower; PERF.md).
 //
 // Plain C interface (loaded with ctypes): every pointer and the stream are
 // void*, every entry returns a CUDA error code (a launch returns
@@ -89,6 +103,23 @@ constexpr int kStages = 2;          // shared-memory stages (ops/plan.py)
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kMaxSharedBytes = 232448;   // a block's most on sm_90 (227 KB)
+constexpr int kSmSharedBytes = 233472;    // an SM's most (228 KB)
+constexpr int kBlockReserved = 1024;      // kept per resident block
+constexpr int kDefaultTileItems = 2048;   // ops/plan.py::DEFAULT_TILE_ITEMS
+
+// Gather policies (ops/plan.py::POLICIES), one instantiation each, so that
+// each keeps its own shared-memory carveout:
+//   kStream  as many blocks per SM as shared memory holds: the CUDA driver's
+//            carveout gives all 228 KB to shared memory at the default
+//            tile (four blocks), leaving about 28 KB of L1 for x;
+//   kL1      merge_csrmv_init() sets the carveout to the smallest that
+//            holds one block of the default tile (64 KB in float32), and
+//            the rest of the SM's 256 KB, 192 KB, is L1 for x; the host
+//            launches the blocks that fit it (two of the 1024-item tile
+//            the "l1" plan takes), on neighbouring runs, so that an SM
+//            gathers from one window of x (the circuit class) and keeps
+//            the card's hot columns (the kron class) in L1.
+enum Policy { kStream = 0, kL1 = 1 };
 
 // The tile kernel's dynamic shared memory, in this order, every part a
 // multiple of 16 bytes (ops/plan.py::tile_shared_bytes repeats the total):
@@ -325,7 +356,7 @@ __device__ void fix_up_pairs(const int* carry_row, const V* carry_val,
 // The fused kernel's ticket counter for launches given none.
 __device__ unsigned int g_tickets = 0;
 
-template <typename V, bool kFused>
+template <typename V, bool kFused, int kPolicy>
 __global__ void __launch_bounds__(kMaxThreads) merge_tile_kernel(
     const V* __restrict__ values, const int* __restrict__ cols,
     const int* __restrict__ row_end, const V* __restrict__ x,
@@ -333,7 +364,7 @@ __global__ void __launch_bounds__(kMaxThreads) merge_tile_kernel(
     const int* __restrict__ tile_nnz, V alpha, V beta,
     V* __restrict__ y, int* __restrict__ carry_row,
     V* __restrict__ carry_val, int num_rows, int num_tiles,
-    int run_tiles, unsigned int* tickets) {
+    int run_tiles, int sm_blocks, unsigned int* tickets) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tile_len = blockDim.x * kItems;
   const int nwarps = blockDim.x >> 5;
@@ -352,7 +383,16 @@ __global__ void __launch_bounds__(kMaxThreads) merge_tile_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const bool stager = warp < kRegions;
-  const int first = blockIdx.x * run_tiles;
+  // Block b walks run b, or, with sm_blocks = k > 1 (G a multiple of k),
+  // run (b mod G/k) * k + b / (G/k): the card hands out one block per SM
+  // in turn, so the k blocks that share an SM walk k neighbouring runs and
+  // gather from one window of x.  Runs and pairs are the same either way.
+  const int groups = static_cast<int>(gridDim.x) / sm_blocks;
+  const int my_run = sm_blocks > 1
+                         ? static_cast<int>(blockIdx.x) % groups * sm_blocks +
+                               static_cast<int>(blockIdx.x) / groups
+                         : static_cast<int>(blockIdx.x);
+  const int first = my_run * run_tiles;
   const int end = min(num_tiles - first, run_tiles) + first;
   int4* my_marks = reinterpret_cast<int4*>(s_mark + tid * kItems);
   uint64_t policy = 0;
@@ -498,8 +538,8 @@ __global__ void __launch_bounds__(kMaxThreads) merge_tile_kernel(
       y[h.row0 + i] = out;
     }
     if (!more && tid == 0) {
-      carry_row[blockIdx.x] = h.row0 + h.rows;
-      carry_val[blockIdx.x] = carry;
+      carry_row[my_run] = h.row0 + h.rows;
+      carry_val[my_run] = carry;
     }
     *my_marks = make_int4(-1, -1, -1, -1);
     if (!more) break;
@@ -562,48 +602,106 @@ __global__ void carry_fixup_kernel(const int* __restrict__ carry_row,
                static_cast<int>(gridDim.x * blockDim.x));
 }
 
-template <typename V, bool kFused>
+// The instantiation for (fused, policy); null for an unknown policy.
+template <typename V, int kPolicy>
+const void* tile_kernel(int fused) {
+  return fused ? reinterpret_cast<const void*>(
+                     merge_tile_kernel<V, true, kPolicy>)
+               : reinterpret_cast<const void*>(
+                     merge_tile_kernel<V, false, kPolicy>);
+}
+
+template <typename V>
+const void* tile_kernel(int fused, int policy) {
+  if (policy == kStream) return tile_kernel<V, kStream>(fused);
+  if (policy == kL1) return tile_kernel<V, kL1>(fused);
+  return nullptr;
+}
+
+template <typename V>
 int launch_merge_tile(const void* values, const void* cols,
                       const void* row_end, const void* x, const void* y_in,
                       const void* tile_rows, const void* tile_nnz,
                       double alpha, double beta, void* y, void* carry_row,
                       void* carry_val, int num_rows, int num_tiles,
-                      int run_tiles, int threads, int shared_bytes,
+                      int run_tiles, int sm_blocks, int threads,
+                      int shared_bytes, int fused, int policy,
                       void* tickets, void* stream) {
-  if (num_tiles < 1 || run_tiles < 1 || threads < 32 ||
+  const void* kernel = tile_kernel<V>(fused, policy);
+  if (kernel == nullptr || num_tiles < 1 || run_tiles < 1 || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 ||
       static_cast<size_t>(shared_bytes) !=
           tile_shared_bytes<V>(threads * kItems))
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = num_tiles / run_tiles + (num_tiles % run_tiles != 0);
-  merge_tile_kernel<V, kFused><<<grid, threads, shared_bytes,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const V*>(values), static_cast<const int*>(cols),
-      static_cast<const int*>(row_end), static_cast<const V*>(x),
-      static_cast<const V*>(y_in), static_cast<const int*>(tile_rows),
-      static_cast<const int*>(tile_nnz), static_cast<V>(alpha),
-      static_cast<V>(beta), static_cast<V*>(y),
-      static_cast<int*>(carry_row), static_cast<V*>(carry_val), num_rows,
-      num_tiles, run_tiles, static_cast<unsigned int*>(tickets));
-  return static_cast<int>(cudaGetLastError());
+  if (sm_blocks < 1 || grid % sm_blocks != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the kernel's parameters, in its order and types
+  const V* a_values = static_cast<const V*>(values);
+  const int* a_cols = static_cast<const int*>(cols);
+  const int* a_row_end = static_cast<const int*>(row_end);
+  const V* a_x = static_cast<const V*>(x);
+  const V* a_y_in = static_cast<const V*>(y_in);
+  const int* a_tile_rows = static_cast<const int*>(tile_rows);
+  const int* a_tile_nnz = static_cast<const int*>(tile_nnz);
+  V a_alpha = static_cast<V>(alpha);
+  V a_beta = static_cast<V>(beta);
+  V* a_y = static_cast<V*>(y);
+  int* a_carry_row = static_cast<int*>(carry_row);
+  V* a_carry_val = static_cast<V*>(carry_val);
+  unsigned int* a_tickets = static_cast<unsigned int*>(tickets);
+  void* args[] = {&a_values, &a_cols, &a_row_end, &a_x, &a_y_in,
+                  &a_tile_rows, &a_tile_nnz, &a_alpha, &a_beta, &a_y,
+                  &a_carry_row, &a_carry_val, &num_rows, &num_tiles,
+                  &run_tiles, &sm_blocks, &a_tickets};
+  const cudaError_t e = cudaLaunchKernel(kernel, dim3(grid), dim3(threads),
+                                         args, shared_bytes,
+                                         static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-template <typename V, bool kFused>
-int merge_tile_occupancy(int threads, int shared_bytes, int* blocks_per_sm,
+template <typename V>
+int merge_tile_occupancy(int fused, int policy, int threads,
+                         int shared_bytes, int* blocks_per_sm,
                          int* registers) {
+  const void* kernel = tile_kernel<V>(fused, policy);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, merge_tile_kernel<V, kFused>);
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
   *registers = attr.numRegs;
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, merge_tile_kernel<V, kFused>, threads, shared_bytes));
+      blocks_per_sm, kernel, threads, shared_bytes));
 }
 
-template <typename V, bool kFused>
-cudaError_t opt_in_shared() {
-  return cudaFuncSetAttribute(merge_tile_kernel<V, kFused>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kMaxSharedBytes);
+// The percentage of an SM's shared memory that one block of the default
+// tile needs: kL1's carveout.  A larger tile makes the CUDA driver raise it
+// at launch, as it may when a launch needs more than the preference.
+template <typename V>
+int l1_carveout() {
+  const size_t need = tile_shared_bytes<V>(kDefaultTileItems) +
+                      kBlockReserved;
+  return static_cast<int>((need * 100 + kSmSharedBytes - 1) /
+                          kSmSharedBytes);
+}
+
+// The opt-in above 48 KB of every instantiation of value type V, and the
+// kL1 ones' carveout.
+template <typename V>
+cudaError_t init_tile_kernels() {
+  cudaError_t e = cudaSuccess;
+  for (int policy = kStream; policy <= kL1; ++policy)
+    for (int fused = 0; fused < 2 && e == cudaSuccess; ++fused) {
+      const void* kernel = tile_kernel<V>(fused, policy);
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSharedBytes);
+      if (e == cudaSuccess && policy == kL1)
+        e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+            l1_carveout<V>());
+    }
+  return e;
 }
 
 template <typename V>
@@ -623,39 +721,42 @@ int launch_carry_fixup(const void* carry_row, const void* carry_val,
 
 extern "C" {
 
-// Lets the tile kernel's four instantiations take more than the default
-// 48 KB of dynamic shared memory on the current device.  Called once, before
-// any launch, so that no launch (nor a CUDA graph that captures one) sets an
-// attribute.
+// Lets every instantiation of the tile kernel take more than the default
+// 48 KB of dynamic shared memory on the current device, and sets the kL1
+// ones' carveout.  Called once, before any launch, so that no launch (nor a
+// CUDA graph that captures one) sets an attribute.
 int merge_csrmv_init() {
-  cudaError_t e = opt_in_shared<float, false>();
-  if (e == cudaSuccess) e = opt_in_shared<float, true>();
-  if (e == cudaSuccess) e = opt_in_shared<double, false>();
-  if (e == cudaSuccess) e = opt_in_shared<double, true>();
+  cudaError_t e = init_tile_kernels<float>();
+  if (e == cudaSuccess) e = init_tile_kernels<double>();
   return static_cast<int>(e);
 }
 
 // fused != 0 launches the instantiation with the fix-up as its tail: y is
 // then the finished result, carry_row / carry_val are its scratch, and
 // tickets is its counter (one zeroed unsigned int; null: the module's).
+// policy is a Policy; sm_blocks, the blocks resident per SM, lets the
+// blocks of one SM walk neighbouring runs (1: block b walks run b; the
+// grid must be a multiple of it).
 #define MERGE_TILE_ENTRY(SFX, V)                                             \
   int merge_tile_##SFX(const void* values, const void* cols,                 \
                        const void* row_end, const void* x, const void* y_in, \
                        const void* tile_rows, const void* tile_nnz,          \
                        double alpha, double beta, void* y, void* carry_row,  \
                        void* carry_val, int num_rows, int num_tiles,         \
-                       int run_tiles, int threads, int shared_bytes,         \
-                       int fused, void* tickets, void* stream) {             \
-    return (fused ? launch_merge_tile<V, true> : launch_merge_tile<V, false>)( \
-        values, cols, row_end, x, y_in, tile_rows, tile_nnz, alpha, beta, y, \
-        carry_row, carry_val, num_rows, num_tiles, run_tiles, threads,       \
-        shared_bytes, tickets, stream);                                      \
+                       int run_tiles, int sm_blocks, int threads,            \
+                       int shared_bytes, int fused, int policy,              \
+                       void* tickets, void* stream) {                        \
+    return launch_merge_tile<V>(values, cols, row_end, x, y_in, tile_rows,   \
+                                tile_nnz, alpha, beta, y, carry_row,         \
+                                carry_val, num_rows, num_tiles, run_tiles,   \
+                                sm_blocks, threads, shared_bytes, fused,     \
+                                policy, tickets, stream);                    \
   }                                                                          \
-  int merge_tile_occupancy_##SFX(int fused, int threads, int shared_bytes,   \
-                                 int* blocks_per_sm, int* registers) {       \
-    return (fused ? merge_tile_occupancy<V, true>                            \
-                  : merge_tile_occupancy<V, false>)(                         \
-        threads, shared_bytes, blocks_per_sm, registers);                    \
+  int merge_tile_occupancy_##SFX(int fused, int policy, int threads,         \
+                                 int shared_bytes, int* blocks_per_sm,       \
+                                 int* registers) {                           \
+    return merge_tile_occupancy<V>(fused, policy, threads, shared_bytes,     \
+                                   blocks_per_sm, registers);                \
   }
 
 MERGE_TILE_ENTRY(f32, float)

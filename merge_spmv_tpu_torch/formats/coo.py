@@ -47,9 +47,11 @@ class CooMatrix:
 
     @classmethod
     def from_market(cls, path: str, default_value: float = 1.0,
-                    value_dtype=np.float64):
+                    value_dtype=np.float64, use_native: bool = True):
         """Parse a Matrix Market file (sparse_matrix.h:217-380 semantics)
-        with the vectorized NumPy parser."""
+        with the vectorized NumPy parser.  ``use_native`` (the TPU
+        package's C++ parser switch) is accepted and ignored: the port has
+        no native parser yet, and the NumPy one gives the same arrays."""
         nr, nc, rows, cols, vals = _market.read_market(
             path, default_value, value_dtype=value_dtype)
         return cls(nr, nc, rows, cols, vals)

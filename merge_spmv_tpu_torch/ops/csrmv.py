@@ -78,7 +78,7 @@ def _csrmv_merge(plan: SpmvPlan, values, row_end_offsets, col_indices, x,
                     row_end_offsets, x.to(cdt).contiguous(), *tiles,
                     plan.tile_items,
                     None if y_in is None else y_in.to(cdt).contiguous(),
-                    alpha, beta, tickets=tickets)
+                    alpha, beta, tickets=tickets, policy=plan.policy)
     return y.to(out_dt)
 
 

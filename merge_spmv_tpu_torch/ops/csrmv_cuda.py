@@ -27,13 +27,18 @@ Fused launches that share a counter must be stream-ordered: one operator's
 calls on two streams at once, or two counter-less calls at once, would
 share tickets.  Operators with their own counters may run on any streams.
 
-What bounds it: HBM bytes (``SpmvPlan.bytes_accessed()``: a value, a
-column index and a gathered x element per nonzero, a row end and a y write
-per row).  The tile kernel copies each tile's values, column indices and
-row ends into shared memory with bulk asynchronous copies two tiles ahead
-of its reduce, issues the tile's coalesced x gathers while the tile before
-is reduced, reduces over shared memory only, and writes each y once; the
-fix-up touches one word per run.
+What bounds it: HBM bytes on local columns (``SpmvPlan.bytes_accessed()``:
+a value, a column index and a gathered x element per nonzero, a row end and
+a y write per row), the L2's rate of scattered 32-byte sectors on
+scattered ones (tools/gather_rate.py).  The tile kernel copies each tile's
+values, column indices and row ends into shared memory with bulk
+asynchronous copies two tiles ahead of its reduce, issues the tile's x
+gathers while the tile before is reduced, reduces over shared memory only,
+and writes each y once; the fix-up touches one word per run.  Each wrapper
+takes a gather ``policy`` (ops/plan.py::POLICIES, the plan's
+``policy``): "stream" launches as many blocks per SM as shared memory
+holds, "l1" the blocks that fit a small carveout, leaving 192 KB of each
+SM as L1 for x; in both, the blocks of one SM walk neighbouring runs.
 
 Each wrapper runs the kernel for CUDA tensors and the plain version for CPU
 tensors, and raises on anything else.  ``LAUNCHES`` counts kernel launches
@@ -50,13 +55,15 @@ import torch
 
 from merge_spmv_tpu_torch.ops.csrmv_torch import row_ids_from_offsets
 from merge_spmv_tpu_torch.ops.merge_path import num_merge_tiles
-from merge_spmv_tpu_torch.ops.plan import (TileGeometry, run_ends,
+from merge_spmv_tpu_torch.ops.plan import (POLICIES, TileGeometry, run_ends,
                                            tile_geometry)
 from merge_spmv_tpu_torch.utils.device import dtype_name
 from merge_spmv_tpu_torch.utils.cuda_build import (check_operand as _check,
+                                                   device_context,
                                                    load_library,
                                                    on_cpu as _is_cpu,
-                                                   raise_on_launch)
+                                                   raise_on_launch,
+                                                   raw_stream)
 
 __all__ = ["merge_tile", "carry_fixup", "merge_csrmv", "merge_tile_plain",
            "carry_fixup_plain", "merge_csrmv_plain", "launch_geometry",
@@ -83,10 +90,11 @@ def _lib():
         for sfx in _SUFFIX.values():
             f = getattr(lib, f"merge_tile_{sfx}")
             f.argtypes = [_P, _P, _P, _P, _P, _P, _P, _D, _D, _P, _P, _P, _I,
-                          _I, _I, _I, _I, _I, _P, _P]
+                          _I, _I, _I, _I, _I, _I, _I, _P, _P]
             f.restype = _I
             f = getattr(lib, f"merge_tile_occupancy_{sfx}")
-            f.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+            f.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I),
+                          ctypes.POINTER(_I)]
             f.restype = _I
             f = getattr(lib, f"carry_fixup_{sfx}")
             f.argtypes = [_P, _P, _I, _I, _D, _P, _P]
@@ -99,9 +107,10 @@ def _lib():
 
 @functools.lru_cache(maxsize=None)
 def _device_lib(index: int):
-    """The library, with the tile kernel's shared-memory opt-in made on
-    device ``index``: once, before its first launch there, never inside a
-    launch (which a CUDA graph may be capturing)."""
+    """The library, with the tile kernel's shared-memory opt-in and the
+    "l1" policy's carveout set on device ``index``: once, before its first
+    launch there, never inside a launch (which a CUDA graph may be
+    capturing)."""
     lib = _lib()
     with torch.cuda.device(index):
         raise_on_launch(KERNEL_SOURCE, lib.merge_csrmv_init(),
@@ -111,13 +120,13 @@ def _device_lib(index: int):
 
 @functools.lru_cache(maxsize=None)
 def _occupancy(index: int, dtype: torch.dtype, threads: int, shared: int,
-               fused: bool):
+               fused: bool, policy: str):
     lib = _device_lib(index)
     blocks, regs = _I(0), _I(0)
     with torch.cuda.device(index):
         rc = getattr(lib, f"merge_tile_occupancy_{_SUFFIX[dtype]}")(
-            int(fused), threads, shared, ctypes.byref(blocks),
-            ctypes.byref(regs))
+            int(fused), POLICIES.index(policy), threads, shared,
+            ctypes.byref(blocks), ctypes.byref(regs))
     raise_on_launch(KERNEL_SOURCE, rc, "merge_tile occupancy query")
     return blocks.value, regs.value
 
@@ -137,23 +146,25 @@ def _num_sms(index: int) -> int:
 
 
 def kernel_occupancy(dtype, tile_items: int, device=None,
-                     fused: bool = False):
+                     fused: bool = False, policy: str = "stream"):
     """(blocks per SM, registers per thread) of the tile kernel at
     ``tile_items`` on the card, from the CUDA occupancy calculator:
     the unfused instantiation (``merge_tile``'s) or, with ``fused``, the
-    one with the fix-up as its tail (``merge_csrmv``'s)."""
+    one with the fix-up as its tail (``merge_csrmv``'s), of the gather
+    ``policy`` (ops/plan.py::POLICIES: each has its own carveout)."""
     dev = torch.device("cuda" if device is None else device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     kernel_dtype = (torch.float64 if dtype_name(dtype) == "float64"
                     else torch.float32)
-    geo = tile_geometry(1, tile_items, dtype)   # checks tile_items
+    geo = tile_geometry(1, tile_items, dtype, policy=policy)   # checks both
     return _occupancy(index, kernel_dtype, geo.threads, geo.shared_bytes,
-                      bool(fused))
+                      bool(fused), policy)
 
 
 @functools.lru_cache(maxsize=256)
 def launch_geometry(num_tiles: int, tile_items: int, dtype, device,
-                    fused: bool = False) -> TileGeometry:
+                    fused: bool = False,
+                    policy: str = "stream") -> TileGeometry:
     """The launch of the tile kernel's instantiation (see
     ``kernel_occupancy``) for tensors on ``device``: on the card with its
     SM count and the occupancy the card reports for that instantiation
@@ -162,11 +173,11 @@ def launch_geometry(num_tiles: int, tile_items: int, dtype, device,
     host time."""
     dev = torch.device(device)
     if dev.type != "cuda":
-        return tile_geometry(num_tiles, tile_items, dtype)
+        return tile_geometry(num_tiles, tile_items, dtype, policy=policy)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    blocks, _ = kernel_occupancy(dtype, tile_items, dev, fused)
+    blocks, _ = kernel_occupancy(dtype, tile_items, dev, fused, policy)
     return tile_geometry(num_tiles, tile_items, dtype, num_sms=_num_sms(index),
-                         blocks_per_sm=blocks)
+                         blocks_per_sm=blocks, policy=policy)
 
 
 # ---------------------------------------------------------------------- #
@@ -236,11 +247,12 @@ def merge_csrmv_plain(values, col_indices, row_end_offsets, x, tile_rows,
 # ---------------------------------------------------------------------- #
 
 def _tile_call(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
-               tile_items, y_in, alpha, beta, run_tiles, fused, tickets=None):
+               tile_items, y_in, alpha, beta, run_tiles, fused, tickets=None,
+               policy="stream"):
     """The checks and the launch of the tile kernel's unfused or fused
-    instantiation; (y, carry_row, carry_val), with the carries added into
-    y when ``fused``, counting on ``tickets``.  The plain version for CPU
-    tensors."""
+    instantiation of the gather ``policy``; (y, carry_row, carry_val),
+    with the carries added into y when ``fused``, counting on
+    ``tickets``.  The plain version for CPU tensors."""
     num_rows = row_end_offsets.shape[0]
     num_tiles = tile_rows.shape[0] - 1
     want_tiles = num_merge_tiles(num_rows, values.shape[0], tile_items)
@@ -255,7 +267,8 @@ def _tile_call(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
     dtype = values.dtype
     if not cpu and dtype not in _SUFFIX:
         raise TypeError(f"the kernel takes float32 or float64, got {dtype}")
-    geo = launch_geometry(num_tiles, tile_items, dtype, values.device, fused)
+    geo = launch_geometry(num_tiles, tile_items, dtype, values.device, fused,
+                          policy)
     run = geo.run_tiles if run_tiles is None else int(run_tiles)
     if cpu:
         y, carry_row, carry_val = merge_tile_plain(
@@ -278,21 +291,22 @@ def _tile_call(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
         _check("tickets", tickets, torch.int32, (1,))
     dev = values.device
     num_runs = -(-num_tiles // run)
+    # the blocks of one SM walk neighbouring runs (csrc/merge_csrmv.cu)
+    sm_blocks = geo.blocks_per_sm if num_runs % geo.blocks_per_sm == 0 else 1
     y = torch.empty(num_rows, dtype=dtype, device=dev)
     carry_row = torch.empty(num_runs, dtype=torch.int32, device=dev)
     carry_val = torch.empty(num_runs, dtype=dtype, device=dev)
     lib = _device_lib(dev.index)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with device_context(dev):
         rc = getattr(lib, f"merge_tile_{_SUFFIX[dtype]}")(
             values.data_ptr(), col_indices.data_ptr(),
             row_end_offsets.data_ptr(), x.data_ptr(),
             None if y_in is None else y_in.data_ptr(),
             tile_rows.data_ptr(), tile_nnz.data_ptr(), float(alpha),
             float(beta), y.data_ptr(), carry_row.data_ptr(),
-            carry_val.data_ptr(), num_rows, num_tiles, run, geo.threads,
-            geo.shared_bytes, int(fused),
-            None if tickets is None else tickets.data_ptr(), stream)
+            carry_val.data_ptr(), num_rows, num_tiles, run, sm_blocks,
+            geo.threads, geo.shared_bytes, int(fused), POLICIES.index(policy),
+            None if tickets is None else tickets.data_ptr(), raw_stream(dev))
     name = "merge_tile_fused" if fused else "merge_tile"
     raise_on_launch(KERNEL_SOURCE, rc, name)
     LAUNCHES[name] += 1
@@ -300,18 +314,20 @@ def _tile_call(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
 
 
 def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
-               tile_items, y_in=None, alpha=1.0, beta=0.0, run_tiles=None):
+               tile_items, y_in=None, alpha=1.0, beta=0.0, run_tiles=None,
+               policy="stream"):
     """Tile kernel: (y, carry_row, carry_val) as merge_tile_plain returns
     them, one carry pair per run.  ``tile_items`` fixes the block size
     (tile_items / ITEMS_PER_THREAD threads); tile_rows/tile_nnz must come
     from ``merge_tile_coordinates`` at the same tile_items.
     ``run_tiles=None`` takes the runs of ``launch_geometry``; an integer
-    forces them (1: a block per tile).  The wrapper checks the tile count
-    without a sync; the kernel never indexes shared memory past the tile,
-    whatever the coordinates."""
+    forces them (1: a block per tile).  ``policy`` is the gather policy
+    (ops/plan.py::POLICIES).  The wrapper checks the tile count without a
+    sync; the kernel never indexes shared memory past the tile, whatever
+    the coordinates."""
     return _tile_call(values, col_indices, row_end_offsets, x, tile_rows,
                       tile_nnz, tile_items, y_in, alpha, beta, run_tiles,
-                      fused=False)
+                      fused=False, policy=policy)
 
 
 def carry_fixup(y, carry_row, carry_val, alpha=1.0):
@@ -329,11 +345,10 @@ def carry_fixup(y, carry_row, carry_val, alpha=1.0):
     if num_pairs < 1:
         raise ValueError("carry_row must be non-empty")
     lib = _lib()
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
+    with device_context(y.device):
         rc = getattr(lib, f"carry_fixup_{_SUFFIX[dtype]}")(
             carry_row.data_ptr(), carry_val.data_ptr(), num_pairs,
-            y.shape[0], float(alpha), y.data_ptr(), stream)
+            y.shape[0], float(alpha), y.data_ptr(), raw_stream(y.device))
     raise_on_launch(KERNEL_SOURCE, rc, "carry_fixup")
     LAUNCHES["carry_fixup"] += 1
     return y
@@ -341,14 +356,15 @@ def carry_fixup(y, carry_row, carry_val, alpha=1.0):
 
 def merge_csrmv(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
                 tile_items, y_in=None, alpha=1.0, beta=0.0, run_tiles=None,
-                tickets=None):
+                tickets=None, policy="stream"):
     """y = alpha * A @ x + beta * y_in in one launch: the tile kernel with
     the fix-up as its tail, bit for bit ``merge_tile`` then
     ``carry_fixup`` at the same runs (``merge_csrmv_plain`` for CPU
-    tensors).  ``run_tiles`` as for ``merge_tile``; the default takes the
-    fused instantiation's geometry.  ``tickets`` is the kernel's counter
-    (``ticket_counter``), None for the module's per device; launches that
-    share one must be stream-ordered (the module's docstring says why)."""
+    tensors).  ``run_tiles`` and ``policy`` as for ``merge_tile``; the
+    default takes the fused instantiation's geometry.  ``tickets`` is the
+    kernel's counter (``ticket_counter``), None for the module's per
+    device; launches that share one must be stream-ordered (the module's
+    docstring says why)."""
     return _tile_call(values, col_indices, row_end_offsets, x, tile_rows,
                       tile_nnz, tile_items, y_in, alpha, beta, run_tiles,
-                      fused=True, tickets=tickets)[0]
+                      fused=True, tickets=tickets, policy=policy)[0]

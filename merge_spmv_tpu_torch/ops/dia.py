@@ -196,7 +196,9 @@ class DiaSpmvOperator:
     def _vec(self, v):
         return None if v is None else torch.as_tensor(v, device=self.device)
 
-    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
+    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0,
+                 interpret: bool = False):
+        """``interpret`` is the TPU package's; accepted and ignored."""
         x, y_in = self._vec(x), self._vec(y_in)
         check_vector_operands(self.plan, x, y_in)
         xv = self._rounded(x).contiguous()
@@ -211,10 +213,12 @@ class DiaSpmvOperator:
             y = y + beta * y_in.to(self._cdt)
         return y.to(self._store_dt)
 
-    def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, method: str = "auto"):
+    def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, interpret: bool = False,
+           method: str = "auto"):
         """SpMM: the diagonal kernel once per column of X, then the
         leftover operator's ``mm`` (one merge pass per column).
-        ``method="wide"`` raises, as SpmvOperator.mm does."""
+        ``method="wide"`` raises, as SpmvOperator.mm does; ``interpret``
+        is accepted and ignored."""
         if method == "wide":
             raise ValueError(
                 "method='wide' is retired: the multi-RHS kernel measured "

@@ -24,8 +24,10 @@ import ctypes
 import torch
 
 from merge_spmv_tpu_torch.utils.cuda_build import (check_operand,
+                                                   device_context,
                                                    load_library, on_cpu,
-                                                   raise_on_launch)
+                                                   raise_on_launch,
+                                                   raw_stream)
 
 __all__ = ["dia_matvec", "dia_matvec_plain", "LAUNCHES", "reset_launches",
            "KERNEL_SOURCE"]
@@ -89,11 +91,11 @@ def dia_matvec(vtab, x, offsets, num_rows, num_cols, alpha=1.0):
     if num_rows == 0:
         return y
     lib = _lib()
-    with torch.cuda.device(vtab.device):
-        stream = torch.cuda.current_stream(vtab.device).cuda_stream
+    with device_context(vtab.device):
         rc = getattr(lib, f"dia_matvec_{_SUFFIX[dtype]}")(
             vtab.data_ptr(), x.data_ptr(), offsets.data_ptr(), num_diags,
-            num_rows, num_cols, float(alpha), y.data_ptr(), stream)
+            num_rows, num_cols, float(alpha), y.data_ptr(),
+            raw_stream(vtab.device))
     raise_on_launch(KERNEL_SOURCE, rc, "dia_matvec")
     LAUNCHES["dia_matvec"] += 1
     return y

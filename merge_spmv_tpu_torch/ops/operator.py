@@ -77,16 +77,23 @@ class SpmvOperator:
     def _vec(self, v):
         return None if v is None else torch.as_tensor(v, device=self.device)
 
-    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
+    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0,
+                 interpret: bool = False):
+        """y = alpha * A @ x + beta * y_in, one launch.  ``interpret``
+        (the TPU package's Pallas interpret mode) is accepted and
+        ignored."""
         return _csrmv_merge(self.plan, self.values, self.row_end_offsets,
                             self.col_indices, self._vec(x), self._vec(y_in),
                             alpha, beta, (self.tile_rows, self.tile_nnz),
                             self.tickets)
 
-    def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, method: str = "auto"):
+    def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, interpret: bool = False,
+           method: str = "auto"):
         """SpMM, one merge-kernel pass per column of X (the strategy of
         csrmm_column_loop, csrmv_pallas.py:1376-1406).  ``method="wide"``
-        (the retired multi-RHS kernel of the JAX package) raises."""
+        (the retired multi-RHS kernel of the JAX package) raises;
+        ``interpret`` is accepted and ignored, in the JAX package's
+        position."""
         if method == "wide":
             raise ValueError(
                 "method='wide' is retired: the multi-RHS kernel measured "
@@ -137,9 +144,10 @@ def build_operator(csr, dtype="float32", backend: str = "auto",
     ``device="cpu"`` runs the kernels' plain versions.  ``backend`` must
     agree with the device ("cuda" on the card, "torch" on the CPU).
     ``autotune=True`` with ``tile_items=None`` takes the tile size that
-    ops/autotune.py found fastest for the matrix's shape class on this
     card (timed once per class, then cached; the plan's choice on the
-    CPU).  ``runtime_skip``, ``gather_group`` and ``gather_cluster`` are
+    CPU).  The plan takes the gather policy from the columns
+    (ops/plan.py::gather_policy).  ``runtime_skip``, ``gather_group`` and
+    ``gather_cluster`` are
     the TPU package's tuning knobs: accepted and ignored, and
     ``describe()`` says so.
     """
@@ -150,7 +158,7 @@ def build_operator(csr, dtype="float32", backend: str = "auto",
     t0 = time.perf_counter()
     plan = make_plan(csr.num_rows, csr.num_cols, csr.num_nonzeros,
                      dtype=dtype, tile_items=tile_items, backend=backend,
-                     device=dev)
+                     col_indices=csr.col_indices, device=dev)
     t1 = time.perf_counter()
     values, rowends, cols = csr.to_device(dtype=torch_dtype(plan.dtype),
                                           device=dev)

@@ -26,7 +26,9 @@ from merge_spmv_tpu_torch.utils.device import dtype_name, itemsize
 
 __all__ = ["SpmvPlan", "make_plan", "TileGeometry", "tile_geometry",
            "tile_shared_bytes", "run_ends", "ITEMS_PER_THREAD",
-           "MIN_TILE_ITEMS", "MAX_TILE_ITEMS", "H100_SMS"]
+           "MIN_TILE_ITEMS", "MAX_TILE_ITEMS", "H100_SMS", "POLICIES",
+           "gather_sectors_per_nonzero", "gather_policy",
+           "l1_carveout_bytes", "L1_TILE_ITEMS"]
 
 # Merge items each thread consumes in sequence (CUB's ITEMS_PER_THREAD).
 ITEMS_PER_THREAD = 8
@@ -36,6 +38,9 @@ ITEMS_PER_THREAD = 8
 MIN_TILE_ITEMS = 32 * ITEMS_PER_THREAD
 MAX_TILE_ITEMS = 512 * ITEMS_PER_THREAD
 DEFAULT_TILE_ITEMS = 256 * ITEMS_PER_THREAD
+# The "l1" policy's default tile: two blocks of 128 threads share the
+# SM's smallest carveout that holds one default tile (l1_carveout_bytes).
+L1_TILE_ITEMS = 128 * ITEMS_PER_THREAD
 
 # Shared-memory stages of the tile kernel: a tile's streams arrive in one
 # while the tile before is prepared from the other.
@@ -52,8 +57,24 @@ SM_SHARED_BYTES = 233_472
 BLOCK_RESERVED_SHARED = 1024
 BLOCK_SHARED_MAX = 232_448
 BLOCK_SHARED_DEFAULT = 49_152
+# the shared-memory carveouts an SM can take, KB (the same guide)
+SM_CARVEOUTS_KB = (0, 8, 16, 32, 64, 100, 132, 164, 196, 228)
 # SMs of the H100 SXM: the geometry's default where no card is asked.
 H100_SMS = 132
+
+# Gather policies of the tile kernel, in the order of csrc/merge_csrmv.cu's
+# Policy enum: "stream" runs as many blocks per SM as shared memory holds
+# (about 28 KB of L1 left for x at the default tile); "l1" runs the blocks
+# that fit the smallest carveout holding one default tile (64 KB in
+# float32), so that the rest of the SM's 256 KB, 192 KB, is L1 for x.
+# gather_policy picks one per matrix.
+POLICIES = ("stream", "l1")
+SECTOR_BYTES = 32          # an L2 sector: what a scattered 4-byte read moves
+WARP = 32                  # nonzeros of one warp request of the gather
+# "l1" when the gather's sectors move more than this many times the
+# streams' bytes
+GATHER_BOUND_RATIO = 2.0
+_SPREAD_SAMPLES = 4096     # warp requests sampled by the statistic
 
 # The kernel indexes merge items, rows and nonzeros with int32.
 _INT32_LIMIT = 2**31 - 1
@@ -72,6 +93,13 @@ class SpmvPlan:
     num_rhs: int = 1           # k for SpMM (1 = SpMV)
     threads_per_block: int = DEFAULT_TILE_ITEMS // ITEMS_PER_THREAD
     items_per_thread: int = ITEMS_PER_THREAD
+    # the TPU package's make_plan knobs given here, accepted and ignored
+    ignored: tuple = ()
+    policy: str = "stream"     # the tile kernel's gather policy (POLICIES)
+
+    @property
+    def num_merge_items(self) -> int:
+        return self.num_rows + self.num_nonzeros
 
     def flops(self) -> int:
         """2*nnz*k multiply-adds (cpu_spmv.cpp:511 convention)."""
@@ -87,18 +115,54 @@ class SpmvPlan:
                 + self.num_rows * (os_ + vs * self.num_rhs))
 
     def describe(self) -> str:
+        ignored = (f", ignored TPU knobs: {', '.join(self.ignored)}"
+                   if self.ignored else "")
         return (f"SpmvPlan({self.num_rows}x{self.num_cols}, nnz="
                 f"{self.num_nonzeros}, {self.dtype}, backend={self.backend}, "
                 f"tile_items={self.tile_items}, tiles={self.num_tiles}, "
-                f"policy={self.threads_per_block}x{self.items_per_thread}, "
-                f"k={self.num_rhs})")
+                f"block={self.threads_per_block}x{self.items_per_thread}, "
+                f"gather={self.policy}, k={self.num_rhs}{ignored})")
+
+
+# The TPU package's make_plan knobs (merge_spmv_tpu/ops/plan.py:158-175)
+# and their defaults there: VMEM budgets, gather lists, x windows and the
+# branchy kernel have no counterpart on Hopper, which gathers x[col]
+# through its caches.
+_TPU_KNOBS = (("vmem_bytes", None), ("r_win", None), ("meta_k", None),
+              ("x_win", None), ("row_span", None),
+              ("row_end_offsets", None),
+              ("allow_x_streaming", True), ("runtime_skip", None),
+              ("gather_group", 1), ("gather_cluster", None),
+              ("gather_style", "tree"), ("gather_dlist", None),
+              ("scratch", None))
 
 
 def make_plan(num_rows: int, num_cols: int, num_nonzeros: int,
               dtype="float32", tile_items: Optional[int] = None,
               backend: str = "auto", num_rhs: int = 1,
+              vmem_bytes: Optional[int] = None,
+              r_win: Optional[int] = None,
+              meta_k: Optional[int] = None,
+              x_win: Optional[int] = None,
+              row_span: Optional[int] = None,
+              row_end_offsets=None, col_indices=None,
+              allow_x_streaming: bool = True,
+              runtime_skip: Optional[bool] = None,
+              gather_group: int = 1,
+              gather_cluster=None,
+              gather_style: str = "tree",
+              gather_dlist=None,
+              scratch: Optional[dict] = None,
               device=None) -> SpmvPlan:
     """Build an execution plan (phase 1 of the two-phase contract).
+
+    The arguments after ``num_rhs`` are the TPU package's, in its order,
+    so that a caller of either package may call the other.  As there,
+    ``col_indices`` (a numpy array or a tensor) tightens the kernel's
+    knobs: it picks the gather policy (``gather_policy``) and, for "l1",
+    the default tile L1_TILE_ITEMS; without it the policy is "stream".
+    The others are accepted and ignored, and the plan names those given
+    (``plan.ignored``, shown by ``describe()``).
 
     The backend follows the device: "cuda" (the merge-path CUDA kernel)
     when ``device`` is a CUDA device and "torch" (plain PyTorch)
@@ -113,8 +177,10 @@ def make_plan(num_rows: int, num_cols: int, num_nonzeros: int,
         raise ValueError(
             f"{num_rows} rows + {num_nonzeros} nonzeros exceed the kernel's "
             "int32 merge coordinates")
+    policy = ("stream" if col_indices is None else
+              gather_policy(num_rows, num_nonzeros, col_indices, dname))
     if tile_items is None:
-        tile_items = DEFAULT_TILE_ITEMS
+        tile_items = L1_TILE_ITEMS if policy == "l1" else DEFAULT_TILE_ITEMS
         # no point in a tile much larger than the whole merge list
         total = num_rows + num_nonzeros
         while tile_items > MIN_TILE_ITEMS and tile_items >= 4 * total:
@@ -131,6 +197,16 @@ def make_plan(num_rows: int, num_cols: int, num_nonzeros: int,
     elif backend != expected:
         raise ValueError(f"backend {backend!r} does not run on {dev}")
 
+    given = dict(vmem_bytes=vmem_bytes, r_win=r_win, meta_k=meta_k,
+                 x_win=x_win, row_span=row_span,
+                 row_end_offsets=row_end_offsets,
+                 allow_x_streaming=allow_x_streaming,
+                 runtime_skip=runtime_skip, gather_group=gather_group,
+                 gather_cluster=gather_cluster, gather_style=gather_style,
+                 gather_dlist=gather_dlist, scratch=scratch)
+    ignored = tuple(name for name, default in _TPU_KNOBS
+                    if given[name] is not None and (default is None
+                                                    or given[name] != default))
     num_tiles = num_merge_tiles(num_rows, num_nonzeros, tile_items)
     return SpmvPlan(
         num_rows=int(num_rows),
@@ -143,6 +219,8 @@ def make_plan(num_rows: int, num_cols: int, num_nonzeros: int,
         num_rhs=int(num_rhs),
         threads_per_block=tile_geometry(num_tiles, tile_items, dname).threads,
         items_per_thread=ITEMS_PER_THREAD,
+        ignored=ignored,
+        policy=policy,
     )
 
 
@@ -189,15 +267,22 @@ class TileGeometry:
 
 def tile_geometry(num_tiles: int, tile_items: int, dtype="float32",
                   num_sms: int = H100_SMS,
-                  blocks_per_sm: Optional[int] = None) -> TileGeometry:
+                  blocks_per_sm: Optional[int] = None,
+                  policy: str = "stream") -> TileGeometry:
     """The tile kernel's launch for ``num_tiles`` tiles of ``tile_items``.
 
     Blocks per SM are what the threads and shared memory allow
     (``blocks_per_sm``, the card's own occupancy figure, which also counts
-    registers, lowers it).  Merge-path tiles are equal in work, so the
-    tiles are cut into equal contiguous runs, as few as fill every
-    resident block once: ``G = ceil(num_tiles / run_tiles) <= min(
-    num_tiles, blocks_per_sm * num_sms)``, one wave with no tail."""
+    registers, lowers it); under the "l1" policy, those that fit
+    ``l1_carveout_bytes`` (at least one: a larger block makes the CUDA driver
+    raise the carveout at launch).  Merge-path
+    tiles are equal in work, so the tiles are cut into equal contiguous
+    runs, as few as fill every resident block once: ``G = ceil(num_tiles
+    / run_tiles) <= min(num_tiles, blocks_per_sm * num_sms)``, one wave
+    with no tail."""
+    if policy not in POLICIES:
+        raise ValueError(f"unknown gather policy {policy!r}; one of "
+                         f"{POLICIES}")
     if tile_items % MIN_TILE_ITEMS or not (
             MIN_TILE_ITEMS <= tile_items <= MAX_TILE_ITEMS):
         raise ValueError(f"tile_items must be a multiple of {MIN_TILE_ITEMS} "
@@ -211,6 +296,9 @@ def tile_geometry(num_tiles: int, tile_items: int, dtype="float32",
               SM_SHARED_BYTES // (shared + BLOCK_RESERVED_SHARED))
     if blocks_per_sm is not None:
         fit = min(fit, blocks_per_sm)
+    if policy == "l1":
+        fit = min(fit, l1_carveout_bytes(dtype)
+                  // (shared + BLOCK_RESERVED_SHARED))
     fit = max(fit, 1)
     run_tiles = -(-num_tiles // (fit * num_sms))
     return TileGeometry(threads=threads, stages=STAGES, shared_bytes=shared,
@@ -228,3 +316,52 @@ def run_ends(num_tiles: int, run_tiles: int) -> torch.Tensor:
     num_runs = -(-num_tiles // run_tiles)
     return torch.clamp(torch.arange(1, num_runs + 1, dtype=torch.int64)
                        * run_tiles, max=num_tiles)
+
+
+def gather_sectors_per_nonzero(col_indices, dtype="float32",
+                               samples: Optional[int] = _SPREAD_SAMPLES
+                               ) -> float:
+    """Distinct 32-byte sectors of x per nonzero among WARP consecutive
+    nonzeros (one warp request of the tile kernel's gather): about 1 when
+    the columns scatter, 1 / WARP when a request reads one sector.  On
+    ``samples`` requests spread evenly over the nonzeros, or on every
+    request (the nonzeros cut into groups of WARP) with ``samples=None``.
+    A torch tensor on any device, or a numpy array; one host read."""
+    cols = torch.as_tensor(col_indices)
+    nnz = cols.shape[0]
+    if nnz == 0:
+        return 0.0
+    per_sector = SECTOR_BYTES // _value_size(dtype)
+    width = min(WARP, nnz)
+    groups = nnz // width
+    count = groups if samples is None else min(samples, groups)
+    # integer arithmetic: the same samples on every device
+    step = width if count == groups else (nnz - width) // max(count - 1, 1)
+    starts = torch.arange(count, device=cols.device) * step
+    idx = starts[:, None] + torch.arange(width, device=cols.device)
+    sectors = torch.sort(cols[idx].long() // per_sector, dim=1).values
+    distinct = 1 + (sectors[:, 1:] != sectors[:, :-1]).sum(1)
+    return float(distinct.double().mean()) / width
+
+
+def l1_carveout_bytes(dtype="float32") -> int:
+    """Shared memory per SM under the "l1" policy: the smallest carveout
+    that holds one block of the default tile, which the kernel's
+    preference (csrc/merge_csrmv.cu::l1_carveout) asks for."""
+    need = (tile_shared_bytes(DEFAULT_TILE_ITEMS, dtype)
+            + BLOCK_RESERVED_SHARED)
+    return next(kb * 1024 for kb in SM_CARVEOUTS_KB if kb * 1024 >= need)
+
+
+def gather_policy(num_rows: int, num_nonzeros: int, col_indices,
+                  dtype="float32") -> str:
+    """The gather policy for a matrix with these columns: "l1" when the
+    sectors its gather moves (``gather_sectors_per_nonzero`` per nonzero,
+    32 bytes each) exceed GATHER_BOUND_RATIO times its streams (a value
+    and a column index per nonzero, a row end and a y per row), so that
+    the time goes to the gather and L1 hits save it; "stream" otherwise."""
+    vs = _value_size(dtype)
+    gather = (num_nonzeros * SECTOR_BYTES
+              * gather_sectors_per_nonzero(col_indices, dtype))
+    streams = num_nonzeros * (vs + 4) + num_rows * (4 + vs)
+    return "l1" if gather > GATHER_BOUND_RATIO * streams else "stream"

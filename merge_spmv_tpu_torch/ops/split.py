@@ -34,6 +34,7 @@ one-time setup, reported as ``setup_ms``, for per-call speed.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional, Sequence, Union
 
@@ -46,7 +47,8 @@ from merge_spmv_tpu_torch.ops.csrmv import (check_matrix_operands,
 from merge_spmv_tpu_torch.ops.csrmv_torch import _sorted_segment_sum
 from merge_spmv_tpu_torch.ops.operator import (assemble_operator,
                                                build_operator, row_abs_sums)
-from merge_spmv_tpu_torch.ops.plan import MAX_TILE_ITEMS, make_plan
+from merge_spmv_tpu_torch.ops.plan import (MAX_TILE_ITEMS, gather_policy,
+                                           make_plan)
 from merge_spmv_tpu_torch.utils.device import dtype_name, resolve_device
 
 __all__ = ["split_by_distance", "SplitSpmvOperator", "build_split_operator",
@@ -319,6 +321,7 @@ class SplitSpmvOperator:
     compact rows, the gather and sorted-segment sum).  ``shape`` is the
     logical (m, n) and ``abs_row_sum_max`` the original matrix's; the
     timers read both.  ``setup_ms`` records the split + prepare cost.
+    ``interpret`` (the TPU package's) is accepted and ignored.
     """
 
     def __init__(self, csr: CsrMatrix, dtype="float32",
@@ -404,7 +407,8 @@ class SplitSpmvOperator:
         return y_v.reshape((self.num_bands, self._m_pad) + rest
                            )[:, :self.num_rows].sum(0)
 
-    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
+    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0,
+                 interpret: bool = False):
         x, y_in = self._vec(x), self._vec(y_in)
         check_vector_operands(self, x, y_in)
         y = self._gather_rows(self.op(x, alpha=alpha))
@@ -412,7 +416,8 @@ class SplitSpmvOperator:
             y = y + beta * y_in.to(y.dtype)
         return y
 
-    def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, method: str = "auto"):
+    def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, interpret: bool = False,
+           method: str = "auto"):
         """SpMM: the stacked operator's ``mm`` (one launch per column of
         X), then the same epilogue over k columns."""
         X, Y_in = self._vec(X), self._vec(Y_in)
@@ -475,7 +480,7 @@ class HotColdSpmvOperator:
     kernel, each on its operator's own ticket counter.  ``plan`` is the
     cold operator's (the hot one's when there is no cold part);
     ``shape`` is the logical (m, n), ``abs_row_sum_max`` the original
-    matrix's.
+    matrix's.  ``interpret`` (the TPU package's) is accepted and ignored.
     """
 
     def __init__(self, csr: CsrMatrix, dtype="float32",
@@ -532,7 +537,8 @@ class HotColdSpmvOperator:
     def _vec(self, v):
         return None if v is None else torch.as_tensor(v, device=self.device)
 
-    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
+    def __call__(self, x, y_in=None, alpha=1.0, beta=0.0,
+                 interpret: bool = False):
         x, y_in = self._vec(x), self._vec(y_in)
         check_vector_operands(self, x, y_in)
         y = None
@@ -545,7 +551,8 @@ class HotColdSpmvOperator:
             y = y + beta * y_in.to(y.dtype)
         return y
 
-    def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, method: str = "auto"):
+    def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, interpret: bool = False,
+           method: str = "auto"):
         X, Y_in = self._vec(X), self._vec(Y_in)
         check_matrix_operands(self, X, Y_in)
         Y = None
@@ -785,6 +792,8 @@ def build_split_operator_device(csr: CsrMatrix, dtype="float32",
         as_i32(counts), as_i32(dst), nb, total, m_pad)
     del cols_d, vals_d, band, order
     mark("stack")
+    plan = dataclasses.replace(plan, policy=gather_policy(
+        plan.num_rows, plan.num_nonzeros, cols_f, plan.dtype))
     op = assemble_operator(plan, vals_f, ends_f, cols_f)
     mark("plan_prepare")
     sop = SplitSpmvOperator.from_stacked(

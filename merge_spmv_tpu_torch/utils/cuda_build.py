@@ -11,6 +11,7 @@ library exports ``<name>_error_string(code)`` for its launch codes.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,8 +19,11 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_library",
-           "load_library", "on_cpu", "check_operand", "raise_on_launch"]
+           "load_library", "on_cpu", "check_operand", "raise_on_launch",
+           "device_context", "raw_stream"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -94,6 +98,22 @@ def on_cpu(*tensors) -> bool:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type == "cpu"
+
+
+def device_context(dev):
+    """Makes CUDA device ``dev`` current for a launch: a no-op when it
+    already is (the common case), since entering ``torch.cuda.device``
+    costs host time on every call."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def raw_stream(dev) -> int:
+    """The handle of device ``dev``'s current stream, looked up without
+    making a ``torch.cuda.Stream`` object."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check_operand(name, t, dtype, shape=None):

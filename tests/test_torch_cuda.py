@@ -23,6 +23,7 @@ from merge_spmv_tpu_torch.ops.csrmv import csrmv
 from merge_spmv_tpu_torch.ops.dia import build_dia_operator
 from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
 from merge_spmv_tpu_torch.ops.operator import build_operator
+from merge_spmv_tpu_torch.ops import plan as PL
 from merge_spmv_tpu_torch.ops.plan import make_plan
 from merge_spmv_tpu_torch.tools import sm_ceiling as P
 from merge_spmv_tpu_torch.utils.compare import compare_results
@@ -193,18 +194,110 @@ def test_unaligned_operands(card):
                                                         -0.75)) is None
 
 
+@pytest.mark.parametrize("policy", ["stream", "l1"])
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("tile_items", [256, 1024, 2048, 2304, 4096])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_geometry_matches_the_card(card, dtype, tile_items, fused):
-    """The card's occupancy of each instantiation (registers counted)
-    admits the geometry's blocks, and the launcher accepts its
-    shared-memory size."""
-    blocks, regs = K.kernel_occupancy(dtype, tile_items, card, fused)
-    geo = K.launch_geometry(10_000, tile_items, dtype, card, fused)
+def test_geometry_matches_the_card(card, dtype, tile_items, fused, policy):
+    """The card's occupancy of each instantiation (registers and its
+    carveout counted) admits the geometry's blocks, and the launcher
+    accepts its shared-memory size."""
+    blocks, regs = K.kernel_occupancy(dtype, tile_items, card, fused, policy)
+    geo = K.launch_geometry(10_000, tile_items, dtype, card, fused, policy)
     assert 1 <= geo.blocks_per_sm <= max(blocks, 1) and regs > 0
+    if policy == "l1":
+        assert geo.blocks_per_sm == 1 or geo.blocks_per_sm * (
+            geo.shared_bytes + 1024) <= PL.l1_carveout_bytes(dtype)
     props = torch.cuda.get_device_properties(card)
     assert geo.grid <= geo.blocks_per_sm * props.multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tile_items", [256, 2048, 4096])
+@pytest.mark.parametrize("name", ["wheel_hub_spans_tiles", "powerlaw",
+                                  "multi_chunk_cols", "empty_rows",
+                                  "nnz0"])
+def test_l1_policy_vs_plain_and_gold(card, name, tile_items, dtype):
+    """The "l1" gather policy's instantiation (the blocks that fit its
+    own small carveout): fused bit for bit the two kernels at its runs,
+    and within the bound of the plain version and gold."""
+    csr, arrs, x, y_in, tiles, xh, yh = _setup(name, card, tile_items,
+                                               dtype=dtype, signed=True)
+    args = (*arrs, x, *tiles, tile_items, y_in, 2.5, -0.75)
+    geo = K.launch_geometry(tiles[0].shape[0] - 1, tile_items, dtype, card,
+                            fused=True, policy="l1")
+    props = torch.cuda.get_device_properties(card)
+    assert geo.grid <= geo.blocks_per_sm * props.multi_processor_count
+    assert geo.blocks_per_sm == 1 or geo.blocks_per_sm * (
+        geo.shared_bytes + 1024) <= PL.l1_carveout_bytes(dtype)
+    got = K.merge_csrmv(*args, policy="l1")
+    two = K.carry_fixup(*K.merge_tile(*args, run_tiles=geo.run_tiles,
+                                      policy="l1"), 2.5)
+    plain = K.merge_csrmv_plain(*args, run_tiles=geo.run_tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(got, two)
+    assert torch.equal(got, K.merge_csrmv(*args, policy="l1"))
+    bound = csr.spmv_abs_bound(xh, yh, 2.5, -0.75)
+    gold = (csr.spmv_gold(xh, yh, 2.5, -0.75) if dtype == torch.float64
+            else csr.astype(np.float32).spmv_gold(
+                xh.astype(np.float32), yh.astype(np.float32), 2.5, -0.75))
+    for other in (plain.cpu().numpy(), gold):
+        assert compare_results(got.cpu().numpy(), other, verbose=False,
+                               abs_bound=bound) is None
+
+
+def _scattered_class(kind):
+    """Small members of the two scattered-column classes, from the
+    generators of the full-size ones (bench/matrices.py)."""
+    from merge_spmv_tpu_torch.bench.matrices import make_circuit_like, rmat
+    if kind == "circuit":
+        n = 200_000
+        rows, cols, vals = make_circuit_like(n, 2_000_000, seed=2)
+    else:
+        rows, cols, vals = rmat(16, 1_000_000, 16, np.float64)
+        n = int(max(rows.max(), cols.max())) + 1
+    return CsrMatrix.from_coo(CooMatrix(n, n, rows, cols, vals)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("kind", ["circuit", "kron"])
+def test_scattered_classes_take_the_l1_policy(card, kind):
+    """The operator picks the "l1" policy for both scattered classes;
+    op(x) verifies against gold, two calls are bitwise equal, the fused
+    kernel equals the two kernels at its runs, and 20 graph replays then an
+    eager call give the same bits."""
+    csr = _scattered_class(kind)
+    op = build_operator(csr)
+    assert op.plan.policy == "l1", op.describe()
+    rs = np.random.RandomState(5)
+    xh = rs.uniform(-1, 1, csr.num_cols).astype(np.float32)
+    x = torch.from_numpy(xh).to(card)
+    K.reset_launches()
+    eager = op(x)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["merge_tile_fused"] == 1
+    assert compare_results(eager.cpu().numpy(), csr.spmv_gold(xh),
+                           verbose=False,
+                           abs_bound=csr.spmv_abs_bound(xh)) is None
+    assert torch.equal(op(x), eager)
+    T = op.plan.tile_items
+    run = K.launch_geometry(op.plan.num_tiles, T, torch.float32, card,
+                            fused=True, policy="l1").run_tiles
+    two = K.carry_fixup(*K.merge_tile(
+        op.values, op.col_indices, op.row_end_offsets, x, op.tile_rows,
+        op.tile_nnz, T, run_tiles=run, policy="l1"))
+    assert torch.equal(two, eager)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = op(x)
+    replays = []
+    for _ in range(20):
+        graph.replay()
+        replays.append(captured.clone())
+    after = op(x)
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, eager) for r in replays)
+    assert torch.equal(after, eager)
 
 
 @pytest.mark.parametrize("name", ["wheel_hub_spans_tiles", "powerlaw"])
@@ -319,6 +412,54 @@ def test_fused_tail_reads_every_blocks_writes(card):
     torch.cuda.synchronize()
     got = [K.merge_csrmv(v, ci, re_, xs[k % len(xs)], tr, tn, 256,
                          run_tiles=1, tickets=tickets) for k in range(50)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want[k % len(xs)]) for k, g in enumerate(got))
+    assert int(tickets.item()) == 0
+
+
+@pytest.mark.parametrize("policy", ["stream", "l1"])
+def test_fused_tail_orders_the_last_writes(card, policy):
+    """The tail's ordering at the card's own geometry of each gather
+    policy (3 tiles a run):
+    rows of two runs' merge items each, so every other run leaves a carry
+    into a row that the next block finishes in its last tile, and that y
+    row and the next pair are the last things the block writes before its
+    ticket.  Every run holds the same work, so the blocks reach the tail
+    together.  300 calls back to back with x changing from call to call:
+    each is bit for bit the two kernels at the same runs, so no fix-up read
+    a pair or a y row before its write."""
+    T = 2048
+    geo = K.launch_geometry(10**6, T, torch.float32, card, fused=True,
+                            policy=policy)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    runs = geo.blocks_per_sm * sms
+    runs -= runs % 2
+    num_rows = runs // 2
+    nnz_row = 6 * T - 1                 # 2 runs of 3 tiles, minus the end
+    rs = np.random.RandomState(21)
+    n = 200_000
+    rows = np.repeat(np.arange(num_rows), nnz_row)
+    csr = CsrMatrix.from_coo(CooMatrix(num_rows, n, rows,
+                                       rs.randint(0, n, rows.size),
+                                       rs.uniform(0.5, 1.5, rows.size)))
+    v, re_, ci = csr.to_device(dtype=torch.float32, device=card)
+    tr, tn = merge_tile_coordinates(re_, csr.num_nonzeros, T)
+    num_tiles = tr.shape[0] - 1
+    run = K.launch_geometry(num_tiles, T, torch.float32, card,
+                            fused=True, policy=policy).run_tiles
+    assert num_tiles == 3 * runs and run == 3
+    xs = _vectors(card, n, 6, 22)
+    want = [K.carry_fixup(*K.merge_tile(v, ci, re_, x, tr, tn, T,
+                                        run_tiles=run, policy=policy))
+            for x in xs]
+    _, crow, cval = K.merge_tile(v, ci, re_, xs[0], tr, tn, T, run_tiles=run,
+                                 policy=policy)
+    assert crow.shape[0] == runs
+    assert bool((cval[0::2] != 0).all()) and bool((cval[1::2] == 0).all())
+    tickets = K.ticket_counter(card)
+    torch.cuda.synchronize()
+    got = [K.merge_csrmv(v, ci, re_, xs[k % len(xs)], tr, tn, T,
+                         tickets=tickets, policy=policy) for k in range(300)]
     torch.cuda.synchronize()
     assert all(torch.equal(g, want[k % len(xs)]) for k, g in enumerate(got))
     assert int(tickets.item()) == 0
@@ -700,3 +841,24 @@ def test_autotune_times_once_then_reads_the_cache(card, tmp_path,
     assert compare_results(again(torch.from_numpy(x).to(card)).cpu().numpy(),
                            csr.spmv_gold(x), verbose=False,
                            abs_bound=csr.spmv_abs_bound(x)) is None
+
+
+# ------------------------------------------------------- gather-rate probe
+
+@pytest.mark.parametrize("blocks", [1, 3, None])
+@pytest.mark.parametrize("count", [0, 5_000, 1_000_003])
+def test_gather_rate_kernel_vs_plain(card, count, blocks):
+    """The probe kernel sums each thread's reads in the plain version's
+    order: the same bits, with the launch counted."""
+    from merge_spmv_tpu_torch.tools import gather_rate as GR
+    rs = np.random.RandomState(count)
+    x = torch.from_numpy(rs.uniform(-1, 1, 100_000).astype(
+        np.float32)).to(card)
+    idx = torch.from_numpy(rs.randint(0, 100_000, count).astype(
+        np.int32)).to(card)
+    GR.reset_launches()
+    got = GR.gather_sum(x, idx, blocks)
+    want = GR.gather_sum_plain(x, idx, got.shape[0])
+    torch.cuda.synchronize()
+    assert GR.LAUNCHES == {"gather_rate": 1}
+    assert torch.equal(got, want)

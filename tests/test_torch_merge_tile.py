@@ -12,7 +12,9 @@
   when the run ends on a row end, a hub row carried across runs);
 * ops/plan.py::tile_geometry: every value type and tile size fits a block's
   227 KB, the 48 KB opt-in is flagged exactly above 48 KB, and the runs
-  cover every tile once, in order, in at most one resident wave.
+  cover every tile once, in order, in at most one resident wave;
+* the gather policies: the "l1" geometry, the policy each matrix class
+  gets, and the plain version at the "l1" runs against the JAX package.
 
 Inputs are made from a seed with numpy and handed to both packages.
 """
@@ -318,3 +320,128 @@ def test_geometry_takes_the_cards_occupancy_and_refuses_bad_input():
         P.run_ends(10, 0)
     plan = P.make_plan(1_000_000, 1_000_000, 5_940_000, device="cpu")
     assert plan.threads_per_block == g.threads
+
+
+# ---------------------------------------------------------------------- #
+# Gather policies: the geometry of each, the choice per matrix class, and
+# the plain version at the "l1" runs against the JAX package
+# ---------------------------------------------------------------------- #
+
+def _scattered_class(kind):
+    """Small members of the matrix classes the policies are chosen for,
+    from the generators of the full-size ones (the port's
+    bench/matrices.py, copies of the JAX side's benchmark generators),
+    as a JAX-package CSR."""
+    from merge_spmv_tpu_torch.bench.matrices import make_circuit_like, rmat
+    rs = np.random.RandomState(6)
+    if kind == "circuit":
+        n = 40_000
+        rows, cols, vals = make_circuit_like(n, 400_000, seed=2)
+    elif kind == "kron":
+        rows, cols, vals = rmat(14, 300_000, 16, np.float64)
+        n = int(max(rows.max(), cols.max())) + 1
+    elif kind == "grid3d":
+        return jcsr.CsrMatrix.from_coo(jcoo.CooMatrix.grid3d(30)).astype(
+            np.float32)
+    elif kind == "wheel":
+        return jcsr.CsrMatrix.from_coo(jcoo.CooMatrix.wheel(20_000)).astype(
+            np.float32)
+    else:   # a DIA leftover: few scattered nonzeros over many rows
+        n = 200_000
+        rows, cols = rs.randint(0, n, 2_000), rs.randint(0, n, 2_000)
+        vals = rs.uniform(-1, 1, rows.size)
+    return jcsr.CsrMatrix.from_coo(jcoo.CooMatrix(n, n, rows, cols, vals)
+                                   ).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,want", [
+    ("circuit", "l1"), ("kron", "l1"), ("grid3d", "stream"),
+    ("wheel", "stream"), ("leftover", "stream")])
+def test_policy_per_class(kind, want):
+    """The scattered classes gather more sectors than twice their streams'
+    bytes and take "l1"; the stencil, the wheel and a DIA leftover do
+    not.  The statistic is the same on a numpy array and a tensor."""
+    j = _scattered_class(kind)
+    spread = P.gather_sectors_per_nonzero(j.col_indices)
+    assert spread == P.gather_sectors_per_nonzero(
+        torch.from_numpy(j.col_indices))
+    assert 1 / P.WARP <= spread <= 1
+    assert P.gather_policy(j.num_rows, j.num_nonzeros, j.col_indices) == want
+    t = CsrMatrix.from_arrays(j.num_rows, j.num_cols, j.row_offsets,
+                              j.col_indices, j.values)
+    op = build_operator(t, device="cpu")
+    assert op.plan.policy == want and f"gather={want}" in op.describe()
+
+
+def test_gather_statistic_counts_distinct_sectors():
+    """One request of 32 consecutive columns reads 4 float32 sectors (8
+    floats each); 32 columns 8 apart read 32; float64 sectors hold 4."""
+    dense = np.arange(32, dtype=np.int32)
+    assert P.gather_sectors_per_nonzero(dense) == 4 / 32
+    assert P.gather_sectors_per_nonzero(dense * 8) == 1.0
+    assert P.gather_sectors_per_nonzero(dense, "float64") == 8 / 32
+    assert P.gather_sectors_per_nonzero(np.zeros(0, np.int32)) == 0.0
+
+
+@pytest.mark.parametrize("tile_items", [256, 1024, 2048, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_l1_geometry_fits_the_l1_carveout(dtype, tile_items):
+    """The "l1" policy launches the blocks that fit the smallest carveout
+    holding one default tile (64 KB in float32, 100 KB in float64: two
+    blocks of the 1024-item tile, one of the default), at least one, with
+    the same block as "stream"; its runs cover every tile once, in
+    order."""
+    carve = P.l1_carveout_bytes(dtype)
+    assert carve == (64 if dtype == "float32" else 100) * 1024
+    assert P.tile_shared_bytes(P.DEFAULT_TILE_ITEMS, dtype) \
+        + P.BLOCK_RESERVED_SHARED <= carve
+    for num_tiles in (1, 131, 3389, 100_003):
+        g = P.tile_geometry(num_tiles, tile_items, dtype, policy="l1")
+        s = P.tile_geometry(num_tiles, tile_items, dtype)
+        per_block = g.shared_bytes + P.BLOCK_RESERVED_SHARED
+        assert g.blocks_per_sm == max(1, min(carve // per_block,
+                                             s.blocks_per_sm))
+        assert (g.threads, g.shared_bytes) == (s.threads, s.shared_bytes)
+        resident = g.blocks_per_sm * P.H100_SMS
+        assert g.grid <= min(num_tiles, resident)
+        assert (g.run_tiles - 1) * resident < num_tiles \
+            <= g.run_tiles * resident
+        ends = P.run_ends(num_tiles, g.run_tiles)
+        assert len(ends) == g.grid and int(ends[-1]) == num_tiles
+    if tile_items == P.L1_TILE_ITEMS:
+        assert g.blocks_per_sm == 2
+    with pytest.raises(ValueError, match="policy"):
+        P.tile_geometry(10, tile_items, dtype, policy="wide")
+
+
+@pytest.mark.parametrize("kind", ["circuit", "kron"])
+def test_l1_runs_vs_jax_and_gold(kind):
+    """The plain version at the "l1" runs (132 blocks, long runs) against
+    the JAX package's csrmv_xla and gold, within the spmv_abs_bound
+    backward-error bound; the CPU operator runs exactly it."""
+    j = _scattered_class(kind)
+    rs = np.random.RandomState(12)
+    x = rs.uniform(-1, 1, j.num_cols).astype(np.float32)
+    yi = rs.uniform(-1, 1, j.num_rows).astype(np.float32)
+    t = CsrMatrix.from_arrays(j.num_rows, j.num_cols, j.row_offsets,
+                              j.col_indices, j.values)
+    args, yt = _tensors(t, x, yi)
+    num_tiles = args[4].shape[0] - 1
+    g = P.tile_geometry(num_tiles, TILE, "float32", policy="l1")
+    assert g.run_tiles > 1
+    got = K.merge_csrmv_plain(*args, TILE, yt, 2.5, -0.75, g.run_tiles)
+    two = K.carry_fixup_plain(*K.merge_tile_plain(
+        *args, TILE, yt, 2.5, -0.75, g.run_tiles), 2.5)
+    assert torch.equal(got, two)
+    v, re_, ci = j.to_device(dtype=np.float32)
+    want = np.asarray(jx.csrmv_xla(v, re_, ci, jnp.asarray(x),
+                                   y_in=jnp.asarray(yi), alpha=2.5,
+                                   beta=-0.75))
+    bound = j.spmv_abs_bound(x, yi, 2.5, -0.75)
+    _assert_close(got.numpy(), want, bound, f"{kind} l1 vs jax")
+    _assert_close(got.numpy(), j.spmv_gold(x, yi, 2.5, -0.75), bound,
+                  f"{kind} l1 vs gold")
+    op = build_operator(t, tile_items=TILE, device="cpu")
+    assert op.plan.policy == "l1"
+    assert torch.equal(op(torch.from_numpy(x), torch.from_numpy(yi), 2.5,
+                          -0.75), got)
