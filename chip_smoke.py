@@ -12,6 +12,9 @@ Phases, one line of output each (any failure exits non-zero and prints no
              dynamic shared memory and resident blocks per SM at the
              default tile size, in float32 and float64, for each gather
              policy (ops/plan.py::POLICIES).
+   stream  — utils/device.py::measure_stream_bandwidth (the STREAM triad
+             over 256 MB arrays, CUDA-graph replays) beside the published
+             3,350 GB/s.
 2. cases   — the merge kernels against their plain PyTorch versions and the
              sequential gold SpMV on the corner cases of the JAX package's
              tests (tile-spanning hub row, empty rows, duplicates, a row
@@ -41,7 +44,12 @@ Phases, one line of output each (any failure exits non-zero and prints no
              with a cold L2 (a 256 MB write before each launch, its own
              time subtracted) and the fused kernel in float64.  Kernel and
              library times are CUDA-graph replays; the plain versions
-             synchronise inside, so they are timed eagerly.
+             synchronise inside, so they are timed eagerly.  Then
+             grid3d(100) through build_operator(dtype="bfloat16"),
+             verified and timed beside float32, and the fp64 long row:
+             one 4,000,000-nonzero float64 row through K1, its relative
+             error against a float64 NumPy dot held to 2 gamma_n and to
+             64 * 2^-24 (the card's twin of tests/test_fp64_audit.py:70).
 5. dia cases — the DIA kernel (K3) against its plain version and gold on
              the JAX package's DIA test shapes (tests/test_dia.py): the
              grid3d/grid2d stencils, the rectangular case, duplicates, the
@@ -62,6 +70,21 @@ Phases, one line of output each (any failure exits non-zero and prints no
              verified and timed; the per-nonzero ratio is the paper's claim
              that the time does not depend on row-length skew, and fails
              the run below SKEW_RATIO_MIN; the two-kernel path timed too.
+   headline — python -m merge_spmv_tpu_torch.bench.headline as a
+             subprocess: its JSON line (bench.py's keys: the grid3d(100)
+             merge headline, the DIA block, the controlled and natural
+             skew pairs, the circuit-class quarter and vs_baseline) printed
+             on a line of its own; every key present, no *_error key.
+   solvers — the regularised grid3d(100) Laplacian L = D - A + I (7
+             diagonals): CG through merge and through DIA, Jacobi, power
+             iteration, and BiCGSTAB on L with its lower off-diagonals
+             halved, each run with its blocks replayed as a CUDA graph and
+             again eagerly (bitwise equal; the launch counters per
+             iteration from the eager run), checked in float64 with SciPy
+             (relative residual, or the eigenvalue against L's analytic
+             largest and its vector's Rayleigh quotient); iterations,
+             device time per iteration beside op(x), launches per
+             iteration and host reads per solve.
 8. driver  — merge_spmv_tpu_torch.bench.driver.run_benchmark on grid2d(1000)
              with the scipy, xla (cuSPARSE), merge, dia, split and hotcold
              backends; every backend must verify.
@@ -85,12 +108,20 @@ Phases, one line of output each (any failure exits non-zero and prints no
              cuSPARSE and the bytes bound of each; the host builder
              (geometric (8, 32) edges) full-row and compact, verified and
              timed; build_suggested on the matrix.
+   distributed — two ranks of parallel/mp_worker.py on this card over
+             gloo: grid3d(100) (halo mode) and the circuit5M class
+             (replicate mode), made once here and handed over as .npy
+             files; every window verified against gold, both ranks PASS;
+             each rank's K1 time (CUDA graph) and whole call (eager).
 10. hotcold main — the kron class (R-MAT scale 20, 50M generated nonzeros,
              float32): suggest_backend's record; merge op(x) reported as on
              the circuit class; build_hotcold_operator with
              its hot windows and hot/cold nonzeros; op(x) and the alpha/beta
              call verified with two fused launches per op(x); timed beside
              merge op(x) and cuSPARSE; build_suggested on the matrix.
+   pagerank — PageRank through K1 on the kron class's column-stochastic
+             transpose, stopped at an L1 step of 1e-6, against a float64
+             SciPy run of the same iterations (L1 distance).
 11. router — build_suggested on grid3d(100) and the local-uniform fixture of
              tests/test_suggest.py:48-57 (and the two matrices above): each
              pick verified and timed against merge op(x).
@@ -111,6 +142,8 @@ import contextlib
 import io
 import json
 import os
+import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -125,6 +158,24 @@ HOST_CALLS = 200          # calls per host-clock sample of the eager breakdown
 # generated nonzeros (tools/bench_hotcold.py:43-44), both at full size
 CIRCUIT_ROWS, CIRCUIT_NNZ = 5_558_326, 59_524_291
 KRON_NNZ = 50_000_000
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+# solvers on the regularised grid3d(100) Laplacian: the true relative
+# residual ||b - A x|| / ||b|| in float64 of a float32 solve stopped at
+# tol 1e-6 (its recurrence residual) may drift above it, not past 10x
+SOLVER_TOL, RESIDUAL_MAX = 1e-6, 1e-5
+# power iteration: the eigenvalue within 1e-3 of L's largest (the JAX
+# test's tolerance) and within 1e-5 of its vector's float64 Rayleigh
+# quotient.  L's top eigenvalues are 2e-4 apart, so the Rayleigh quotient
+# closes in as ~1/k: a tol below the float32 spacing at 13 (9.5e-7) stops
+# the loop only where it stagnates, late enough for the 1e-3
+EIG_REL_MAX, RAYLEIGH_REL_MAX = 1e-3, 1e-5
+POWER_TOL, POWER_MAXITER = 1e-7, 5000
+# PageRank on the kron class: stopped at an L1 step of 1e-6, which float32
+# reaches (its rounding floor over 1M ranks is ~1e-7); the L1 distance from
+# a float64 run of the same iterations at most 1e-4 of the total mass 1
+PAGERANK_TOL, PAGERANK_L1_MAX = 1e-6, 1e-4
+LONG_ROW_NNZ = 4_000_000  # tests/test_fp64_audit.py:70
+WORKER_TIMEOUT_S = 600
 
 
 class MergeDirect:
@@ -316,6 +367,131 @@ def host_us(fn, sync):
     return best / HOST_CALLS * 1e6
 
 
+def regularised_laplacian(width):
+    """L = D - A + I of the width^3 grid (tests/test_solvers.py:17-28),
+    built without densifying: -1 off the diagonal, the degree + 1 on it."""
+    import numpy as np
+
+    from merge_spmv_tpu_torch.formats.coo import CooMatrix
+    from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+    g = CooMatrix.grid3d(width)
+    n = g.num_rows
+    deg = np.bincount(g.rows, minlength=n).astype(np.float64)
+    diag = np.arange(n)
+    return CsrMatrix.from_coo(CooMatrix(
+        n, n, np.r_[g.rows, diag], np.r_[g.cols, diag],
+        np.r_[-g.vals, deg + 1.0])).astype(np.float32)
+
+
+def scipy_csr(csr):
+    """The matrix in float64 for SciPy (the host references)."""
+    import numpy as np
+    import scipy.sparse as sp
+    return sp.csr_matrix((csr.values.astype(np.float64), csr.col_indices,
+                          csr.row_offsets), shape=(csr.num_rows,
+                                                   csr.num_cols))
+
+
+def run_solver(name, fn, mods, init_launches, check_every=16):
+    """``fn(graph)`` -> (tensors..., info) on the card: once with the
+    default (blocks replayed as a CUDA graph), timed by the host clock,
+    then with every block eager, for the launch counters per iteration
+    (a captured launch counts once, at capture) and the bits of the
+    replay.  ``init_launches`` are the launches before the loop.
+    Returns (graph run's outputs, report dict)."""
+    import torch
+    for m in mods:
+        m.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(None)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+    for m in mods:
+        m.reset_launches()
+    eager = fn(False)
+    torch.cuda.synchronize()
+    eager_counts = {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+    info = out[-1]
+    steps = eager[-1].host_reads * check_every
+    per_iter = {k: (v - init_launches.get(k, 0)) / steps
+                for k, v in eager_counts.items()}
+    same = all(torch.equal(a, b) for a, b in zip(out[:-1], eager[:-1])) \
+        and int(info.iterations) == int(eager[-1].iterations)
+    return out, {"name": name, "iterations": int(info.iterations),
+                 "host_reads": info.host_reads, "step_ms": info.step_ms,
+                 "wall_ms": wall_ms, "launches": counted,
+                 "launches_per_iteration": per_iter,
+                 "graph_equals_eager": same}
+
+
+def solver_line(rep, op_ms, check):
+    step = ("none replayed" if rep["step_ms"] is None
+            else f"{rep['step_ms']:.4f} ms per iteration on the device "
+                 f"({rep['step_ms'] / op_ms:.2f}x op(x))")
+    return (f"solver {rep['name']}: {rep['iterations']} iterations, {step}, "
+            f"op(x) {op_ms:.4f} ms; launches per iteration "
+            f"{rep['launches_per_iteration']} (counted in the graph run: "
+            f"{rep['launches']}); {rep['host_reads']} host reads; "
+            f"{rep['wall_ms']:.1f} ms by the host clock; graph replay "
+            f"bitwise equal to the eager loop {rep['graph_equals_eager']}; "
+            f"{check}")
+
+
+def save_case(root, name, csr, x, meta):
+    """One case for parallel/mp_worker.py --cases: the CSR arrays and x
+    as .npy files, the shape and options as case.json."""
+    import numpy as np
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    for arr, a in (("row_offsets", csr.row_offsets),
+                   ("col_indices", csr.col_indices),
+                   ("values", csr.values), ("x", x)):
+        np.save(os.path.join(d, f"{arr}.npy"), a)
+    with open(os.path.join(d, "case.json"), "w") as f:
+        json.dump({"num_rows": csr.num_rows, "num_cols": csr.num_cols,
+                   "alpha": 1.0, **meta}, f)
+
+
+def run_workers(world, cases_dir):
+    """``world`` ranks of parallel/mp_worker.py on the card over one gloo
+    group, each timing its cases: their PASS reports, or None and the
+    outputs.  Every worker is killed if it outlives WORKER_TIMEOUT_S."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO_DIR + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "merge_spmv_tpu_torch.parallel.mp_worker",
+         str(r), str(world), str(port), "--device", "cuda", "--cases",
+         cases_dir, "--time"], cwd=REPO_DIR, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("<timeout>")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for r, p in enumerate(procs):
+        head = f"PASS rank={r} world={world} device=cuda "
+        line = [ln for ln in (outs[r] if r < len(outs) else "").splitlines()
+                if ln.startswith(head)]
+        if p.returncode != 0 or len(line) != 1:
+            return None, outs
+        reports.append(json.loads(line[0][len(head):]))
+    return reports, outs
+
+
 def main() -> int:
     import torch
 
@@ -326,9 +502,11 @@ def main() -> int:
     import numpy as np
 
     from merge_spmv_tpu_torch.bench.driver import run_benchmark
+    from merge_spmv_tpu_torch.bench.headline import HEADLINE_KEYS
     from merge_spmv_tpu_torch.bench.matrices import make_circuit_like, rmat
     from merge_spmv_tpu_torch.formats.coo import CooMatrix
     from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+    from merge_spmv_tpu_torch.models import solvers as SV
     from merge_spmv_tpu_torch.ops import csrmv_cuda as K
     from merge_spmv_tpu_torch.ops import autotune as A
     from merge_spmv_tpu_torch.ops import dia_cuda as DK
@@ -345,7 +523,8 @@ def main() -> int:
                                                        device_context,
                                                        raw_stream)
     from merge_spmv_tpu_torch.utils.device import (PEAK_FP32_GFLOPS,
-                                                   device_info)
+                                                   device_info,
+                                                   measure_stream_bandwidth)
     from merge_spmv_tpu_torch.utils.timers import chained_rate_ms, event_ms
 
     dev = torch.device("cuda")
@@ -384,6 +563,16 @@ def main() -> int:
           "instantiations")
     print(f"device: {info['device_kind']} x{info['num_devices']}; "
           f"nvidia-smi: {info['nvidia_smi']}")
+
+    # ------------------------------------------------------------ stream
+    t0 = time.perf_counter()
+    stream_gbps = measure_stream_bandwidth()
+    print(f"stream: triad x = x*s + y over two 256 MB float32 arrays "
+          f"(12 B per element per step; CUDA-graph replay of a 64-step "
+          f"chain minus a 1-step one): {stream_gbps:.1f} GB/s measured "
+          f"against {info['peak_hbm_gbps']:.0f} GB/s published "
+          f"({100 * stream_gbps / info['peak_hbm_gbps']:.1f}% of it); "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # ------------------------------------------------------------ 2 cases
     def to_dev(a):
@@ -810,6 +999,62 @@ def main() -> int:
     if not ok64:
         return 1
 
+    # bfloat16 at full size: values and x rounded to bfloat16, float32
+    # arithmetic, the result rounded once (2^-9; checked at 2^-7, all
+    # terms positive), timed beside float32 op(x)
+    r16 = np.random.RandomState(16)
+    K.reset_launches()
+    op16 = build_operator(csr, dtype="bfloat16")
+    x16 = torch.from_numpy(r16.uniform(0.5, 1.5, n).astype(
+        np.float32)).to(dev).bfloat16()
+    y16 = op16(x16)
+    torch.cuda.synchronize()
+    paths["bf16"] = K.LAUNCHES["merge_tile_fused"]
+    rounded = csr.astype(np.float32)
+    rounded.values = op16.values.cpu().numpy()
+    ok16 = (y16.dtype == torch.bfloat16 and tuple(y16.shape) == (n,)
+            and np.allclose(y16.float().cpu().numpy(),
+                            rounded.spmv_gold(x16.float().cpu().numpy()),
+                            rtol=2.0 ** -7, atol=0.0))
+    bf16_ms = chained_rate_ms(op16, x16)
+    print(f"main bfloat16: grid3d(100) through build_operator(dtype="
+          f"'bfloat16'), {op16.plan.describe()}: {paths['bf16']} fused "
+          f"launch, verified {ok16}; op(x) {bf16_ms:.4f} ms on the device "
+          f"against float32 {op_ms:.4f} ({bf16_ms / op_ms:.3f}x; the "
+          f"conversions of x and y to and from float32 included)")
+    if not ok16 or paths["bf16"] != 1:
+        return 1
+    del op16, x16, y16, rounded
+
+    # ------------------------------------------------------------ fp64 row
+    # one 4,000,000-nonzero row in float64 through K1, the card's twin of
+    # tests/test_fp64_audit.py:70: positive terms, so any summation order
+    # is within gamma_n = n u / (1 - n u) of the exact sum (u = 2^-53);
+    # held to 2 gamma_n (with the NumPy dot's own error) and to 64 * 2^-24
+    nl = LONG_ROW_NNZ
+    row = CsrMatrix(1, nl, np.array([0, nl], np.int32),
+                    np.arange(nl, dtype=np.int32),
+                    np.random.RandomState(0).uniform(0.0, 1.0, nl))
+    xl = np.random.RandomState(1).uniform(0.5, 1.5, nl)
+    gold_l = float(np.dot(row.values, xl))
+    K.reset_launches()
+    op_l = build_operator(row, dtype="float64")
+    y_l = op_l(torch.from_numpy(xl).to(dev))
+    torch.cuda.synchronize()
+    paths["fp64_long_row"] = K.LAUNCHES["merge_tile_fused"]
+    rel_l = abs(float(y_l[0]) - gold_l) / abs(gold_l)
+    gamma_l = nl * 2.0 ** -53 / (1 - nl * 2.0 ** -53)
+    ok_l = (y_l.dtype == torch.float64 and rel_l <= 2 * gamma_l
+            and rel_l < 64 * 2.0 ** -24 and paths["fp64_long_row"] == 1)
+    print(f"fp64 long row: 1 x {nl} float64 through K1 "
+          f"({op_l.plan.describe()}), {paths['fp64_long_row']} launch: "
+          f"relative error {rel_l:.3e} against the float64 NumPy dot "
+          f"(2 gamma_n {2 * gamma_l:.3e}, 64 * 2^-24 "
+          f"{64 * 2.0 ** -24:.3e}): within both {ok_l}")
+    if not ok_l:
+        return 1
+    del row, xl, op_l, y_l
+
     # ------------------------------------------------------------ 5 dia cases
     def dia_coo(name, gen):
         if name == "grid3d12":
@@ -1067,9 +1312,135 @@ def main() -> int:
           f"powerlaw {two_p:.4f}, ratio {two_u / two_p:.3f}")
     if not (ok_u and ok_p) or ms_u / ms_p < SKEW_RATIO_MIN:
         return 1
+    del skew, rows_u, rows_p, cols_k, ones
+
+    # ------------------------------------------------------------ headline
+    # python -m merge_spmv_tpu_torch.bench.headline: bench.py's JSON line
+    t_phase = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO_DIR + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "merge_spmv_tpu_torch.bench.headline"],
+        cwd=REPO_DIR, env=env, capture_output=True, text=True, timeout=900)
+    head_lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not head_lines:
+        print(f"headline failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+        return 1
+    print(head_lines[-1])
+    headline = json.loads(head_lines[-1])
+    missing = [k for k in HEADLINE_KEYS if k not in headline]
+    errors = [k for k in headline if k.endswith("_error")]
+    print(f"headline: {len(HEADLINE_KEYS) - len(missing)}/"
+          f"{len(HEADLINE_KEYS)} of bench.py's keys, missing "
+          f"{missing or 'none'}, error keys {errors or 'none'}; "
+          f"{headline['value']:.2f} GFLOP/s, {headline['pct_peak']:.1f}% "
+          f"of {max(info['peak_hbm_gbps'], headline['stream_gbps']):.0f} "
+          f"GB/s; vs_baseline {headline['vs_baseline']:.3f}; natural skew "
+          f"ratio {headline['skew_powerlaw_over_uniform_per_nnz_natural']:.3f}"
+          f"; {time.perf_counter() - t_phase:.1f} s")
+    if missing or errors:
+        return 1
+
+    # ------------------------------------------------------------ solvers
+    # the regularised grid3d(100) Laplacian (7 diagonals), float32, each
+    # solve checked against a float64 computation on the host with SciPy
+    t_phase = time.perf_counter()
+    lap = regularised_laplacian(100)
+    n3 = lap.num_rows
+    lap64 = scipy_csr(lap)
+    b = np.random.RandomState(40).uniform(-1, 1, n3).astype(np.float32)
+    b64 = b.astype(np.float64)
+    bd = torch.from_numpy(b).to(dev)
+
+    def rel_residual(A64, x):
+        x64 = x.double().cpu().numpy()
+        return float(np.linalg.norm(b64 - A64 @ x64) / np.linalg.norm(b64))
+
+    op_lm = build_operator(lap)
+    op_ld = build_dia_operator(lap)
+    # the lower off-diagonals halved: nonsymmetric, diagonally dominant
+    lower = lap.col_indices < lap.row_ids()
+    lap_ns = lap.astype(np.float32)
+    lap_ns.values = np.where(lower, 0.5 * lap.values, lap.values).astype(
+        np.float32)
+    op_ln = build_operator(lap_ns)
+    on_diag = lap.col_indices == lap.row_ids()    # one per row, in order
+    diag_l = torch.from_numpy(lap.values[on_diag]).to(dev)
+    v0 = torch.from_numpy(np.random.RandomState(41).standard_normal(
+        n3).astype(np.float32)).to(dev)
+    ns64 = scipy_csr(lap_ns)
+
+    def residual(A64):
+        def check(out):
+            res = rel_residual(A64, out[0])
+            ok = res <= RESIDUAL_MAX
+            return ok, (f"relative residual {res:.3e} (at most "
+                        f"{RESIDUAL_MAX}) {ok}")
+        return check
+
+    def eigenvalue(out):
+        # the largest eigenvalue of D - A on the 3D grid of paths P_100 is
+        # 3 (2 + 2 cos(pi/100)); L adds 1
+        lam, v = float(out[0]), out[1].double().cpu().numpy()
+        lam_max = 7.0 + 6.0 * np.cos(np.pi / 100)
+        rq = float(v @ (lap64 @ v) / (v @ v))
+        eig_rel = abs(lam - lam_max) / lam_max
+        rq_rel = abs(lam - rq) / abs(rq)
+        ok = eig_rel <= EIG_REL_MAX and rq_rel <= RAYLEIGH_REL_MAX
+        return ok, (f"eigenvalue {lam:.6f}: {eig_rel:.2e} from {lam_max:.6f}"
+                    f" (at most {EIG_REL_MAX}), {rq_rel:.2e} from its "
+                    f"vector's float64 Rayleigh quotient (at most "
+                    f"{RAYLEIGH_REL_MAX}) {ok}")
+
+    k1, k3 = {"merge_tile_fused": 1}, {"dia_matvec": 1}
+    # (path, name, solve(graph, check_every), operator, launches before
+    # the loop and per iteration, check_every, check)
+    specs = [
+        ("cg_merge", "cg over merge",
+         lambda g, c: SV.conjugate_gradient(op_lm, bd, tol=SOLVER_TOL,
+                                            maxiter=1000, check_every=c,
+                                            graph=g),
+         op_lm, k1, k1, 16, residual(lap64)),
+        ("cg_dia", "cg over dia",
+         lambda g, c: SV.conjugate_gradient(op_ld, bd, tol=SOLVER_TOL,
+                                            maxiter=1000, check_every=c,
+                                            graph=g),
+         op_ld, k3, k3, 16, residual(lap64)),
+        ("jacobi", "jacobi over merge",
+         lambda g, c: SV.jacobi(op_lm, diag_l, bd, tol=SOLVER_TOL,
+                                maxiter=1000, check_every=c, graph=g),
+         op_lm, {}, k1, 16, residual(lap64)),
+        ("power", "power iteration over merge",
+         lambda g, c: SV.power_iteration(op_lm, v0=v0, tol=POWER_TOL,
+                                         maxiter=POWER_MAXITER,
+                                         check_every=c, graph=g),
+         op_lm, {}, k1, 16, eigenvalue),
+        # 10 iterations: blocks of 4, so that some replay
+        ("bicgstab", "bicgstab over merge (lower off-diagonals halved)",
+         lambda g, c: SV.bicgstab(op_ln, bd, tol=SOLVER_TOL, maxiter=1000,
+                                  check_every=c, graph=g),
+         op_ln, k1, {"merge_tile_fused": 2}, 4, residual(ns64)),
+    ]
+    paths_sv, solvers_ok = {}, (op_ld.offsets.size == 7
+                                and op_ld.rest_op is None)
+    print(f"solvers: L = D - A + I on grid3d(100), {lap.num_nonzeros} nnz; "
+          f"{op_ld.describe()}")
+    for path, name, solve, op_s, init, per_iter, every, check in specs:
+        out, rep_ = run_solver(name, lambda g: solve(g, every), (K, DK),
+                               init, every)
+        ok, text = check(out)
+        ok = (ok and rep_["graph_equals_eager"]
+              and rep_["launches_per_iteration"] == per_iter)
+        print(solver_line(rep_, chained_rate_ms(op_s, bd), text))
+        paths_sv[path] = rep_["launches"]
+        solvers_ok &= ok
+        del out
+    print(f"solvers phase: {time.perf_counter() - t_phase:.1f} s")
+    if not solvers_ok:
+        return 1
+    del lap, lap64, lap_ns, ns64, op_lm, op_ld, op_ln, v0
 
     # ------------------------------------------------------------ 8 driver
-    del skew, rows_u, rows_p, cols_k, ones
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1261,6 +1632,51 @@ def main() -> int:
         return 1
     del csr_tc
 
+    # ------------------------------------------------------------ distributed
+    # two ranks of parallel/mp_worker.py on this one card over gloo
+    # (NCCL refuses two ranks on one GPU): grid3d(100) in halo mode and
+    # the circuit5M class with the halo turned off (its +-64K columns would
+    # take halo mode at S = 2), so both x modes run.  The matrices are
+    # made here once and handed over as .npy files; each rank verifies its
+    # windows against gold and times its K1 and its whole call.  The ranks
+    # share the card, so no multi-GPU number is claimed.
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as cases_dir:
+        g3 = CsrMatrix.from_coo(CooMatrix.grid3d(100)).astype(np.float32)
+        rd = np.random.RandomState(50)
+        g3.values = rd.uniform(0.5, 1.5, g3.num_nonzeros).astype(np.float32)
+        save_case(cases_dir, "grid3d100", g3,
+                  rd.uniform(0.1, 1.0, g3.num_cols).astype(np.float32),
+                  {"prepared": True})
+        save_case(cases_dir, "circuit5M", circ, xc,
+                  {"prepared": True, "allow_halo_x": False})
+        del g3
+        write_s = time.perf_counter() - t_phase
+        dist_reps, outs = run_workers(2, cases_dir)
+    if dist_reps is None:
+        print("distributed: a worker failed:\n" + "\n".join(
+            o[-3000:] for o in outs))
+        return 1
+    for name, mode in (("grid3d100", "halo"), ("circuit5M", "replicate")):
+        for r, rep_ in enumerate(dist_reps):
+            c = rep_[name]
+            print(f"distributed {name} rank {r}/2: {c['x_mode']} x (halo "
+                  f"{c['halo']}, cpad {c['cpad']}), {c['local_nnz']} local "
+                  f"nnz, {c['rows_checked']} rows verified against gold, "
+                  f"gather {c['gather']}, K1 launches {c['k1_launches']}; "
+                  f"K1 {c['k1_ms']:.4f} ms (CUDA graph), whole call "
+                  f"{c['call_ms']:.4f} ms eager (exchanges through the "
+                  f"host); alone: the local SpMV {c['local_ms']:.4f} ms "
+                  f"eager, the carries' reduce-scatter {c['carry_ms']:.4f} "
+                  f"ms; partitioned in {c['partition_s']:.1f} s")
+            if c["x_mode"] != mode or c["k1_launches"] < 1:
+                return 1
+    paths["distributed"] = sum(c["k1_launches"] for rep_ in dist_reps
+                               for c in rep_.values())
+    print(f"distributed phase: both ranks PASS on both matrices; cases "
+          f"written in {write_s:.1f} s; {time.perf_counter() - t_phase:.1f} "
+          "s")
+
     # ------------------------------------------------------------ 10 hotcold
     # kron class: R-MAT scale 20, 50M generated nonzeros
     # (tools/bench_hotcold.py:43-56), through the hot/cold split
@@ -1350,8 +1766,50 @@ def main() -> int:
     router["kron"] = (rec["backend"], verified(op_r(xkd), kron, xk),
                       chained_rate_ms(op_r, xkd), merge_k[0],
                       time.perf_counter() - t0)
-    del op_r, kron, xkd
+    del op_r, xkd
     print(f"hotcold phase: {time.perf_counter() - t_phase:.1f} s")
+
+    # ------------------------------------------------------------ pagerank
+    # the kron class as a link graph (row -> column), its column-stochastic
+    # transpose P[c, r] = 1 / outdeg(r) through K1, against a float64 run
+    # of the same iterations on the host with SciPy
+    t_phase = time.perf_counter()
+    adj = scipy_csr(kron)
+    adj.data[:] = 1.0
+    pt = adj.T.tocsr()
+    del adj
+    outdeg = np.diff(kron.row_offsets).astype(np.float64)
+    pt.data = 1.0 / outdeg[pt.indices]
+    p_csr = CsrMatrix(nk_, nk_, pt.indptr, pt.indices, pt.data).astype(
+        np.float32)
+    del kron
+    op_pr = build_operator(p_csr)
+    pr_op_ms = chained_rate_ms(op_pr, torch.full((nk_,), 1.0 / nk_,
+                                                 device=dev))
+    (pr, _), rep_ = run_solver(
+        "pagerank over merge (kron class)", lambda g: SV.pagerank(
+            op_pr, tol=PAGERANK_TOL, maxiter=200, check_every=4, graph=g),
+        (K,), {}, check_every=4)
+    t0 = time.perf_counter()
+    pr64 = np.full(nk_, 1.0 / nk_)
+    for _ in range(rep_["iterations"]):
+        spread = pt @ pr64
+        pr64 = 0.85 * (spread + (1.0 - spread.sum()) / nk_) + 0.15 / nk_
+    ref_s = time.perf_counter() - t0
+    l1 = float(np.abs(pr.double().cpu().numpy() - pr64).sum())
+    ok_pr = (l1 <= PAGERANK_L1_MAX and rep_["graph_equals_eager"]
+             and rep_["iterations"] < 200
+             and rep_["launches_per_iteration"] == {"merge_tile_fused": 1})
+    print(solver_line(rep_, pr_op_ms, f"{p_csr.num_nonzeros} nnz, "
+                      f"{op_pr.plan.describe()}; L1 distance {l1:.3e} from "
+                      f"the float64 run (at most {PAGERANK_L1_MAX}; "
+                      f"{ref_s:.1f} s on the host), tol {PAGERANK_TOL} "
+                      f"reached {rep_['iterations'] < 200}: {ok_pr}"))
+    paths_sv["pagerank"] = rep_["launches"]
+    print(f"pagerank phase: {time.perf_counter() - t_phase:.1f} s")
+    if not ok_pr:
+        return 1
+    del p_csr, pt, op_pr, pr, pr64, outdeg
 
     # ------------------------------------------------------------ 11 router
     # build_suggested on each class (the circuit and kron rows above), each
@@ -1484,7 +1942,9 @@ def main() -> int:
          "launches": launches["merge_tile_fused"], "max_abs_err": fused_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms, "bound_ms": fused_bound,
          "bound_by": "bytes", "library_ms": cusparse_ms, "main_path": True,
-         "launches_by_path": paths},
+         "launches_by_path": {**paths, **{
+             k: v["merge_tile_fused"] for k, v in paths_sv.items()
+             if "merge_tile_fused" in v}}},
         {"name": "merge_tile", "route": "cuda", "source": src,
          "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
          "launches": launches["merge_tile"], "max_abs_err": tile_err,
@@ -1503,7 +1963,9 @@ def main() -> int:
          "launches": dia_launches["dia_matvec"], "max_abs_err": dia_err,
          "ms": dia_ms, "plain_ms": dia_plain_ms, "bound_ms": dia_bound,
          "bound_by": "bytes", "library_ms": dia_cusparse_ms,
-         "main_path": True},
+         "main_path": True,
+         "launches_by_path": {"main": dia_launches["dia_matvec"],
+                              "cg_dia": paths_sv["cg_dia"]["dia_matvec"]}},
     ]
     kernels += [k1_c, k1_k]
     kernels.append(

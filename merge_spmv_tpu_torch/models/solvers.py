@@ -1,0 +1,285 @@
+"""Iterative solvers and spectral models over any operator of the port.
+
+Counterpart of merge_spmv_tpu/models/solvers.py: the same functions, with
+the same signatures and recurrences, over any operator with ``shape``,
+``dtype``, ``device`` and ``op(x, y_in, alpha, beta)``: the merge
+operator, DIA, the split and hot/cold operators.
+
+    op = build_operator(csr)
+    x, info = conjugate_gradient(op, b, tol=1e-6)
+    lam, v, info = power_iteration(op, v0)
+    pr, info = pagerank(build_operator(csr_transposed_stochastic))
+
+The JAX package runs each loop as ``lax.while_loop`` on the device.
+PyTorch has no loop that stays on the device, so here:
+
+* every iteration is masked by a device-side ``active`` flag (the
+  while-loop's condition, evaluated at the top of the iteration): once it
+  is false the state stops changing, bit for bit;
+* the host reads that flag once per block of ``check_every`` iterations;
+* on the card the first block runs eagerly (it warms the kernels'
+  libraries and the allocator), the second is captured as one CUDA graph,
+  and every later block replays it.  No iteration waits on the host.
+
+The iteration count and the result are therefore those of an
+iteration-by-iteration loop, whatever ``check_every`` is.  Vector updates
+and dot products are plain torch ops in the operand dtype, as they are XLA
+ops outside the Pallas kernel in the JAX package; the SpMVs are the
+operator's kernels.
+
+All solvers return (solution, info); ``info.iterations`` and
+``info.residual`` are the JAX package's, ``info.host_reads`` counts the
+flag reads and ``info.step_ms`` is the device time per masked iteration
+over the graph replays (CUDA events around each replay; None when no block
+was replayed).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from merge_spmv_tpu_torch.utils.device import torch_dtype
+
+__all__ = ["conjugate_gradient", "bicgstab", "jacobi", "power_iteration",
+           "pagerank", "SolveInfo"]
+
+
+class SolveInfo(NamedTuple):
+    iterations: torch.Tensor        # int32, 0-dim
+    residual: torch.Tensor          # final ||r|| or method-specific
+    host_reads: int = 0             # reads of the active flag
+    step_ms: Optional[float] = None  # device ms per masked iteration
+
+
+def _norm(v):
+    return torch.sqrt(torch.sum(v * v))
+
+
+def _vector(op, v):
+    return torch.as_tensor(v, device=op.device)
+
+
+def _commit(active, *pairs):
+    """state <- new where active, else unchanged, in place."""
+    for state, new in pairs:
+        state.copy_(torch.where(active, new, state))
+
+
+def _iterate(step, active, device, maxiter: int, check_every: int,
+             graph: Optional[bool]):
+    """Run ``step()`` (one masked iteration, in place) in blocks of
+    ``check_every`` until ``active()`` reads false on the host, once per
+    block.  ``graph`` (default: on the card) replays the blocks after the
+    first as one captured CUDA graph.  Returns (host reads, device ms per
+    replayed iteration or None)."""
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    if graph is None:
+        graph = device.type == "cuda"
+    if graph and device.type != "cuda":
+        raise ValueError("graph replay needs a CUDA device")
+
+    def block():
+        for _ in range(check_every):
+            step()
+
+    # the step masks itself once k reaches maxiter, so this many blocks
+    # always end inactive
+    max_blocks = -(-max(int(maxiter), 0) // check_every)
+    captured, events, reads = None, [], 0
+    for b in range(max_blocks):
+        if b == 0 or not graph:
+            block()
+        else:
+            if captured is None:
+                captured = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(captured):
+                    block()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            captured.replay()
+            end.record()
+            events.append((start, end))
+        reads += 1
+        if not bool(active()):
+            break
+    step_ms = None
+    if events:
+        step_ms = (sum(s.elapsed_time(e) for s, e in events)
+                   / (len(events) * check_every))
+    return reads, step_ms
+
+
+def conjugate_gradient(op, b, x0=None, tol: float = 1e-6,
+                       maxiter: int = 1000, check_every: int = 16,
+                       graph: Optional[bool] = None):
+    """CG for symmetric positive-definite A (e.g. grid Laplacians).
+
+    Standard Hestenes-Stiefel recurrence; one op(x) per iteration.
+    """
+    b = _vector(op, b)
+    x = torch.zeros_like(b) if x0 is None else _vector(op, x0).clone()
+    r = b - op(x)
+    p = r.clone()
+    rs = torch.sum(r * r)
+    tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
+        * torch.sum(b * b)
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+
+    def active():
+        return (rs > tol2) & (k < maxiter)
+
+    def step():
+        act = active()
+        ap = op(p)
+        alpha = rs / torch.sum(p * ap)
+        x_n = x + alpha * p
+        r_n = r - alpha * ap
+        rs_n = torch.sum(r_n * r_n)
+        p_n = r_n + (rs_n / rs) * p
+        _commit(act, (x, x_n), (r, r_n), (p, p_n), (rs, rs_n))
+        k.add_(act.to(k.dtype))
+
+    reads, step_ms = _iterate(step, active, b.device, maxiter, check_every,
+                              graph)
+    return x, SolveInfo(k, torch.sqrt(rs), reads, step_ms)
+
+
+def bicgstab(op, b, x0=None, tol: float = 1e-6, maxiter: int = 1000,
+             check_every: int = 16, graph: Optional[bool] = None):
+    """BiCGSTAB for general (nonsymmetric) A: two op(x) per iteration."""
+    b = _vector(op, b)
+    x = torch.zeros_like(b) if x0 is None else _vector(op, x0).clone()
+    r = b - op(x)
+    r_hat = r.clone()
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    rho, alpha, omega = one.clone(), one.clone(), one.clone()
+    v, p = torch.zeros_like(b), torch.zeros_like(b)
+    tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
+        * torch.sum(b * b)
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+
+    def active():
+        return (torch.sum(r * r) > tol2) & (k < maxiter)
+
+    def step():
+        act = active()
+        rho_n = torch.sum(r_hat * r)
+        beta = (rho_n / rho) * (alpha / omega)
+        p_n = r + beta * (p - omega * v)
+        v_n = op(p_n)
+        alpha_n = rho_n / torch.sum(r_hat * v_n)
+        s = r - alpha_n * v_n
+        t = op(s)
+        omega_n = torch.sum(t * s) / torch.sum(t * t)
+        x_n = x + alpha_n * p_n + omega_n * s
+        r_n = s - omega_n * t
+        _commit(act, (x, x_n), (r, r_n), (rho, rho_n), (alpha, alpha_n),
+                (omega, omega_n), (v, v_n), (p, p_n))
+        k.add_(act.to(k.dtype))
+
+    reads, step_ms = _iterate(step, active, b.device, maxiter, check_every,
+                              graph)
+    return x, SolveInfo(k, _norm(r), reads, step_ms)
+
+
+def jacobi(op, diag, b, x0=None, tol: float = 1e-6, maxiter: int = 1000,
+           check_every: int = 16, graph: Optional[bool] = None):
+    """Jacobi iteration x <- x + D^-1 (b - A x); ``diag`` is A's diagonal."""
+    b = _vector(op, b)
+    inv_d = 1.0 / _vector(op, diag)
+    x = torch.zeros_like(b) if x0 is None else _vector(op, x0).clone()
+    tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
+        * torch.sum(b * b)
+    rs = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+
+    def active():
+        return (rs > tol2) & (k < maxiter)
+
+    def step():
+        act = active()
+        r = b - op(x)
+        x_n = x + inv_d * r
+        _commit(act, (x, x_n), (rs, torch.sum(r * r)))
+        k.add_(act.to(k.dtype))
+
+    reads, step_ms = _iterate(step, active, b.device, maxiter, check_every,
+                              graph)
+    return x, SolveInfo(k, torch.sqrt(rs), reads, step_ms)
+
+
+def power_iteration(op, v0=None, tol: float = 1e-6, maxiter: int = 1000,
+                    seed: int = 0, check_every: int = 16,
+                    graph: Optional[bool] = None):
+    """Dominant eigenpair of A by normalized power iteration.
+
+    Returns (eigenvalue, eigenvector, info).  Without ``v0`` the start is
+    standard normal from a ``torch.Generator`` seeded with ``seed`` (not
+    the JAX package's PRNGKey stream).
+    """
+    n = op.shape[1]
+    dtype = torch_dtype(op.dtype)
+    if v0 is None:
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        v = torch.randn(n, generator=gen, dtype=torch.float32).to(
+            device=op.device, dtype=dtype)
+    else:
+        v = _vector(op, v0)
+    v = v / _norm(v)
+    lam = torch.zeros((), dtype=dtype, device=v.device)
+    diff = torch.full((), float("inf"), dtype=dtype, device=v.device)
+    k = torch.zeros((), dtype=torch.int32, device=v.device)
+
+    def active():
+        return (diff > tol) & (k < maxiter)
+
+    def step():
+        act = active()
+        w = op(v)
+        lam_n = torch.sum(v * w)
+        w_norm = _norm(w)
+        v_n = w / torch.where(w_norm > 0, w_norm, 1.0)
+        _commit(act, (v, v_n), (diff, torch.abs(lam_n - lam)),
+                (lam, lam_n))
+        k.add_(act.to(k.dtype))
+
+    reads, step_ms = _iterate(step, active, v.device, maxiter, check_every,
+                              graph)
+    return lam, v, SolveInfo(k, diff, reads, step_ms)
+
+
+def pagerank(op, damping: float = 0.85, tol: float = 1e-8,
+             maxiter: int = 200, check_every: int = 16,
+             graph: Optional[bool] = None):
+    """PageRank over a column-stochastic transition operator.
+
+    ``op`` must apply P (out-degree-normalized adjacency transpose):
+    pr <- damping * P pr + (1 - damping)/n.  Dangling mass is redistributed
+    uniformly so the total stays 1.
+    """
+    n = op.shape[0]
+    dtype = torch_dtype(op.dtype)
+    pr = torch.full((n,), 1.0 / n, dtype=dtype, device=op.device)
+    teleport = torch.tensor((1.0 - damping) / n, dtype=dtype,
+                            device=op.device)
+    diff = torch.full((), float("inf"), dtype=dtype, device=op.device)
+    k = torch.zeros((), dtype=torch.int32, device=op.device)
+
+    def active():
+        return (diff > tol) & (k < maxiter)
+
+    def step():
+        act = active()
+        spread = op(pr)
+        dangling = (1.0 - torch.sum(spread)) / n     # mass lost to sinks
+        new = damping * (spread + dangling) + teleport
+        _commit(act, (diff, torch.sum(torch.abs(new - pr))), (pr, new))
+        k.add_(act.to(k.dtype))
+
+    reads, step_ms = _iterate(step, active, pr.device, maxiter, check_every,
+                              graph)
+    return pr, SolveInfo(k, diff, reads, step_ms)

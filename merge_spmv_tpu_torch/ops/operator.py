@@ -74,6 +74,11 @@ class SpmvOperator:
     def shape(self):
         return (self.plan.num_rows, self.plan.num_cols)
 
+    @property
+    def dtype(self) -> str:
+        """The name of the dtype op(x) returns (the plan's)."""
+        return self.plan.dtype
+
     def _vec(self, v):
         return None if v is None else torch.as_tensor(v, device=self.device)
 

@@ -395,6 +395,11 @@ class SplitSpmvOperator:
     def shape(self):
         return (self.num_rows, self.num_cols)
 
+    @property
+    def dtype(self) -> str:
+        """The name of the dtype op(x) returns (the plan's)."""
+        return self.plan.dtype
+
     def _vec(self, v):
         return None if v is None else torch.as_tensor(v, device=self.device)
 
@@ -533,6 +538,11 @@ class HotColdSpmvOperator:
     @property
     def shape(self):
         return (self.num_rows, self.num_cols)
+
+    @property
+    def dtype(self) -> str:
+        """The name of the dtype op(x) returns (the plan's)."""
+        return self.plan.dtype
 
     def _vec(self, v):
         return None if v is None else torch.as_tensor(v, device=self.device)

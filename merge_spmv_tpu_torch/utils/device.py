@@ -17,7 +17,8 @@ import torch
 
 __all__ = ["resolve_device", "torch_dtype", "dtype_name", "itemsize",
            "peak_hbm_bandwidth", "PEAK_HBM_GBPS", "PEAK_FP32_GFLOPS",
-           "nvidia_smi_name_power", "nvidia_smi_query", "device_info"]
+           "nvidia_smi_name_power", "nvidia_smi_query", "device_info",
+           "measure_stream_bandwidth"]
 
 # Published peak HBM bandwidth, GB/s, matched as lower-case substrings of
 # the CUDA device name in this order ("NVIDIA H100 80GB HBM3" is the SXM
@@ -79,6 +80,41 @@ def peak_hbm_bandwidth(device=None) -> float:
         if key in name:
             return gbps
     raise ValueError(f"no published HBM bandwidth for {name!r}")
+
+
+def measure_stream_bandwidth(mbytes: int = 256, iters: int = 64,
+                             reps: int = 5, device=None) -> float:
+    """Measured STREAM-triad bandwidth (GB/s) of the card behind
+    ``device`` (default cuda:0): ``x = x*s + y`` over two ``mbytes``
+    float32 arrays, one kernel per step (2 reads + 1 write of 4 bytes per
+    element).  An ``iters``-long and a 1-long chain, each captured as a
+    CUDA graph and replayed between CUDA events, minimum over ``reps``;
+    the difference over ``iters - 1`` is one step.  Counterpart of
+    merge_spmv_tpu/utils/device.py:53-86.  Raises without a card: the
+    roofline denominator is never taken from the host."""
+    from merge_spmv_tpu_torch.utils.timers import _runner, _timed
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("measure_stream_bandwidth needs a CUDA device")
+    n = mbytes * 1024 * 1024 // 4
+    x = torch.ones(n, dtype=torch.float32, device=dev)
+    y = torch.full((n,), 0.5, dtype=torch.float32, device=dev)
+
+    def chain(k):
+        def body():
+            for _ in range(k):
+                torch.add(y, x, alpha=0.99999, out=x)
+        return body
+
+    with torch.cuda.device(dev):
+        chain(2)()
+        torch.cuda.synchronize()
+        run_n, run_1 = _runner(chain(iters), True), _runner(chain(1), True)
+        big = min(_timed(run_n) for _ in range(reps))
+        small = min(_timed(run_1) for _ in range(reps))
+    step_s = max(big - small, 1e-9) / (iters - 1) / 1e3
+    return 3 * n * 4 / step_s / 1e9
 
 
 def nvidia_smi_query(fields: str) -> str:

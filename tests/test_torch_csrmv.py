@@ -492,7 +492,12 @@ def test_package_imports_no_jax():
             "merge_spmv_tpu_torch.bench.driver, merge_spmv_tpu_torch.cli, "
             "merge_spmv_tpu_torch.tools.sm_ceiling, "
             "merge_spmv_tpu_torch.utils.timers, "
-            "merge_spmv_tpu_torch.utils.cuda_build; "
+            "merge_spmv_tpu_torch.utils.cuda_build, "
+            "merge_spmv_tpu_torch.models.solvers, "
+            "merge_spmv_tpu_torch.parallel.partition, "
+            "merge_spmv_tpu_torch.parallel.distributed, "
+            "merge_spmv_tpu_torch.parallel.mp_worker, "
+            "merge_spmv_tpu_torch.bench.headline; "
             "from merge_spmv_tpu_torch.utils.cuda_build import _LOADED; "
             "assert not _LOADED, _LOADED; "
             "bad = [m for m in sys.modules if m == 'jax' "

@@ -1,7 +1,9 @@
 """The CUDA kernels (merge path, DIA, the op-class probe) against their
 plain PyTorch versions, on the card, and the operators built on them (the
-split and hot/cold operators, the device split builder, the autotuner).  Every test needs an NVIDIA GPU with nvcc and skips without one;
-run them there with
+split and hot/cold operators, the device split builder, the autotuner),
+the solvers' CUDA-graph blocks and two gloo ranks sharing the card.
+Every test needs an NVIDIA GPU with nvcc and skips without one; run them
+there with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -862,3 +864,121 @@ def test_gather_rate_kernel_vs_plain(card, count, blocks):
     torch.cuda.synchronize()
     assert GR.LAUNCHES == {"gather_rate": 1}
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------ solvers
+
+def _laplacian(width):
+    """L = D - A + I of the width x width grid (tests/test_solvers.py:17),
+    built without densifying."""
+    coo = CooMatrix.grid2d(width)
+    n = coo.num_rows
+    deg = np.bincount(coo.rows, minlength=n).astype(np.float64)
+    rows = np.r_[coo.rows, np.arange(n)]
+    cols = np.r_[coo.cols, np.arange(n)]
+    vals = np.r_[-np.ones(coo.rows.size), deg + 1.0]
+    return CsrMatrix.from_coo(CooMatrix(n, n, rows, cols, vals)).astype(
+        np.float32)
+
+
+def _ring_pagerank(n):
+    """Column-stochastic P of a banded link graph (i -> i+1, i-1, i+3):
+    its diagonals take the DIA operator."""
+    src = np.r_[np.arange(n - 1), np.arange(1, n), np.arange(n - 3)]
+    dst = np.r_[np.arange(1, n), np.arange(n - 1), np.arange(3, n)]
+    out_deg = np.bincount(src, minlength=n).astype(np.float64)
+    return CsrMatrix.from_coo(CooMatrix(n, n, dst, src,
+                                        1.0 / out_deg[src])).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("kind", ["merge", "dia"])
+def test_solvers_graph_replay_equals_eager_loop(card, kind):
+    """CG and PageRank on the card: replaying the captured block of
+    masked iterations gives the bits of the uncaptured loop, whatever
+    the block size, and the answers hold against NumPy."""
+    from merge_spmv_tpu_torch.models.solvers import (conjugate_gradient,
+                                                     pagerank)
+    build = build_operator if kind == "merge" else build_dia_operator
+    lap = _laplacian(30)
+    op = build(lap)
+    if kind == "dia":
+        assert op.rest_op is None and op.offsets.size == 5
+    b = np.random.RandomState(0).uniform(-1, 1, lap.num_rows).astype(
+        np.float32)
+    runs = [conjugate_gradient(op, b, tol=1e-6, maxiter=500, check_every=c,
+                               graph=g)
+            for c, g in ((4, False), (4, True), (16, True), (1, True))]
+    x0, i0 = runs[0]
+    for x, info in runs[1:]:
+        assert int(info.iterations) == int(i0.iterations) > 4
+        assert torch.equal(x, x0) and torch.equal(info.residual, i0.residual)
+    assert i0.step_ms is None and runs[1][1].step_ms > 0
+    dense = np.zeros((lap.num_rows,) * 2)
+    np.add.at(dense, (lap.row_ids(), lap.col_indices), lap.values)
+    want = np.linalg.solve(dense, b.astype(np.float64))
+    np.testing.assert_allclose(x0.cpu().numpy(), want, rtol=2e-3, atol=2e-3)
+
+    P = _ring_pagerank(3000)
+    op_p = build(P)
+    if kind == "dia":
+        assert op_p.rest_op is None
+    runs = [pagerank(op_p, tol=1e-7, maxiter=300, check_every=c, graph=g)
+            for c, g in ((8, False), (8, True), (32, True))]
+    pr0, i0 = runs[0]
+    for pr, info in runs[1:]:
+        assert int(info.iterations) == int(i0.iterations)
+        assert torch.equal(pr, pr0)
+    assert abs(float(pr0.double().sum()) - 1.0) < 1e-4
+
+
+def test_solver_launches_and_reads(card):
+    """One K1 launch per CG iteration and per eager block of the loop;
+    the host reads the flag once per block."""
+    from merge_spmv_tpu_torch.models.solvers import conjugate_gradient
+    lap = _laplacian(20)
+    op = build_operator(lap)
+    b = np.ones(lap.num_rows, np.float32)
+    K.reset_launches()
+    _, info = conjugate_gradient(op, b, tol=1e-6, maxiter=500, check_every=5,
+                                 graph=False)
+    torch.cuda.synchronize()
+    it = int(info.iterations)
+    assert info.host_reads == -(-it // 5)
+    assert K.LAUNCHES["merge_tile_fused"] == 1 + 5 * info.host_reads
+
+
+# ------------------------------------------------------------ multi-process
+
+def test_two_process_gloo_worker_on_the_card(card):
+    """Two ranks of merge_spmv_tpu_torch.parallel.mp_worker on cuda:0 with
+    gloo (the exchanges staged through the host): both verify their
+    windows and print PASS."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "merge_spmv_tpu_torch.parallel.mp_worker",
+         str(r), "2", str(port), "--device", "cuda"], cwd=repo, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=180)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out
+        assert f"PASS rank={r} world=2 device=cuda" in out, out
