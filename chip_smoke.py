@@ -135,6 +135,20 @@ Phases, one line of output each (any failure exits non-zero and prints no
              bounds (operations; shared memory, warp shuffles or instruction
              issue where they bind), the plain version timed and compared at
              that size too.
+   ingest  — the circuit5M class at the headline's quarter scale
+             (14,178,457 nonzeros) written as .mtx by the native writer,
+             parsed by the native library (csrc/market_io.cpp, built by g++)
+             and by NumPy, and turned into CSR both ways: the arrays
+             bit-equal, the four host times and the file's size; fails if
+             the native library is unavailable.
+   corpus  — the 25 files of the mini corpus (tools/make_corpus.py) and one
+             full-size matrix per generator family of the stats corpus
+             (CORPUS_FULL, tools/make_corpus_stats.py) through
+             tools/eval_corpus.py with the merge (K1) and xla (cuSPARSE)
+             backends, one CLI process per file, every row verified against
+             gold; each row's policy, K1 launches and both times, and
+             tools/corpus_stats.py's statistics; fails on any ERROR,
+             TIMEOUT or FAIL row.
 14. the kernels line, nvidia-smi's name and power limit, and the last line.
 """
 
@@ -176,6 +190,15 @@ POWER_TOL, POWER_MAXITER = 1e-7, 5000
 PAGERANK_TOL, PAGERANK_L1_MAX = 1e-6, 1e-4
 LONG_ROW_NNZ = 4_000_000  # tests/test_fp64_audit.py:70
 WORKER_TIMEOUT_S = 600
+# the corpus phase: one full-size matrix per generator family of the stats
+# corpus (tools/make_corpus_stats.py), CoV 0 to the wheel, banded to global
+# scatter, beside the 25 files of the mini corpus (tools/make_corpus.py)
+CORPUS_FULL = ("grid2d_500", "grid3d_64", "banded_n256k_bw4096_d9",
+               "plaw_n256k_a1p2", "plaw_n256k_a3p0", "uspread_262144",
+               "wheel_1m", "dense_1000", "tridiag_512k", "hub_1024_f6",
+               "tall_512k_x_4k", "wide_1k_x_512k", "empties_n1m_p146k",
+               "blocks_4096", "kron_like_1m", "uglobal_512k")
+CORPUS_FILES = 25 + len(CORPUS_FULL)
 
 
 class MergeDirect:
@@ -502,7 +525,10 @@ def main() -> int:
     import numpy as np
 
     from merge_spmv_tpu_torch.bench.driver import run_benchmark
-    from merge_spmv_tpu_torch.bench.headline import HEADLINE_KEYS
+    from merge_spmv_tpu_torch.bench.headline import (CIRCUIT_QUARTER,
+                                                     HEADLINE_KEYS)
+    from merge_spmv_tpu_torch.formats import market as MK
+    from merge_spmv_tpu_torch.formats import native_io as NI
     from merge_spmv_tpu_torch.bench.matrices import make_circuit_like, rmat
     from merge_spmv_tpu_torch.formats.coo import CooMatrix
     from merge_spmv_tpu_torch.formats.csr import CsrMatrix
@@ -516,7 +542,10 @@ def main() -> int:
     from merge_spmv_tpu_torch.ops.operator import build_operator
     from merge_spmv_tpu_torch.ops.plan import DEFAULT_TILE_ITEMS, POLICIES
     from merge_spmv_tpu_torch.ops.suggest import build_suggested, suggest_backend
+    from merge_spmv_tpu_torch.tools import eval_corpus as EC
     from merge_spmv_tpu_torch.tools import gather_rate as GR
+    from merge_spmv_tpu_torch.tools import make_corpus as MC
+    from merge_spmv_tpu_torch.tools import make_corpus_stats as MS
     from merge_spmv_tpu_torch.tools import sm_ceiling as P
     from merge_spmv_tpu_torch.utils.compare import compare_results
     from merge_spmv_tpu_torch.utils.cuda_build import (build_library,
@@ -1930,6 +1959,113 @@ def main() -> int:
               f"{r['max_abs_err']:.3e} ok={r['ok']}")
     if (not all(rates[c]["ok"] for c in P.CLASSES)
             or min(probe_launches.values()) < 1):
+        return 1
+
+    # ------------------------------------------------------------ ingest
+    # one full-size .mtx (the circuit5M class at the headline's quarter
+    # scale) written, parsed and turned into CSR by the native library and
+    # by NumPy: bit-equal arrays, the four host times
+    t_phase = time.perf_counter()
+    if not NI.available():
+        print(f"ingest: the native host library is unavailable: "
+              f"{NI.build_error()}")
+        return 1
+    nq, nnzq = CIRCUIT_QUARTER
+    r_q, c_q, v_q = make_circuit_like(nq, nnzq)
+    with tempfile.TemporaryDirectory() as ingest_dir:
+        path_q = os.path.join(ingest_dir, "circuit_quarter.mtx")
+        t0 = time.perf_counter()
+        MK.write_market(path_q, nq, nq, r_q, c_q, v_q)
+        write_s = time.perf_counter() - t0
+        size_q = os.path.getsize(path_q)
+        t0 = time.perf_counter()
+        got_q = NI.read_market(path_q)
+        parse_native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want_q = MK.read_market(path_q)
+        parse_numpy_s = time.perf_counter() - t0
+    # a general file: the same entry order both ways, so equal as they
+    # stand (and so after a (row, col) lexsort); values bit-equal
+    parse_same = (got_q[:2] == want_q[:2] == (nq, nq) and all(
+        a.dtype == b.dtype and np.array_equal(a, b)
+        for a, b in zip(got_q[2:], want_q[2:])))
+    parse_same = parse_same and np.array_equal(got_q[4].view(np.int64),
+                                               want_q[4].view(np.int64))
+    written_same = (np.array_equal(got_q[2], r_q) and np.array_equal(
+        got_q[3], c_q) and np.array_equal(got_q[4], v_q))
+    del want_q
+    coo_q = CooMatrix(nq, nq, got_q[2], got_q[3], got_q[4])
+    t0 = time.perf_counter()
+    csr_nat = CsrMatrix.from_coo(coo_q, use_native=True)
+    csr_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csr_np = CsrMatrix.from_coo(coo_q, use_native=False)
+    csr_numpy_s = time.perf_counter() - t0
+    csr_same = all(np.array_equal(getattr(csr_nat, k), getattr(csr_np, k))
+                   for k in ("row_offsets", "col_indices", "values"))
+    print(f"ingest: circuit5M class quarter ({nq} rows, {len(v_q)} nnz), "
+          f"{size_q} B .mtx written natively in {write_s:.2f} s; parse "
+          f"native {parse_native_s:.2f} s, NumPy {parse_numpy_s:.2f} s "
+          f"({parse_numpy_s / parse_native_s:.1f}x), arrays bit-equal "
+          f"{parse_same}, equal to the generated ones {written_same}; "
+          f"from_coo native {csr_native_s:.2f} s, NumPy {csr_numpy_s:.2f} s "
+          f"({csr_numpy_s / csr_native_s:.1f}x), arrays equal {csr_same}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del r_q, c_q, v_q, got_q, coo_q, csr_nat, csr_np
+    if not (parse_same and written_same and csr_same):
+        return 1
+
+    # ------------------------------------------------------------ corpus
+    # the mini corpus and one full-size matrix per generator family of the
+    # stats corpus through tools/eval_corpus.py (one CLI process per file,
+    # merge = K1 and xla = cuSPARSE), then tools/corpus_stats.py
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()   # the rows' processes share the card
+    with tempfile.TemporaryDirectory() as corpus_dir:
+        mtx_dir = os.path.join(corpus_dir, "mtx")
+        with contextlib.redirect_stdout(io.StringIO()):
+            MC.main([mtx_dir])
+            MS.main([mtx_dir, "--only", ",".join(CORPUS_FULL)])
+        gen_s = time.perf_counter() - t_phase
+        csv_path = os.path.join(corpus_dir, "corpus.csv")
+        stats_out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stats_out):
+            EC.main([mtx_dir, "--out", csv_path, "--backends=merge,xla",
+                     "--timeout", "300"])
+        sweep_s = time.perf_counter() - t0
+        with open(csv_path) as f:
+            csv_lines = f.read().splitlines()
+        with open(os.path.join(corpus_dir, "CORPUS_STATS.json")) as f:
+            corpus_rec = json.load(f)["corpus.csv"]
+    names_c = [ln.split(",")[0].strip() for ln in csv_lines
+               if ln and not ln.startswith(("dataset", "#"))]
+    bad_rows = [ln.split(",")[0] for ln in csv_lines
+                if any(t in ln for t in ("ERROR", "TIMEOUT", "FAIL"))
+                or (not ln.startswith(("dataset", "#"))
+                    and "Merge CsrMV (CUDA)" not in ln)]
+    corpus_k1 = 0
+    for ln in csv_lines:
+        parts = [q.strip() for q in ln.split(",")]
+        tail = dict(q.split("=", 1) for q in parts[9:] if "=" in q)
+        corpus_k1 += int(tail.get("k1_launches", 0))
+        if len(parts) >= 19 and not ln.startswith("dataset"):
+            print(f"corpus row {parts[0]}: nnz {parts[4]}, CoV {parts[7]}, "
+                  f"{tail.get('merge_policy')}, K1 {tail.get('k1_launches')} "
+                  f"launches; {parts[9]} {parts[11]} ms, {parts[14]} "
+                  f"{parts[16]} ms")
+    for ln in stats_out.getvalue().splitlines():
+        if not ln.startswith("wrote "):
+            print(f"corpus stats: {ln}")
+    paths["corpus"] = corpus_k1
+    ok_c = (not bad_rows and len(names_c) == CORPUS_FILES and corpus_k1 > 0
+            and "merge_vs_library" in corpus_rec)
+    print(f"corpus: {len(names_c)} rows ({CORPUS_FILES} files: 25 mini, "
+          f"{len(CORPUS_FULL)} full-size), generated and written in "
+          f"{gen_s:.1f} s, swept in {sweep_s:.1f} s; K1 launches "
+          f"{corpus_k1}; rows at fault: {bad_rows or 'none'}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not ok_c:
         return 1
 
     # ------------------------------------------------------------ 14 report

@@ -3,8 +3,10 @@ PyTorch and CUDA for one NVIDIA H100.
 
 The port of merge_spmv_tpu (JAX / Pallas on a TPU), module for module:
 
-* formats/ — COO/CSR containers, Matrix Market ingest, generators, graph
-  statistics and the sequential gold SpMV (NumPy, on the host),
+* formats/ — COO/CSR containers, Matrix Market ingest (NumPy, and the
+  C++ parser, COO->CSR sort and writer of csrc/market_io.cpp through
+  native_io, built by g++ at first use), generators, graph statistics and
+  the sequential gold SpMV (on the host),
 * ops/ — the merge-path search, the plan, the segment-sum oracle
   (csrmv_torch), the CUDA merge kernels and their plain versions
   (csrmv_cuda, csrc/merge_csrmv.cu), the public csrmv/csrmm API and the
@@ -14,13 +16,16 @@ The port of merge_spmv_tpu (JAX / Pallas on a TPU), module for module:
   (autotune),
 * bench/ and cli.py — the verify-then-time benchmark driver and its CLI,
   and the large-matrix generators (bench/matrices.py),
-* tools/ — the op-class throughput probe (sm_ceiling, csrc/sm_ceiling.cu),
-* utils/ — the ULP comparator, host RNG helpers, device table, kernel
-  build and timers on the card.
+* tools/ — the op-class throughput probe (sm_ceiling, csrc/sm_ceiling.cu)
+  and the corpus sweep (make_corpus, make_corpus_stats, eval_corpus,
+  corpus_stats: the paper's Fig. 9 statistics),
+* utils/ — the ULP comparator, host RNG helpers, device table, kernel and
+  host-library builds, the warm heap (hostmem) and timers on the card.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Nothing here imports jax or merge_spmv_tpu, and importing the package
-compiles nothing: the kernels are built by nvcc at first launch.
+compiles nothing: the kernels are built by nvcc at first launch, the host
+library by g++ at first use.
 """
 
 from merge_spmv_tpu_torch.formats.coo import CooMatrix

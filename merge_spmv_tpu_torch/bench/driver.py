@@ -5,7 +5,10 @@ Per run: generate or ingest → CSR + stats + histogram → gold SpMV → for ea
 backend: one verification call through the public ``op(x, y_in, alpha,
 beta)`` (PASS/FAIL against gold with the ``spmv_abs_bound`` backward-error
 bound), then timed calls, and a perf line with GFLOP/s, effective GB/s and
-% of the card's HBM peak.  ``--quiet`` switches to CSV fragments.
+% of the card's HBM peak.  ``--quiet`` switches to CSV fragments: the
+statistics, one five-field group per backend, then ``merge_policy=<p>``
+and ``k1_launches=<n>`` (the merge backend's) and, where a backend failed
+verification, ``FAIL=<backends>``.
 
 Backends:
   merge   — the merge-path CUDA kernels (ops/operator.py); ``--autotune``
@@ -40,6 +43,7 @@ import torch
 
 from merge_spmv_tpu_torch.formats.coo import CooMatrix
 from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+from merge_spmv_tpu_torch.ops import csrmv_cuda
 from merge_spmv_tpu_torch.ops.dia import build_dia_operator
 from merge_spmv_tpu_torch.ops.operator import build_operator
 from merge_spmv_tpu_torch.ops.split import (build_hotcold_operator,
@@ -57,12 +61,14 @@ DEVICE_BACKENDS = ("merge", "xla", "split", "hotcold", "dia")
 
 
 class BackendResult:
-    def __init__(self, name, avg_ms, setup_ms, verified, error_index=None):
+    def __init__(self, name, avg_ms, setup_ms, verified, error_index=None,
+                 policy=None):
         self.name = name
         self.avg_ms = avg_ms
         self.setup_ms = setup_ms
         self.verified = verified
         self.error_index = error_index
+        self.policy = policy   # the merge plan's gather policy
 
 
 def build_matrix(args) -> CsrMatrix:
@@ -235,7 +241,8 @@ def _bench_device_backend(backend, csr, x, gold, args, abs_bound=None):
     else:
         avg_ms = chained_rate_ms(op, xd, n=max(16, min(iters, 256)),
                                  y_in=y_in, beta=beta)
-    return BackendResult(backend, avg_ms, setup_ms, idx is None, idx)
+    policy = op.plan.policy if backend == "merge" else None
+    return BackendResult(backend, avg_ms, setup_ms, idx is None, idx, policy)
 
 
 def _bench_scipy(csr, x, gold, args, abs_bound=None):
@@ -352,6 +359,7 @@ def run_benchmark(args) -> dict:
             print(f"\n{_display_name(backend, on_card)}, ", end="", flush=True)
         else:
             print(f"{_display_name(backend, on_card)}, ", end="", flush=True)
+        k1_before = csrmv_cuda.LAUNCHES["merge_tile_fused"]
         if backend in DEVICE_BACKENDS:
             r = _bench_device_backend(backend, csr, x, gold, args, abs_bound)
         elif backend == "scipy":
@@ -367,6 +375,26 @@ def run_benchmark(args) -> dict:
             backend, r.setup_ms, r.avg_ms, csr, vb, quiet=quiet,
             peak_gbps=peak if backend in DEVICE_BACKENDS else None)
         results[backend]["verified"] = r.verified
+        if r.policy is not None:
+            results[backend]["policy"] = r.policy
+        if backend == "merge":
+            # the fused tile kernel's launches by its wrapper: each call,
+            # those captured into a CUDA graph included; replays launch
+            # without the wrapper
+            results[backend]["k1_launches"] = (
+                csrmv_cuda.LAUNCHES["merge_tile_fused"] - k1_before)
+    if quiet:
+        # trailing fields, fewer than a backend group's five, so a reader
+        # of the groups passes over them: the merge plan's gather policy,
+        # its K1 launches and the backends whose result failed
+        # verification
+        if "merge" in results:
+            m = results["merge"]
+            print(f"merge_policy={m['policy']}, "
+                  f"k1_launches={m['k1_launches']}, ", end="")
+        failed = [b for b, r in results.items() if not r["verified"]]
+        if failed:
+            print(f"FAIL={'+'.join(failed)}, ", end="")
     print()
     return results
 
@@ -378,9 +406,10 @@ def _display_name(backend, on_card: bool = True):
              "hotcold": "Hot/cold-split CsrMV",
              "dia": "DIA-split CsrMV (CUDA)"}
     if not on_card:
-        names.update({"merge": "Merge CsrMV (plain, CPU)",
+        # no commas: the names are fields of --quiet's CSV rows
+        names.update({"merge": "Merge CsrMV (plain on CPU)",
                       "xla": "torch.sparse CsrMV (CPU)",
-                      "split": "Banded-split CsrMV (stacked, plain, CPU)",
-                      "hotcold": "Hot/cold-split CsrMV (plain, CPU)",
-                      "dia": "DIA-split CsrMV (plain, CPU)"})
+                      "split": "Banded-split CsrMV (stacked; plain on CPU)",
+                      "hotcold": "Hot/cold-split CsrMV (plain on CPU)",
+                      "dia": "DIA-split CsrMV (plain on CPU)"})
     return names.get(backend, backend)

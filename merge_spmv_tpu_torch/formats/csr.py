@@ -66,8 +66,21 @@ class CsrMatrix:
     def from_coo(cls, coo: CooMatrix, use_native: bool = True):
         """Build CSR from COO via stable (row, col) sort + searchsorted
         offsets — the vectorized equivalent of sparse_matrix.h:666-728.
-        ``use_native`` (the TPU package's C++ switch) is accepted and
-        ignored: the NumPy path gives the same arrays."""
+
+        With ``use_native`` and at least 2^16 nonzeros, the C++ parallel
+        stable sort (csrc/market_io.cpp) builds the same arrays; NumPy
+        runs where the library is unavailable, for non-float values and
+        for row ids outside [0, num_rows).
+        """
+        if (use_native and coo.num_nonzeros >= (1 << 16)
+                and coo.vals.dtype.kind == "f" and coo.vals.itemsize <= 8
+                and int(coo.rows.min()) >= 0
+                and int(coo.rows.max()) < coo.num_rows):
+            from merge_spmv_tpu_torch.formats import native_io
+            if native_io.available():
+                ro, ci, vals = native_io.coo_to_csr(
+                    coo.num_rows, coo.rows, coo.cols, coo.vals)
+                return cls(coo.num_rows, coo.num_cols, ro, ci, vals)
         order = np.lexsort((coo.cols, coo.rows))  # stable: row major, col minor
         rows_sorted = coo.rows[order]
         col_indices = coo.cols[order]

@@ -12,7 +12,9 @@ Behavioral parity with the reference parser (sparse_matrix.h:217-380):
 * ``array`` banners are dense column-major value lists.
 
 The implementation is vectorized NumPy (token-split of the whole payload)
-rather than a per-line scalar loop.
+rather than a per-line scalar loop; a C++ fast path of the parser and the
+writer lives in csrc/market_io.cpp (formats/native_io.py), used by
+CooMatrix.from_market and write_market where it builds.
 """
 
 from __future__ import annotations
@@ -170,13 +172,24 @@ def _expand_symmetry(header, rows, cols, vals, index_dtype):
 
 def write_market(path: str, num_rows: int, num_cols: int, rows, cols, vals,
                  comment: str = "generated by merge_spmv_tpu_torch"):
-    """Write a general real coordinate .mtx file (round-trip/testing aid)."""
+    """Write a general real coordinate .mtx file (round-trip/testing aid).
+
+    Each entry is ``f"{r + 1} {c + 1} {float(v)!r}"``.  The C++ writer
+    produces the same bytes in parallel (formats/native_io.py); the Python
+    loop runs where it is unavailable.
+    """
     rows = np.asarray(rows)
     cols = np.asarray(cols)
     vals = np.asarray(vals)
+    header = ("%%MatrixMarket matrix coordinate real general\n"
+              f"% {comment}\n"
+              f"{num_rows} {num_cols} {len(vals)}\n")
+    if (len(rows) == len(cols) == len(vals) and rows.dtype.kind in "iu" and cols.dtype.kind in "iu"
+            and vals.dtype.kind in "fiu"):
+        from merge_spmv_tpu_torch.formats import native_io
+        if native_io.write_market(path, header, rows, cols, vals):
+            return
     with open(path, "w") as f:
-        f.write("%%MatrixMarket matrix coordinate real general\n")
-        f.write(f"% {comment}\n")
-        f.write(f"{num_rows} {num_cols} {len(vals)}\n")
+        f.write(header)
         for r, c, v in zip(rows, cols, vals):
             f.write(f"{int(r) + 1} {int(c) + 1} {float(v)!r}\n")

@@ -1,1 +1,4 @@
-"""Measurement tools of the port (sm_ceiling.py: the op-class probe P1)."""
+"""Measurement tools of the port: the op-class probe P1 (sm_ceiling.py), the
+gather-rate probe, the tile ablation and tail mutants, and the corpus
+sweep (make_corpus.py, make_corpus_stats.py, eval_corpus.py,
+corpus_stats.py)."""

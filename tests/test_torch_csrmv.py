@@ -482,7 +482,8 @@ def test_twofloat_scan_is_exclusive_and_compensated():
 def test_package_imports_no_jax():
     """The port imports neither jax nor merge_spmv_tpu (a fresh
     interpreter, so this file's own imports do not count), and importing
-    every module of it compiles nothing."""
+    every module of it compiles nothing: no CUDA kernel library and no
+    host library (csrc/market_io.cpp) is built or loaded."""
     code = ("import sys, merge_spmv_tpu_torch, merge_spmv_tpu_torch.ops, "
             "merge_spmv_tpu_torch.ops.csrmv_cuda, "
             "merge_spmv_tpu_torch.ops.dia, merge_spmv_tpu_torch.ops.dia_cuda, "
@@ -497,9 +498,22 @@ def test_package_imports_no_jax():
             "merge_spmv_tpu_torch.parallel.partition, "
             "merge_spmv_tpu_torch.parallel.distributed, "
             "merge_spmv_tpu_torch.parallel.mp_worker, "
-            "merge_spmv_tpu_torch.bench.headline; "
+            "merge_spmv_tpu_torch.bench.headline, "
+            "merge_spmv_tpu_torch.formats.native_io, "
+            "merge_spmv_tpu_torch.utils.hostmem, "
+            "merge_spmv_tpu_torch.utils.host_build, "
+            "merge_spmv_tpu_torch.tools.make_corpus, "
+            "merge_spmv_tpu_torch.tools.make_corpus_stats, "
+            "merge_spmv_tpu_torch.tools.eval_corpus, "
+            "merge_spmv_tpu_torch.tools.corpus_stats; "
             "from merge_spmv_tpu_torch.utils.cuda_build import _LOADED; "
             "assert not _LOADED, _LOADED; "
+            "from merge_spmv_tpu_torch.utils.host_build import BUILT; "
+            "assert not BUILT, BUILT; "
+            "from merge_spmv_tpu_torch.formats import native_io; "
+            "assert native_io._LIB is None and not native_io._TRIED; "
+            "from merge_spmv_tpu_torch.utils import hostmem; "
+            "assert not hostmem._enabled; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'merge_spmv_tpu' "
             "or m.startswith('merge_spmv_tpu.')]; "

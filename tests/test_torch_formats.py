@@ -99,7 +99,8 @@ def test_market_parse_identical(name, tmp_path):
     path.write_text(MTX[name])
     j = jcoo.CooMatrix.from_market(str(path), default_value=7.0,
                                    use_native=False)
-    t = tcoo.CooMatrix.from_market(str(path), default_value=7.0)
+    t = tcoo.CooMatrix.from_market(str(path), default_value=7.0,
+                                   use_native=False)
     for field in ("rows", "cols", "vals"):
         np.testing.assert_array_equal(getattr(j, field), getattr(t, field))
     _same_csr(jcsr.CsrMatrix.from_market(str(path)),
