@@ -149,6 +149,23 @@ Phases, one line of output each (any failure exits non-zero and prints no
              gold; each row's policy, K1 launches and both times, and
              tools/corpus_stats.py's statistics; fails on any ERROR,
              TIMEOUT or FAIL row.
+   baseline — the north-star configurations that fit a smoke run, at
+             their published sizes, through the port's benchmark tools'
+             own functions (tools/bench_{baseline_configs,spmm,skew,
+             multichip}.py): cant_class in float64 (3,996,864 nonzeros),
+             webbase_1M_class, op.mm with k = 8 and 32 on the cant and
+             pdb1HYS classes, the skew trio at 2^20 x 8, bench_spmm on
+             grid3d(60) with k = 32 (K1 and K3), and weak scaling over
+             1, 2 and 4 gloo ranks sharing the card at 2^17 rows a rank.
+             Every matrix verified against gold before it is timed, beside
+             cuSPARSE; K1 on each SpMV config (and each SpMM matrix's
+             first column) also against its plain version within the
+             backward-error bound |A| |x| (bench/measure.py::card_spmv);
+             cant_class's float64 result, against gold and against the
+             plain version, also within 2 gamma_n |A| |x| per row
+             (bench/measure.py::fp64_bound).  Launches counted from 0
+             around the phase (the ranks' from their reports), and around
+             cant_class's own run for its kernels-line entry.
 14. the kernels line, nvidia-smi's name and power limit, and the last line.
 """
 
@@ -156,7 +173,6 @@ import contextlib
 import io
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -189,7 +205,6 @@ POWER_TOL, POWER_MAXITER = 1e-7, 5000
 # a float64 run of the same iterations at most 1e-4 of the total mass 1
 PAGERANK_TOL, PAGERANK_L1_MAX = 1e-6, 1e-4
 LONG_ROW_NNZ = 4_000_000  # tests/test_fp64_audit.py:70
-WORKER_TIMEOUT_S = 600
 # the corpus phase: one full-size matrix per generator family of the stats
 # corpus (tools/make_corpus_stats.py), CoV 0 to the wheel, banded to global
 # scatter, beside the 25 files of the mini corpus (tools/make_corpus.py)
@@ -462,59 +477,6 @@ def solver_line(rep, op_ms, check):
             f"{check}")
 
 
-def save_case(root, name, csr, x, meta):
-    """One case for parallel/mp_worker.py --cases: the CSR arrays and x
-    as .npy files, the shape and options as case.json."""
-    import numpy as np
-    d = os.path.join(root, name)
-    os.makedirs(d)
-    for arr, a in (("row_offsets", csr.row_offsets),
-                   ("col_indices", csr.col_indices),
-                   ("values", csr.values), ("x", x)):
-        np.save(os.path.join(d, f"{arr}.npy"), a)
-    with open(os.path.join(d, "case.json"), "w") as f:
-        json.dump({"num_rows": csr.num_rows, "num_cols": csr.num_cols,
-                   "alpha": 1.0, **meta}, f)
-
-
-def run_workers(world, cases_dir):
-    """``world`` ranks of parallel/mp_worker.py on the card over one gloo
-    group, each timing its cases: their PASS reports, or None and the
-    outputs.  Every worker is killed if it outlives WORKER_TIMEOUT_S."""
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO_DIR + os.pathsep + env.get("PYTHONPATH", "")
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "merge_spmv_tpu_torch.parallel.mp_worker",
-         str(r), str(world), str(port), "--device", "cuda", "--cases",
-         cases_dir, "--time"], cwd=REPO_DIR, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
-    except subprocess.TimeoutExpired:
-        outs.append("<timeout>")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    reports = []
-    for r, p in enumerate(procs):
-        head = f"PASS rank={r} world={world} device=cuda "
-        line = [ln for ln in (outs[r] if r < len(outs) else "").splitlines()
-                if ln.startswith(head)]
-        if p.returncode != 0 or len(line) != 1:
-            return None, outs
-        reports.append(json.loads(line[0][len(head):]))
-    return reports, outs
-
-
 def main() -> int:
     import torch
 
@@ -542,6 +504,11 @@ def main() -> int:
     from merge_spmv_tpu_torch.ops.operator import build_operator
     from merge_spmv_tpu_torch.ops.plan import DEFAULT_TILE_ITEMS, POLICIES
     from merge_spmv_tpu_torch.ops.suggest import build_suggested, suggest_backend
+    from merge_spmv_tpu_torch.parallel import mp_worker as MPW
+    from merge_spmv_tpu_torch.tools import bench_baseline_configs as BC
+    from merge_spmv_tpu_torch.tools import bench_multichip as MCB
+    from merge_spmv_tpu_torch.tools import bench_skew as SKB
+    from merge_spmv_tpu_torch.tools import bench_spmm as SPB
     from merge_spmv_tpu_torch.tools import eval_corpus as EC
     from merge_spmv_tpu_torch.tools import gather_rate as GR
     from merge_spmv_tpu_torch.tools import make_corpus as MC
@@ -1674,18 +1641,14 @@ def main() -> int:
         g3 = CsrMatrix.from_coo(CooMatrix.grid3d(100)).astype(np.float32)
         rd = np.random.RandomState(50)
         g3.values = rd.uniform(0.5, 1.5, g3.num_nonzeros).astype(np.float32)
-        save_case(cases_dir, "grid3d100", g3,
-                  rd.uniform(0.1, 1.0, g3.num_cols).astype(np.float32),
-                  {"prepared": True})
-        save_case(cases_dir, "circuit5M", circ, xc,
-                  {"prepared": True, "allow_halo_x": False})
+        MPW.save_case(cases_dir, "grid3d100", g3,
+                      rd.uniform(0.1, 1.0, g3.num_cols).astype(np.float32),
+                      {"prepared": True})
+        MPW.save_case(cases_dir, "circuit5M", circ, xc,
+                      {"prepared": True, "allow_halo_x": False})
         del g3
         write_s = time.perf_counter() - t_phase
-        dist_reps, outs = run_workers(2, cases_dir)
-    if dist_reps is None:
-        print("distributed: a worker failed:\n" + "\n".join(
-            o[-3000:] for o in outs))
-        return 1
+        dist_reps = MPW.spawn(2, cases_dir, "cuda")   # raises on a failure
     for name, mode in (("grid3d100", "halo"), ("circuit5M", "replicate")):
         for r, rep_ in enumerate(dist_reps):
             c = rep_[name]
@@ -2068,6 +2031,120 @@ def main() -> int:
     if not ok_c:
         return 1
 
+    # ------------------------------------------------------------ baseline
+    # the north-star configurations that fit a smoke run, through the
+    # benchmark tools' own functions, at their published sizes
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    DK.reset_launches()
+    entries = {}
+    cant64 = BC.cant_csr(np.float64)
+    before = K.LAUNCHES["merge_tile_fused"]
+    entries["cant_class"] = BC.run_csrmv(cant64, "float64", dev)
+    # less the one launch card_spmv holds against the plain version
+    cant_launches = K.LAUNCHES["merge_tile_fused"] - before - 1
+    del cant64
+    entries["webbase_1M_class"] = BC.run_csrmv(BC.webbase_1m_csr(),
+                                               "float32", dev)
+    entries.update(BC.run_spmm("cant", BC.cant_csr(np.float32), dev))
+    entries.update(BC.run_spmm("pdb1HYS", BC.pdb1hys_csr(), dev))
+    skew_b = SKB.run(1 << 20, 8, dev)
+    spmm_b = SPB.run(60, 32, dev)
+    torch.cuda.synchronize()
+    paths["baseline"] = K.LAUNCHES["merge_tile_fused"]
+    dia_launches["baseline_spmm"] = DK.LAUNCHES["dia_matvec"]
+    weak_b = MCB.run(1 << 17, (1, 2, 4), dev)
+    weak_ranks = [r for res in (weak_b["results"], weak_b["fixed_total_work"])
+                  for e in res.values() for r in e["ranks"]]
+    paths["weak_scaling_ranks"] = sum(r["k1_launches"] for r in weak_ranks)
+    for name, e in entries.items():
+        cus = e.get("cusparse_ms", e.get("cusparse_spmm_ms"))
+        k1 = (f"K1 {e['policy']} warm {e['k1_ms']} cold {e['k1_cold_ms']}"
+              f", bytes bound {e['bytes_bound_ms']:.4f} ms"
+              if "k1_ms" in e else
+              f"eager {e['eager_ms']:.4f}, X column-major "
+              f"{e['colmajor_ms']:.4f} (cuSPARSE "
+              f"{e['cusparse_spmm_colmajor_ms']:.4f}), SpMM bound "
+              f"{e['spmm_bound_ms']:.4f} ms (column loop "
+              f"{e['column_loop_bound_ms']:.4f}), column copies "
+              f"{e['column_copies_ms']:.4f}, stack {e['stack_ms']:.4f}")
+        print(f"baseline {name}: {e['rows']} rows {e['nnz']} nnz "
+              f"{e.get('dtype', 'float32')}, verified {e['verified']}; "
+              f"{e['avg_ms']:.4f} ms per call ({e['timing']}), cuSPARSE "
+              f"{cus:.4f}; {k1}")
+    for name, e in [(n, e.get("spmv_k1", e)) for n, e in entries.items()]:
+        if "plain_ok" in e:
+            fp64 = (f"; float64: |y - plain| at most "
+                    f"{e['plain_err_over_fp64_bound']:.3e} and |y - gold| "
+                    f"{e['gold_err_over_fp64_bound']:.3e} of 2 gamma_n "
+                    f"|A| |x|" if "plain_err_over_fp64_bound" in e else "")
+            print(f"baseline K1 at {name} vs its plain version: max|err| "
+                  f"{e['plain_max_abs_err']:.3e} ok={e['plain_ok']} (within "
+                  f"the backward-error bound |A| |x|{fp64}), plain "
+                  f"{e['plain_ms']:.2f} ms")
+    for label in ("uniform", "powerlaw", "wheel"):
+        e = skew_b[label]
+        print(f"baseline skew {label}: {e['nnz']} nnz CoV {e['row_cov']:.3f} "
+              f"{e['policy']}, verified {e['verified']}; op(x) "
+              f"{e['avg_ms']:.4f} ms, cuSPARSE {e['cusparse_ms']:.4f}")
+    print(f"baseline skew: powerlaw / uniform, the JAX tool's per-nnz "
+          f"formula (uniform ms / powerlaw ms) "
+          f"{skew_b['powerlaw_over_uniform_per_nnz']:.4f} (cuSPARSE "
+          f"{skew_b['cusparse_powerlaw_over_uniform_per_nnz']:.4f}); time "
+          f"per nonzero {skew_b['powerlaw_over_uniform_gflops']:.4f} "
+          f"(cuSPARSE "
+          f"{skew_b['cusparse_powerlaw_over_uniform_gflops']:.4f})")
+    for part in ("column_loop", "dia"):
+        e = spmm_b[part]
+        print(f"baseline bench_spmm grid3d(60) k=32 {part}: "
+              f"{e['avg_ms']:.4f} ms graph, {e['eager_ms']:.4f} eager, "
+              f"verified {e['verified']}, launches {e['launches']}")
+    print(f"baseline bench_spmm: cuSPARSE SpMM {spmm_b['cusparse_spmm_ms']:.4f}"
+          f" ms (X column-major {spmm_b['cusparse_spmm_colmajor_ms']:.4f}),"
+          f" column loop with X column-major "
+          f"{spmm_b['column_loop']['colmajor_ms']:.4f} ms, SpMM bound "
+          f"{spmm_b['spmm_bound_ms']:.4f} ms")
+    for S, e in weak_b["results"].items():
+        f = weak_b["fixed_total_work"][S]
+        print(f"baseline weak scaling S={S} (ranks share the card): "
+              f"{e['rows']} rows {e['nnz']} nnz {e['x_mode']}, verified "
+              f"{e['verified']}; call {e['avg_ms']:.3f} ms, local-only "
+              f"{e['local_only_ms']:.3f}, per-rank K1 "
+              f"{[round(r['k1_ms'], 4) for r in e['ranks']]}; fixed-total "
+              f"{f['avg_ms']:.3f} ms verified {f['verified']}")
+    base_ok = (all(e["verified"] and e.get("plain_ok", True)
+                   and e.get("spmv_k1", {}).get("plain_ok", True)
+                   for e in entries.values())
+               and all(skew_b[k]["verified"]
+                       for k in ("uniform", "powerlaw", "wheel"))
+               and spmm_b["column_loop"]["verified"]
+               and spmm_b["dia"]["verified"]
+               and spmm_b["dia"]["launches"]["dia_matvec"] == 32
+               and all(e["verified"] for part in (
+                   "results", "fixed_total_work", "prepared_vs_unprepared")
+                   for e in weak_b[part].values())
+               and entries["cant_class"]["k1_launches"] == 1
+               and "gold_err_over_fp64_bound" in entries["cant_class"]
+               and "plain_err_over_fp64_bound" in entries["cant_class"]
+               and cant_launches > 0
+               and paths["weak_scaling_ranks"] > 0)
+    print(f"baseline: K1 launches {paths['baseline']} (+ "
+          f"{paths['weak_scaling_ranks']} in the ranks), K3 "
+          f"{dia_launches['baseline_spmm']}; all verified {base_ok}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not base_ok:
+        return 1
+    cb = entries["cant_class"]
+    k1_b = {"name": "merge_tile_fused@cant_class_f64", "route": "cuda",
+            "source": "merge_spmv_tpu_torch/csrc/merge_csrmv.cu",
+            "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
+            "launches": cant_launches,
+            "max_abs_err": cb["plain_max_abs_err"],
+            "ms": cb["k1_ms"][cb["policy"]], "plain_ms": cb["plain_ms"],
+            "bound_ms": cb["bytes_bound_ms"], "bound_by": "bytes",
+            "library_ms": cb["cusparse_ms"], "main_path": True,
+            "policy": cb["policy"], "cold_ms": cb["k1_cold_ms"][cb["policy"]]}
+
     # ------------------------------------------------------------ 14 report
     # main_path: false marks the unfused instantiation and the separate
     # fix-up, which op(x) no longer launches (their launches are 0 there)
@@ -2101,9 +2178,11 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": dia_cusparse_ms,
          "main_path": True,
          "launches_by_path": {"main": dia_launches["dia_matvec"],
-                              "cg_dia": paths_sv["cg_dia"]["dia_matvec"]}},
+                              "cg_dia": paths_sv["cg_dia"]["dia_matvec"],
+                              "baseline_spmm":
+                                  dia_launches["baseline_spmm"]}},
     ]
-    kernels += [k1_c, k1_k]
+    kernels += [k1_c, k1_k, k1_b]
     kernels.append(
         {"name": "gather_rate", "route": "cuda",
          "source": "merge_spmv_tpu_torch/csrc/gather_rate.cu",

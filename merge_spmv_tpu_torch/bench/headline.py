@@ -49,7 +49,7 @@ from merge_spmv_tpu_torch.utils.compare import compare_results
 from merge_spmv_tpu_torch.utils.device import (device_info,
                                                measure_stream_bandwidth,
                                                resolve_device)
-from merge_spmv_tpu_torch.utils.timers import Timer, chained_rate_ms
+from merge_spmv_tpu_torch.utils.timers import op_rate_ms
 
 __all__ = ["HEADLINE_KEYS", "run", "main"]
 
@@ -71,31 +71,6 @@ K40_MS_PER_MNNZ = 6.92 / 56.7
 CIRCUIT_QUARTER = (1_389_581, 14_881_072)   # bench.py:245
 
 
-def _host_chain_ms(op, x, n=16, reps=3) -> float:
-    """The plain versions' time per op(x) by the host clock: a chain of n
-    dependent calls over n, minimum over repeats.  No 1-call chain is
-    taken off: on the CPU there is no dispatch cost to remove, and the
-    difference of two host times can come out negative on a busy host."""
-    norm = op.abs_row_sum_max
-    alpha = 1.0 / norm if norm > 0 else 1.0
-
-    def chain():
-        with Timer() as t:
-            xc = x
-            for _ in range(n):
-                xc = op(xc, alpha=alpha)
-        return t.elapsed_millis() / n
-
-    return min(chain() for _ in range(reps))
-
-
-def _rate_ms(op, x) -> float:
-    ms = (chained_rate_ms(op, x) if x.is_cuda else _host_chain_ms(op, x))
-    if not ms > 0:
-        raise RuntimeError(f"timer below resolution: {ms} ms")
-    return ms
-
-
 def _verified(op, csr, dev, what):
     """op(ones) against the gold SpMV; raises on a mismatch."""
     ones = np.ones(csr.num_cols, np.float32)
@@ -111,7 +86,7 @@ def _bench_csr(csr, dev):
     """Verify op(x) against gold, then time it: (ms, backend)."""
     op = build_operator(csr, dtype="float32", device=dev)
     x = _verified(op, csr, dev, "merge")
-    return _rate_ms(op, x), op.plan.backend
+    return op_rate_ms(op, x), op.plan.backend
 
 
 def run(device=None, grid_width: int = 100, skew_rows: int = 1 << 19,
@@ -154,7 +129,7 @@ def run(device=None, grid_width: int = 100, skew_rows: int = 1 << 19,
         raise RuntimeError(f"grid3d({grid_width}) did not split into pure "
                            f"diagonals: {dop.describe()}")
     xd = _verified(dop, csr, dev, "dia")
-    ms_d = _rate_ms(dop, xd)
+    ms_d = op_rate_ms(dop, xd)
     # DIA reads no indices: its bytes are the (D, m) table, x and y.  A
     # rate above the peak means the table stayed in cache across the
     # chain: then the steady-state model (x and y only), as bench.py says

@@ -21,13 +21,18 @@ one-shot call; optional ``allow_halo_x``).  The rank writes its window to
 ``y_<rank>.npy`` there, for the caller to assemble with
 ``materialize_y``.  Each case's report holds the rank's K1 launches
 (``k1_launches``: 0 on the CPU, where K1's plain version runs).
-``--time`` (on the card) adds the rank's K1 time (CUDA-graph replay of
-its local operator) and the whole call's eager time (the exchanges
-included) to each case's report.
+``--time`` adds to each case's report, by the host clock over ``calls``
+calls (case.json, default 20) that every rank makes together: the whole
+call eagerly from the rank's placed input (the exchanges included), its
+local SpMV alone, the carries' reduce-scatter alone, and the call from the
+global host x (its x block copied in per call); on the card also the
+rank's K1 time (CUDA-graph replay of its local operator).  A prepared
+case's report holds ``prepare_s``: partition, build and first call.
 
 ``--device`` defaults to the card; two ranks may share one card (gloo
 stages the exchanges through the host, so NCCL's one-rank-per-GPU rule
-does not apply).
+does not apply).  ``save_case`` writes a case directory and ``spawn``
+runs ``world`` ranks over one and returns their reports.
 """
 
 from __future__ import annotations
@@ -35,9 +40,16 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import socket
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
+
+REPO_DIR = Path(__file__).resolve().parents[2]
+SPAWN_TIMEOUT_S = 600
 
 
 def _parse(argv=None):
@@ -49,6 +61,61 @@ def _parse(argv=None):
     ap.add_argument("--cases", default=None)
     ap.add_argument("--time", action="store_true")
     return ap.parse_args(argv)
+
+
+def save_case(root, name, csr, x, meta):
+    """One case for ``--cases``: the CSR arrays and x as .npy files, the
+    shape and ``meta`` (``prepared``, ``allow_halo_x``, ``calls``) as
+    case.json; returns its directory."""
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    for arr, a in (("row_offsets", csr.row_offsets),
+                   ("col_indices", csr.col_indices),
+                   ("values", csr.values), ("x", x)):
+        np.save(os.path.join(d, f"{arr}.npy"), a)
+    with open(os.path.join(d, "case.json"), "w") as f:
+        json.dump({"num_rows": csr.num_rows, "num_cols": csr.num_cols,
+                   "alpha": 1.0, **meta}, f)
+    return d
+
+
+def spawn(world: int, cases_dir: str, device: str, env=None) -> list:
+    """``world`` ranks of this worker over one gloo group on a free local
+    port, each running and timing (``--time``) the cases of
+    ``cases_dir`` on ``device``: their reports, rank by rank.  Raises
+    with the ranks' output if one fails; every rank is killed if it
+    outlives SPAWN_TIMEOUT_S.  ``env`` adds to the ranks' environment."""
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    full_env = dict(os.environ, **(env or {}))
+    full_env["PYTHONPATH"] = (str(REPO_DIR) + os.pathsep
+                              + full_env.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "merge_spmv_tpu_torch.parallel.mp_worker",
+         str(r), str(world), str(port), "--device", device, "--cases",
+         cases_dir, "--time"], cwd=str(REPO_DIR), env=full_env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SPAWN_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        head = f"PASS rank={r} world={world} "
+        line = [ln for ln in out.splitlines() if ln.startswith(head)]
+        if p.returncode != 0 or len(line) != 1:
+            raise RuntimeError(f"rank {r} of {world} failed:\n"
+                               + "\n".join(o[-3000:] for o in outs))
+        reports.append(json.loads(line[0].split(" ", 4)[4]))
+    return reports
 
 
 def _default_case():
@@ -99,6 +166,9 @@ def _run_case(csr, x, meta, rank, world, device, timed):
     if meta.get("prepared", False):
         op = PreparedDistributedCsrmv(part, alpha=alpha, device=device)
         y = op(x)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        report["prepare_s"] = time.perf_counter() - t0
         y2 = op(x)
         if not torch.equal(y, y2):
             raise AssertionError(f"rank {rank}: repeated calls differ")
@@ -122,40 +192,49 @@ def _run_case(csr, x, meta, rank, world, device, timed):
     report["rows_checked"] = max(r1 - r0, 0)
     if timed:
         report.update(_timings(op or PreparedDistributedCsrmv(
-            part, alpha=alpha, device=device), x))
+            part, alpha=alpha, device=device), x, int(meta.get("calls", 20))))
     return window, report
 
 
 def _timings(op, x, calls=20):
-    """The rank's K1 time (CUDA-graph replay of its local operator), and
-    by the host clock over ``calls`` calls that every rank makes together:
-    the whole call eagerly, the exchanges included, its local SpMV alone,
-    each waited for, and the carries' reduce-scatter alone."""
+    """By the host clock over ``calls`` calls that every rank makes
+    together, each waited for: the whole call eagerly from the placed
+    input, the exchanges included; its local SpMV alone; the carries'
+    reduce-scatter alone; the call from the global host x.  On the card
+    also the rank's K1 time (CUDA-graph replay of its local operator)."""
     import torch
     import torch.distributed as dist
 
     from merge_spmv_tpu_torch.parallel.distributed import _reduce_scatter
     from merge_spmv_tpu_torch.utils.timers import Timer, chained_rate_ms
 
+    on_card = op.device.type == "cuda"
     x_in = op.x_block(x)
     x_loc = op._halo_x(x_in) if op.part.x_mode == "halo" else x_in
-    k1_ms = chained_rate_ms(op.op, x_loc)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(op.device)
 
     def per_call(fn):
         for _ in range(3):
             fn()
-        torch.cuda.synchronize()
+        sync()
         dist.barrier()
         with Timer() as t:
             for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
+            sync()
         return t.elapsed_millis() / calls
 
-    return {"k1_ms": k1_ms, "call_ms": per_call(lambda: op.apply(x_in)),
-            "local_ms": per_call(lambda: op.local(x_loc)),
-            "carry_ms": per_call(lambda: _reduce_scatter(
-                op._received, op._routed, op.group))}
+    times = {"call_ms": per_call(lambda: op.apply(x_in)),
+             "local_ms": per_call(lambda: op.local(x_loc)),
+             "carry_ms": per_call(lambda: _reduce_scatter(
+                 op._received, op._routed, op.group)),
+             "unprepared_ms": per_call(lambda: op(x))}
+    if on_card:
+        times["k1_ms"] = chained_rate_ms(op.op, x_loc)
+    return times
 
 
 def main(argv=None) -> int:

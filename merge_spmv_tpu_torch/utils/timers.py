@@ -22,7 +22,8 @@ import time
 import torch
 
 __all__ = ["chained_rate_ms", "chain_alpha", "event_ms", "Timer",
-           "adaptive_timing_iterations"]
+           "adaptive_timing_iterations", "host_chain_ms", "op_rate_ms",
+           "host_ms"]
 
 
 class Timer:
@@ -152,3 +153,45 @@ def event_ms(fn, iters: int = 50, reps: int = 3, warmup: int = 3,
 
     run = _runner(body, graph)
     return min(_timed(run) for _ in range(reps)) / iters
+
+
+def host_chain_ms(op, x, n: int = 16, reps: int = 3) -> float:
+    """The plain versions' time per op(x) by the host clock: a chain of n
+    dependent calls (scaled as ``chained_rate_ms`` scales them) over n,
+    minimum over repeats.  No 1-call chain is taken off: on the CPU there
+    is no dispatch cost to remove, and the difference of two host times
+    can come out negative on a busy host."""
+    alpha = chain_alpha(op) if op.shape[0] == op.shape[1] else 1.0
+
+    def chain():
+        with Timer() as t:
+            xc = x
+            for _ in range(n):
+                y = op(xc, alpha=alpha)
+                xc = y if op.shape[0] == op.shape[1] else xc
+        return t.elapsed_millis() / n
+
+    return min(chain() for _ in range(reps))
+
+
+def op_rate_ms(op, x) -> float:
+    """Milliseconds per op(x): ``chained_rate_ms`` on the card (the
+    device's time), ``host_chain_ms`` on the CPU (the plain versions');
+    raises on a time that is not positive."""
+    ms = chained_rate_ms(op, x) if x.is_cuda else host_chain_ms(op, x)
+    if not ms > 0:
+        raise RuntimeError(f"timer below resolution: {ms} ms")
+    return ms
+
+
+def host_ms(fn, iters: int = 3, reps: int = 3) -> float:
+    """Milliseconds per ``fn()`` by the host clock, minimum over ``reps``
+    runs of ``iters`` calls: the CPU's counterpart of ``event_ms``."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        with Timer() as t:
+            for _ in range(iters):
+                fn()
+        best = min(best, t.elapsed_millis() / iters)
+    return best

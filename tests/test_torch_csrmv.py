@@ -505,7 +505,12 @@ def test_package_imports_no_jax():
             "merge_spmv_tpu_torch.tools.make_corpus, "
             "merge_spmv_tpu_torch.tools.make_corpus_stats, "
             "merge_spmv_tpu_torch.tools.eval_corpus, "
-            "merge_spmv_tpu_torch.tools.corpus_stats; "
+            "merge_spmv_tpu_torch.tools.corpus_stats, "
+            "merge_spmv_tpu_torch.bench.measure, "
+            "merge_spmv_tpu_torch.tools.bench_baseline_configs, "
+            "merge_spmv_tpu_torch.tools.bench_spmm, "
+            "merge_spmv_tpu_torch.tools.bench_skew, "
+            "merge_spmv_tpu_torch.tools.bench_multichip; "
             "from merge_spmv_tpu_torch.utils.cuda_build import _LOADED; "
             "assert not _LOADED, _LOADED; "
             "from merge_spmv_tpu_torch.utils.host_build import BUILT; "

@@ -1,7 +1,9 @@
 """The CUDA kernels (merge path, DIA, the op-class probe) against their
 plain PyTorch versions, on the card, and the operators built on them (the
 split and hot/cold operators, the device split builder, the autotuner),
-the solvers' CUDA-graph blocks and two gloo ranks sharing the card.
+the solvers' CUDA-graph blocks, two gloo ranks sharing the card, and two
+north-star configurations at full size (cant_class in float64, SpMM on
+the pdb1HYS class) against gold and cuSPARSE.
 Every test needs an NVIDIA GPU with nvcc and skips without one; run them
 there with
 
@@ -982,3 +984,60 @@ def test_two_process_gloo_worker_on_the_card(card):
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, out
         assert f"PASS rank={r} world=2 device=cuda" in out, out
+
+
+# ------------------------------------------------------------ north-star configs
+
+def test_cant_class_float64_against_gold_and_cusparse(card):
+    """cant_class at its published size (62,451 rows, 3,996,864 nonzeros,
+    float64; tools/bench_baseline_configs.py) through op(x), one K1
+    launch: against the gold SpMV (backward-error bound) and against
+    cuSPARSE's float64 product.  Two float64 sums of a row's 64 terms in
+    any orders each lie within gamma_64 |A| |x| of the exact sum, so they
+    differ by at most 2 gamma_64 |A| |x| per row."""
+    from merge_spmv_tpu_torch.bench.measure import library_csr
+    from merge_spmv_tpu_torch.tools import bench_baseline_configs as BC
+
+    csr = BC.cant_csr(np.float64)
+    assert (csr.num_rows, csr.num_nonzeros) == (62451, 3_996_864)
+    x = np.random.RandomState(1).uniform(0.5, 1.5, csr.num_cols)
+    op = build_operator(csr, dtype="float64", device=card)
+    xd = torch.from_numpy(x).to(card)
+    K.reset_launches()
+    y = op(xd)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["merge_tile_fused"] == 1
+    assert y.dtype == torch.float64
+    abs_bound = csr.spmv_abs_bound(x, segmented_block=0)
+    assert compare_results(y.cpu().numpy(), csr.spmv_gold(x), verbose=False,
+                           abs_bound=csr.spmv_abs_bound(x)) is None
+    lib = torch.mv(library_csr(op), xd).cpu().numpy()
+    n = 64
+    gamma = n * 2.0 ** -53 / (1 - n * 2.0 ** -53)
+    assert np.all(np.abs(y.cpu().numpy() - lib) <= 2 * gamma * abs_bound)
+
+
+def test_spmm_pdb1hys_k8_against_gold_and_cusparse(card):
+    """pdb1HYS class (36,417 rows, 4,333,623 nonzeros, float32) times a
+    row-major X of 8 columns through op.mm, one K1 launch per column:
+    against spmm_gold and cuSPARSE SpMM (torch.sparse.mm), each within
+    the JAX tool's 1e-4 of max |Y| (tools/bench_baseline_configs.py:
+    369-372)."""
+    from merge_spmv_tpu_torch.bench.measure import library_csr
+    from merge_spmv_tpu_torch.tools import bench_baseline_configs as BC
+
+    csr = BC.pdb1hys_csr()
+    assert (csr.num_rows, csr.num_nonzeros) == (36417, 4_333_623)
+    X = np.random.RandomState(2).uniform(-1, 1, (csr.num_cols, 8)
+                                         ).astype(np.float32)
+    op = build_operator(csr, dtype="float32", device=card)
+    Xd = torch.from_numpy(X).to(card)
+    K.reset_launches()
+    Y = op.mm(Xd)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["merge_tile_fused"] == 8
+    gold = csr.spmm_gold(X)
+    scale = float(np.abs(gold).max())
+    assert float(np.abs(Y.cpu().numpy() - gold).max()) < 1e-4 * scale
+    lib = torch.sparse.mm(library_csr(op), Xd).cpu().numpy()
+    assert float(np.abs(Y.cpu().numpy() - lib).max()) < 1e-4 * scale
