@@ -11,7 +11,8 @@ Phases, one line of output each (any failure exits non-zero and prints no
              compiler's register report, and the tile kernel's registers,
              dynamic shared memory and resident blocks per SM at the
              default tile size, in float32 and float64, for each gather
-             policy (ops/plan.py::POLICIES).
+             policy (ops/plan.py::POLICIES); the same for the multi-RHS
+             tile kernel K1m (csrc/merge_csrmm.cu) at k = 8 and 32.
    stream  — utils/device.py::measure_stream_bandwidth (the STREAM triad
              over 256 MB arrays, CUDA-graph replays) beside the published
              3,350 GB/s.
@@ -25,8 +26,9 @@ Phases, one line of output each (any failure exits non-zero and prints no
              nonzeros, float32) through build_operator / op(x) /
              op(x, y_in, alpha, beta) / op.mm(X), verified against gold,
              with the launch counters read around exactly that run (one
-             fused tile-kernel launch per op(x) and per column, no
-             separate fix-up), and two op(x) calls bitwise equal; the
+             fused tile-kernel launch per op(x), no separate fix-up, and
+             one K1m launch for op.mm's four columns), K1m against its
+             plain version on that X, and two op(x) calls bitwise equal; the
              fused kernel's launch (its persistent blocks G, the tiles
              each runs, the stages and the shared memory: its last block
              sums G carry pairs); then op(x) timed (device time from
@@ -57,8 +59,9 @@ Phases, one line of output each (any failure exits non-zero and prints no
              and two bitwise-equal calls.
 6. dia main — grid3d(100) float32 (the main phase's matrix: 6 diagonals,
              no leftover) through build_dia_operator / op(x) /
-             op(x, y_in, 2, 1) / op.mm(X[:, :4]), verified against gold
-             with the launch counter read around exactly that run; then
+             op(x, y_in, 2, 1) / op.mm(X[:, :4]) (one K3m launch, K3m
+             against its plain version), verified against gold with the
+             launch counter read around exactly that run; then
              the same matrix with 1% scattered extras, so the leftover runs
              the fused merge kernel at size and both counters move (and
              the leftover through the two kernels, timed beside it).
@@ -103,7 +106,7 @@ Phases, one line of output each (any failure exits non-zero and prints no
              bands) with its setup and stage times; op(x),
              op(x, y_in, 1.5, -0.5) and op.mm(X[:, :2]) verified against gold
              with the launch counter read around exactly that run (one fused
-             launch per op(x) and per column) and two op(x) calls bitwise
+             launch per op(x), one K1m launch for op.mm) and two op(x) calls bitwise
              equal; op(x) timed (CUDA graph and eager) beside merge op(x),
              cuSPARSE and the bytes bound of each; the host builder
              (geometric (8, 32) edges) full-row and compact, verified and
@@ -154,9 +157,13 @@ Phases, one line of output each (any failure exits non-zero and prints no
              own functions (tools/bench_{baseline_configs,spmm,skew,
              multichip}.py): cant_class in float64 (3,996,864 nonzeros),
              webbase_1M_class, op.mm with k = 8 and 32 on the cant and
-             pdb1HYS classes, the skew trio at 2^20 x 8, bench_spmm on
-             grid3d(60) with k = 32 (K1 and K3), and weak scaling over
-             1, 2 and 4 gloo ranks sharing the card at 2^17 rows a rank.
+             pdb1HYS classes (one K1m launch, beside method="column", K1
+             once per column, and cuSPARSE SpMM; K1m alone warm and cold
+             against its plain version, its gather bound from the
+             row-gather probe), the skew trio at 2^20 x 8, bench_spmm on
+             grid3d(60) with k = 32 (K1m, K3m and both column loops), and
+             weak scaling over 1, 2 and 4 gloo ranks sharing the card at
+             2^17 rows a rank.
              Every matrix verified against gold before it is timed, beside
              cuSPARSE; K1 on each SpMV config (and each SpMM matrix's
              first column) also against its plain version within the
@@ -164,8 +171,9 @@ Phases, one line of output each (any failure exits non-zero and prints no
              cant_class's float64 result, against gold and against the
              plain version, also within 2 gamma_n |A| |x| per row
              (bench/measure.py::fp64_bound).  Launches counted from 0
-             around the phase (the ranks' from their reports), and around
-             cant_class's own run for its kernels-line entry.
+             around the phase (the ranks' from their reports), around
+             cant_class's own run for its kernels-line entry, and around
+             the SpMM runs for K1m's and K3m's.
 14. the kernels line, nvidia-smi's name and power limit, and the last line.
 """
 
@@ -531,7 +539,7 @@ def main() -> int:
     # ------------------------------------------------------------ 1 build
     t0 = time.perf_counter()
     sources = (K.KERNEL_SOURCE, DK.KERNEL_SOURCE, P.KERNEL_SOURCE,
-               GR.KERNEL_SOURCE)
+               GR.KERNEL_SOURCE, K.MM_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = list(pool.map(build_library, sources))
     build_s = time.perf_counter() - t0
@@ -551,12 +559,27 @@ def main() -> int:
                     f"{regs} registers, {g.shared_bytes} B dynamic shared "
                     f"memory, {blocks} blocks per SM (launched: "
                     f"{g.blocks_per_sm})")
+    mm_kernel = []
+    for dt in (torch.float32, torch.float64):
+        for k in (8, 32):
+            blocks, regs = K.mm_kernel_occupancy(dt, DEFAULT_TILE_ITEMS, k,
+                                                 dev)
+            g = K.mm_launch_geometry(1, DEFAULT_TILE_ITEMS, dt, dev, k)
+            mm_kernel.append(
+                f"{str(dt)[6:]} k={k} layout {g.layout} {regs} registers, "
+                f"{g.shared_bytes} B dynamic shared memory, {blocks} blocks "
+                f"per SM (launched: {g.blocks_per_sm})")
+    mm_spills = [ln.strip() for ln in logs[4].splitlines()
+                 if "spill" in ln and not ln.strip().startswith("0 bytes")]
     print(f"build: {len(sources)} sources in {build_s:.2f} s; "
           f"{' | '.join(ptxas) or 'cached'}; merge_tile at "
           f"{DEFAULT_TILE_ITEMS} items: {'; '.join(tile_kernel)}; "
           f"sm_ceiling: "
           f"{sum('Compiling entry' in ln for ln in logs[2].splitlines())} "
-          "instantiations")
+          f"instantiations; merge_tile_mm: "
+          f"{sum('Compiling entry' in ln for ln in logs[4].splitlines())} "
+          f"instantiations, spills {mm_spills or 'none'}, "
+          f"{'; '.join(mm_kernel)}")
     print(f"device: {info['device_kind']} x{info['num_devices']}; "
           f"nvidia-smi: {info['nvidia_smi']}")
 
@@ -721,15 +744,33 @@ def main() -> int:
                             dev, policy=pol)
     geo_f = K.launch_geometry(plan.num_tiles, plan.tile_items, torch.float32,
                               dev, fused=True, policy=pol)
-    # op(x), op(x, y_in, 2, 1) and 4 columns: one fused launch each
-    one_launch = launches == {"merge_tile": 0, "merge_tile_fused": 6,
-                              "carry_fixup": 0}
+    # op(x) and op(x, y_in, 2, 1): one fused launch each; op.mm's 4
+    # columns: one K1m launch
+    one_launch = launches == {"merge_tile": 0, "merge_tile_fused": 2,
+                              "carry_fixup": 0, "merge_tile_mm": 1}
+    # K1m against its plain version on the same X, at the kernel's runs
+    Xd4 = torch.from_numpy(X).to(dev)
+    mm_args = (op.values, op.col_indices, op.row_end_offsets, Xd4,
+               op.tile_rows, op.tile_nnz, plan.tile_items)
+    mm_geo = K.mm_launch_geometry(plan.num_tiles, plan.tile_items,
+                                  torch.float32, dev, 4)
+    Ym = K.merge_csrmm(*mm_args, tickets=op.tickets)
+    Ym_plain = K.merge_csrmm_plain(*mm_args, run_tiles=mm_geo.run_tiles)
+    mm_main_err = float((Ym - Ym_plain).abs().max())
+    mm_main_ok = (torch.equal(Ym, Y) and all(
+        compare_results(Ym[:, c].cpu().numpy(), Ym_plain[:, c].cpu().numpy(),
+                        verbose=False, abs_bound=checks[f"mm[:, {c}]"][2])
+        is None for c in range(X.shape[1])))
+    del Ym, Ym_plain
     print(f"main: grid3d(100) {n} rows {nnz} nnz float32, {op.describe()}, "
           f"host build {host_s:.1f} s, setup_s {op.setup_s}, launches "
-          f"{launches} (one fused launch per op(x) and per column: "
-          f"{one_launch}), verified {len(checks) - len(bad)}/{len(checks)}"
-          f"{' FAILED ' + str(bad) if bad else ''}; two op(x) calls bitwise "
-          f"equal: {repeat_same}")
+          f"{launches} (one fused launch per op(x), one K1m launch for "
+          f"op.mm: {one_launch}), verified {len(checks) - len(bad)}/"
+          f"{len(checks)}{' FAILED ' + str(bad) if bad else ''}; two op(x) "
+          f"calls bitwise equal: {repeat_same}; K1m ({mm_geo.grid} blocks, "
+          f"layout {mm_geo.layout}) against its plain version max|err| "
+          f"{mm_main_err:.3e}, within |A| |x| and equal to op.mm: "
+          f"{mm_main_ok}")
     print(f"main merge_tile launch: fused G = {geo_f.grid} persistent blocks "
           f"of {geo_f.threads} threads ({geo_f.blocks_per_sm} per SM), "
           f"{geo_f.run_tiles} tiles per run over {plan.num_tiles} tiles, "
@@ -737,10 +778,12 @@ def main() -> int:
           f"(opt-in above 48 KB: {geo_f.opt_in}), the last block's tail sums "
           f"{geo_f.grid} pairs; unfused G = {geo.grid} ({geo.blocks_per_sm} "
           "per SM)")
-    if bad or not one_launch or not repeat_same:
+    if bad or not one_launch or not repeat_same or not mm_main_ok:
         return 1
-    # merge_tile_fused launches of each path, counted from 0 around it
+    # merge_tile_fused launches of each path, counted from 0 around it;
+    # merge_tile_mm's in mm_paths
     paths = {"main": launches["merge_tile_fused"]}
+    mm_paths = {"main": launches["merge_tile_mm"]}
     router = {}
 
     peak_gbps = info["peak_hbm_gbps"]
@@ -1156,6 +1199,18 @@ def main() -> int:
     torch.cuda.synchronize()
     dia_launches = dict(DK.LAUNCHES)
     pure_merge = dict(K.LAUNCHES)
+    dia_mm_paths = {"main": dia_launches["dia_matmat"]}
+    # K3m against its plain version on the same X
+    Xd4 = torch.from_numpy(X[:, :4]).to(dev)
+    k3m_args = (op_dia.vtab, Xd4, op_dia.offsets_t, op_dia.num_rows,
+                op_dia.num_cols)
+    Yk3, Yk3_plain = DK.dia_matmat(*k3m_args), DK.dia_matmat_plain(*k3m_args)
+    k3m_main_err = float((Yk3 - Yk3_plain).abs().max())
+    k3m_main_ok = all(
+        compare_results(Yk3[:, c].cpu().numpy(), Yk3_plain[:, c].cpu().numpy(),
+                        verbose=False, abs_bound=csr.spmv_abs_bound(X[:, c]))
+        is None for c in range(4))
+    del Yk3, Yk3_plain
     checks = {"op(x)": (yd, checks["op(x)"][1], checks["op(x)"][2]),
               "op(x,y_in,2,1)": (yd_ab, checks["op(x,y_in,2,1)"][1],
                                  checks["op(x,y_in,2,1)"][2])}
@@ -1169,9 +1224,12 @@ def main() -> int:
     print(f"dia main: grid3d(100) {n} rows {nnz} nnz float32, "
           f"{op_dia.describe()}, launches {dia_launches} (merge "
           f"{pure_merge}), verified {len(checks) - len(bad)}/{len(checks)}"
-          f"{' FAILED ' + str(bad) if bad else ''}")
-    if (bad or dia_launches["dia_matvec"] < 1 or op_dia.rest_op is not None
-            or op_dia.offsets.size != 6):
+          f"{' FAILED ' + str(bad) if bad else ''}; K3m against its plain "
+          f"version max|err| {k3m_main_err:.3e} (within |A| |x|: "
+          f"{k3m_main_ok})")
+    if (bad or dia_launches != {"dia_matvec": 2, "dia_matmat": 1}
+            or any(pure_merge.values()) or op_dia.rest_op is not None
+            or op_dia.offsets.size != 6 or not k3m_main_ok):
         return 1
 
     # the same matrix with 1% scattered extras: the leftover runs K1
@@ -1195,9 +1253,10 @@ def main() -> int:
     print(f"dia main, 1% extras: {csr_mix.num_nonzeros} nnz, "
           f"{op_mix.describe()}, launches {mix_launches}, verified {mix_ok}")
     # the leftover: one fused launch, no separate fix-up
-    if not mix_ok or mix_launches != {"dia_matvec": 1, "merge_tile": 0,
+    if not mix_ok or mix_launches != {"dia_matvec": 1, "dia_matmat": 0,
+                                      "merge_tile": 0,
                                       "merge_tile_fused": 1,
-                                      "carry_fixup": 0}:
+                                      "carry_fixup": 0, "merge_tile_mm": 0}:
         return 1
     dia_launches["dia_matvec"] += mix_launches["dia_matvec"]
     paths["dia_leftover"] = mix_launches["merge_tile_fused"]
@@ -1557,16 +1616,16 @@ def main() -> int:
     bad = [k for k, ok in checks.items() if not ok]
     xr = torch.from_numpy(rc.uniform(-1, 1, mc).astype(np.float32)).to(dev)
     split_same = bool(torch.equal(op_s(xr), op_s(xr)))
-    split_one = split_launches == {"merge_tile": 0, "merge_tile_fused": 4,
-                                   "carry_fixup": 0}
+    split_one = split_launches == {"merge_tile": 0, "merge_tile_fused": 2,
+                                   "carry_fixup": 0, "merge_tile_mm": 1}
     sp = op_s.plan
     print(f"split main: {op_s.describe()}, m_pad {op_s._m_pad}, stack "
           f"{sp.num_rows} rows {sp.num_nonzeros} merge nonzeros "
           f"(tile_items {sp.tile_items}, {sp.num_tiles} tiles); setup_ms "
           f"{op_s.setup_ms:.1f} (upload {op_s.upload_ms:.1f}, convert "
           f"{op_s.convert_ms:.1f}), stage_ms {op_s.stage_ms}; launches "
-          f"{split_launches} (one fused launch per op(x) and per column: "
-          f"{split_one}), verified {len(checks) - len(bad)}/{len(checks)}"
+          f"{split_launches} (one fused launch per op(x), one K1m launch "
+          f"for op.mm: {split_one}), verified {len(checks) - len(bad)}/{len(checks)}"
           f"{' FAILED ' + str(bad) if bad else ''}; two op(x) calls "
           f"bitwise equal: {split_same}; merge op(x) verified {merge_c_ok}")
     if bad or not split_one or not split_same or not merge_c_ok:
@@ -1584,6 +1643,7 @@ def main() -> int:
                    + nb_c * mc * 4 + mc * 4)
     split_bound = split_bytes / peak_gbps / 1e6
     paths["split"] = split_launches["merge_tile_fused"]
+    mm_paths["split"] = split_launches["merge_tile_mm"]
     del op_s, so, ys, ys_ab, Ys
 
     # the host builder (geometric (8, 32) edges), full rows and compact
@@ -1731,7 +1791,7 @@ def main() -> int:
     hc_same = bool(torch.equal(op_hc(xkd), op_hc(xkd)))
     hc_two = (op_hc.hot_op is not None and op_hc.cold_op is not None
               and hc_launches == {"merge_tile": 0, "merge_tile_fused": 4,
-                                  "carry_fixup": 0})
+                                  "carry_fixup": 0, "merge_tile_mm": 0})
     paths["hotcold"] = hc_launches["merge_tile_fused"]
     hc = (chained_rate_ms(op_hc, xkd), chained_rate_ms(op_hc, xkd,
                                                        graph=False))
@@ -2049,10 +2109,14 @@ def main() -> int:
     entries.update(BC.run_spmm("cant", BC.cant_csr(np.float32), dev))
     entries.update(BC.run_spmm("pdb1HYS", BC.pdb1hys_csr(), dev))
     skew_b = SKB.run(1 << 20, 8, dev)
+    mm_before = (K.LAUNCHES["merge_tile_mm"], DK.LAUNCHES["dia_matmat"])
     spmm_b = SPB.run(60, 32, dev)
     torch.cuda.synchronize()
     paths["baseline"] = K.LAUNCHES["merge_tile_fused"]
     dia_launches["baseline_spmm"] = DK.LAUNCHES["dia_matvec"]
+    mm_paths["baseline_spmm"] = K.LAUNCHES["merge_tile_mm"]
+    mm_paths["bench_spmm"] = K.LAUNCHES["merge_tile_mm"] - mm_before[0]
+    dia_mm_paths["bench_spmm"] = DK.LAUNCHES["dia_matmat"] - mm_before[1]
     weak_b = MCB.run(1 << 17, (1, 2, 4), dev)
     weak_ranks = [r for res in (weak_b["results"], weak_b["fixed_total_work"])
                   for e in res.values() for r in e["ranks"]]
@@ -2064,8 +2128,21 @@ def main() -> int:
               if "k1_ms" in e else
               f"eager {e['eager_ms']:.4f}, X column-major "
               f"{e['colmajor_ms']:.4f} (cuSPARSE "
-              f"{e['cusparse_spmm_colmajor_ms']:.4f}), SpMM bound "
-              f"{e['spmm_bound_ms']:.4f} ms (column loop "
+              f"{e['cusparse_spmm_colmajor_ms']:.4f}); K1m alone warm "
+              f"{e['k1m_ms']:.4f} cold {e['k1m_cold_ms']:.4f} (cuSPARSE "
+              f"cold {e['cusparse_spmm_cold_ms']:.4f}), "
+              f"{e['k1m_launches']} launch, {e['k1m_launch']}, against its "
+              f"plain version max|err| {e['k1m_plain_max_abs_err']:.3e} "
+              f"ok={e['k1m_plain_ok']}, plain {e['k1m_plain_ms']:.2f} ms; "
+              f"column loop {e['column_loop_ms']:.4f} ms (verified "
+              f"{e['column_loop_verified']}, {e['column_loop_k1_launches']} "
+              f"K1 launches): op.mm "
+              f"{e['column_loop_ms'] / e['avg_ms']:.2f}x faster; SpMM bound "
+              f"{e['spmm_bound_ms']:.4f} ms, gather bound "
+              f"{e['gather_bound_ms']:.4f} (rows at the matrix's columns "
+              f"at {e['gather_rate_gbps']:.0f} GB/s; at random ones "
+              f"{e['gather_rows']['random_rate_gbps']:.0f} GB/s: "
+              f"{e['gather_bound_random_ms']:.4f}); column loop's bound "
               f"{e['column_loop_bound_ms']:.4f}), column copies "
               f"{e['column_copies_ms']:.4f}, stack {e['stack_ms']:.4f}")
         print(f"baseline {name}: {e['rows']} rows {e['nnz']} nnz "
@@ -2094,16 +2171,23 @@ def main() -> int:
           f"per nonzero {skew_b['powerlaw_over_uniform_gflops']:.4f} "
           f"(cuSPARSE "
           f"{skew_b['cusparse_powerlaw_over_uniform_gflops']:.4f})")
-    for part in ("column_loop", "dia"):
+    for part in ("column_loop", "k1m", "dia", "dia_column"):
         e = spmm_b[part]
         print(f"baseline bench_spmm grid3d(60) k=32 {part}: "
               f"{e['avg_ms']:.4f} ms graph, {e['eager_ms']:.4f} eager, "
               f"verified {e['verified']}, launches {e['launches']}")
+    sd = spmm_b["dia"]
     print(f"baseline bench_spmm: cuSPARSE SpMM {spmm_b['cusparse_spmm_ms']:.4f}"
           f" ms (X column-major {spmm_b['cusparse_spmm_colmajor_ms']:.4f}),"
           f" column loop with X column-major "
           f"{spmm_b['column_loop']['colmajor_ms']:.4f} ms, SpMM bound "
-          f"{spmm_b['spmm_bound_ms']:.4f} ms")
+          f"{spmm_b['spmm_bound_ms']:.4f} ms; K3m alone warm "
+          f"{sd['k3m_ms']:.4f} cold {sd['k3m_cold_ms']:.4f}, bytes bound "
+          f"{sd['bytes_bound_ms']:.4f}, against its plain version max|err| "
+          f"{sd['k3m_plain_max_abs_err']:.3e} ok={sd['k3m_plain_ok']}, plain "
+          f"{sd['k3m_plain_ms']:.2f} ms; DIA mm "
+          f"{spmm_b['cusparse_spmm_ms'] / sd['avg_ms']:.2f}x faster than "
+          f"cuSPARSE SpMM")
     for S, e in weak_b["results"].items():
         f = weak_b["fixed_total_work"][S]
         print(f"baseline weak scaling S={S} (ranks share the card): "
@@ -2117,9 +2201,16 @@ def main() -> int:
                    for e in entries.values())
                and all(skew_b[k]["verified"]
                        for k in ("uniform", "powerlaw", "wheel"))
-               and spmm_b["column_loop"]["verified"]
-               and spmm_b["dia"]["verified"]
-               and spmm_b["dia"]["launches"]["dia_matvec"] == 32
+               and all(spmm_b[part]["verified"] for part in (
+                   "column_loop", "k1m", "dia", "dia_column"))
+               and spmm_b["dia"]["launches"]["dia_matmat"] == 1
+               and spmm_b["dia"]["k3m_plain_ok"]
+               and spmm_b["k1m"]["launches"]["merge_tile_mm"] == 1
+               and spmm_b["k1m"]["k1m_plain_ok"]
+               and all(e["column_loop_verified"] and e["k1m_plain_ok"]
+                       and e["k1m_launches"] == 1
+                       for name, e in entries.items()
+                       if name.startswith("spmm"))
                and all(e["verified"] for part in (
                    "results", "fixed_total_work", "prepared_vs_unprepared")
                    for e in weak_b[part].values())
@@ -2130,7 +2221,8 @@ def main() -> int:
                and paths["weak_scaling_ranks"] > 0)
     print(f"baseline: K1 launches {paths['baseline']} (+ "
           f"{paths['weak_scaling_ranks']} in the ranks), K3 "
-          f"{dia_launches['baseline_spmm']}; all verified {base_ok}; "
+          f"{dia_launches['baseline_spmm']}, K1m {mm_paths['baseline_spmm']}"
+          f", K3m {dia_mm_paths['bench_spmm']}; all verified {base_ok}; "
           f"{time.perf_counter() - t_phase:.1f} s")
     if not base_ok:
         return 1
@@ -2183,6 +2275,38 @@ def main() -> int:
                                   dia_launches["baseline_spmm"]}},
     ]
     kernels += [k1_c, k1_k, k1_b]
+    # K1m: launches from the main phase's op.mm, by path, and per SpMM
+    # config (counted around that config's op.mm); times at cant, k = 32
+    mm_src = "merge_spmv_tpu_torch/csrc/merge_csrmm.cu"
+    # the TPU kernel, reached for SpMM through csrmm_column_loop (:1376)
+    mm_replaces = "merge_spmv_tpu/ops/csrmv_pallas.py:150"
+
+    def k1m_entry(name, e, launches):
+        return {"name": name, "route": "cuda", "source": mm_src,
+                "replaces": mm_replaces, "launches": launches,
+                "max_abs_err": e["k1m_plain_max_abs_err"], "ms": e["k1m_ms"],
+                "plain_ms": e["k1m_plain_ms"], "bound_ms": e["spmm_bound_ms"],
+                "bound_by": "bytes", "library_ms": e["cusparse_spmm_ms"],
+                "main_path": True, "cold_ms": e["k1m_cold_ms"],
+                "gather_bound_ms": e["gather_bound_ms"],
+                "gather_bound_random_ms": e["gather_bound_random_ms"],
+                "column_loop_ms": e["column_loop_ms"], "k": e["k"]}
+    kernels.append({**k1m_entry("merge_tile_mm", entries["spmm_cant_k32"],
+                                mm_paths["main"]),
+                    "launches_by_path": mm_paths})
+    kernels += [k1m_entry(f"merge_tile_mm@{name}", e, e["k1m_launches"])
+                for name, e in entries.items() if name.startswith("spmm")
+                and name != "spmm_cant_k32"]
+    kernels.append(
+        {"name": "dia_matmat", "route": "cuda",
+         "source": "merge_spmv_tpu_torch/csrc/dia_matvec.cu",
+         "replaces": "merge_spmv_tpu/ops/dia_pallas.py:82",
+         "launches": dia_mm_paths["main"],
+         "max_abs_err": sd["k3m_plain_max_abs_err"], "ms": sd["k3m_ms"],
+         "plain_ms": sd["k3m_plain_ms"], "bound_ms": sd["bytes_bound_ms"],
+         "bound_by": "bytes", "library_ms": spmm_b["cusparse_spmm_ms"],
+         "main_path": True, "cold_ms": sd["k3m_cold_ms"],
+         "launches_by_path": dia_mm_paths})
     kernels.append(
         {"name": "gather_rate", "route": "cuda",
          "source": "merge_spmv_tpu_torch/csrc/gather_rate.cu",

@@ -16,6 +16,11 @@ and where they keep it.
   cuSPARSE (``torch.mv`` on an int32 ``sparse_csr_tensor`` of the same
   arrays) warm and cold; the bytes bound; K1's plain version's time and
   its largest difference from the kernel.
+* ``card_spmm``: on the card, the multi-RHS kernel K1m alone through an
+  operator's launch, warm and with a cold L2, in turns with cuSPARSE SpMM
+  (``torch.sparse.mm``) warm and cold; its launches per call, geometry
+  and registers; its plain version's time and largest difference, held
+  within |A| |X| per column; the bytes bound.
 * ``spmv_bytes`` / ``spmm_bytes``: the bytes the product must move, each
   input read once and each output written once (SpMM: A read once).
 * ``fp64_bound`` / ``fp64_check``: the rounding bound a float64 result is
@@ -42,7 +47,7 @@ from merge_spmv_tpu_torch.utils.timers import event_ms, host_ms
 __all__ = ["BENCH_DIR", "device_record", "record_path", "load_record",
            "save_record", "row_cov", "fn_ms", "library_csr",
            "spmv_bytes", "spmm_bytes", "bound_ms", "fp64_bound",
-           "fp64_check", "card_spmv"]
+           "fp64_check", "card_spmv", "card_spmm", "abs_product"]
 
 BENCH_DIR = Path(__file__).resolve().parent
 # bytes written before each launch of a cold-L2 time: five times the
@@ -222,3 +227,76 @@ def card_spmv(op, x) -> dict:
             "bytes": nbytes, "bytes_bound_ms": bound_ms(nbytes, dev),
             "plain_ms": plain_ms, "plain_max_abs_err": plain_err,
             "plain_ok": plain_ok, **fp64}
+
+
+def abs_product(op, X):
+    """|A| |X| on the operator's device in float64: the scale of two
+    summation orders' rounding, per element of A @ X."""
+    plan = op.plan
+    rows = row_ids_from_offsets(op.row_end_offsets, plan.num_nonzeros)
+    scale = torch.zeros(plan.num_rows, X.shape[1], dtype=torch.float64,
+                        device=X.device)
+    return scale.index_add_(0, rows, op.values.abs().double()[:, None]
+                            * X.abs().double()[op.col_indices.long()])
+
+
+def card_spmm(op, X) -> dict:
+    """K1m alone through ``op``'s launch (its tiles and counter) on X
+    [num_cols, k], warm and with a cold L2, in turns with cuSPARSE SpMM on
+    the same X (K1m, cuSPARSE, cuSPARSE, K1m; best of each); the launches
+    one call makes; the launch (grid, runs, chunk, layout, registers and
+    blocks per SM); K1m's plain version at the kernel's runs: its time
+    (eager), its largest difference from the kernel and whether the two
+    agree by compare_results within |A| |X| in every column; the bytes
+    bound (A, X and Y once)."""
+    plan, dev = op.plan, op.device
+    k = X.shape[1]
+    args = (op.values, op.col_indices, op.row_end_offsets, X, op.tile_rows,
+            op.tile_nnz, plan.tile_items)
+
+    def launch():
+        return K.merge_csrmm(*args, tickets=op.tickets)
+    lib = library_csr(op)
+    flush = _Flush(dev)
+    times = {"k1m": ([], []), "cusparse": ([], [])}
+    for name in ("k1m", "cusparse", "cusparse", "k1m"):
+        fn = launch if name == "k1m" else (lambda: torch.sparse.mm(lib, X))
+        times[name][0].append(event_ms(fn, iters=20))
+        times[name][1].append(flush.cold_ms(fn))
+    before = K.LAUNCHES["merge_tile_mm"]
+    Y = launch()
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES["merge_tile_mm"] - before
+    kw = min(k, K.MM_MAX_K)
+    geo = K.mm_launch_geometry(plan.num_tiles, plan.tile_items,
+                               op.values.dtype, dev, kw)
+    blocks, regs = K.mm_kernel_occupancy(op.values.dtype, plan.tile_items,
+                                         kw, dev)
+    Y_plain = K.merge_csrmm_plain(*args, run_tiles=geo.run_tiles)
+    err = float((Y - Y_plain).abs().max()) if Y.numel() else 0.0
+    scale = abs_product(op, X).cpu().numpy()
+    y, yp = Y.cpu().numpy(), Y_plain.cpu().numpy()
+    ok = all(compare_results(y[:, c], yp[:, c], verbose=False,
+                             abs_bound=scale[:, c]) is None
+             for c in range(k))
+    del Y, Y_plain, y, yp, scale
+    plain_ms = event_ms(lambda: K.merge_csrmm_plain(
+        *args, run_tiles=geo.run_tiles), iters=1, reps=2, warmup=1,
+        graph=False)
+    nbytes = spmm_bytes(plan.num_rows, plan.num_cols, plan.num_nonzeros, k,
+                        op.values.element_size())
+    lay = geo.layout
+    return {"k1m_ms": min(times["k1m"][0]),
+            "k1m_cold_ms": min(times["k1m"][1]),
+            "cusparse_spmm_ms": min(times["cusparse"][0]),
+            "cusparse_spmm_cold_ms": min(times["cusparse"][1]),
+            "k1m_launches": launches,
+            "k1m_launch": {"grid": geo.grid, "run_tiles": geo.run_tiles,
+                           "chunk_items": geo.chunk_items,
+                           "threads": geo.threads,
+                           "shared_bytes": geo.shared_bytes,
+                           "blocks_per_sm": blocks, "registers": regs,
+                           "layout": [lay.per, lay.vector, lay.lanes]},
+            "k1m_plain_ms": plain_ms, "k1m_plain_max_abs_err": err,
+            "k1m_plain_ok": ok, "spmm_bytes": nbytes,
+            "spmm_bound_ms": bound_ms(nbytes, dev)}

@@ -8,7 +8,8 @@ eagerly, so there is no compiled-function cache; `SpmvOperator`
 call to the next.
 
 Backends: "cuda" runs the merge-path kernels (ops/csrmv_cuda.py; their
-plain versions for CPU tensors), "torch" the segment-sum formulation
+plain versions for CPU tensors): K1 for csrmv, K1m (one launch for all k
+columns) for csrmm; "torch" the segment-sum formulation
 (ops/csrmv_torch.py), on CPU tensors only: it raises on CUDA tensors.
 The full ``y = alpha*A*x + beta*y_in`` epilogue is supported on both.  bfloat16 computes in float32 and casts back; float64
 runs the kernel natively.
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from merge_spmv_tpu_torch.ops import csrmv_torch as _torch
-from merge_spmv_tpu_torch.ops.csrmv_cuda import merge_csrmv
+from merge_spmv_tpu_torch.ops.csrmv_cuda import merge_csrmm, merge_csrmv
 from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.utils.device import torch_dtype
@@ -82,6 +83,27 @@ def _csrmv_merge(plan: SpmvPlan, values, row_end_offsets, col_indices, x,
     return y.to(out_dt)
 
 
+def _csrmm_merge(plan: SpmvPlan, values, row_end_offsets, col_indices, X,
+                 Y_in, alpha, beta, tiles=None, tickets=None):
+    """SpMM's merge-path route, with the plan's dtype policy applied: one
+    K1m launch for all k columns (``merge_csrmm``; column blocks of 64
+    past that), K1 for k = 1, the tile search done once for all columns."""
+    check_matrix_operands(plan, X, Y_in)
+    if tiles is None:
+        tiles = merge_tile_coordinates(row_end_offsets, plan.num_nonzeros,
+                                       plan.tile_items)
+    if X.shape[1] == 1:
+        return _csrmv_merge(plan, values, row_end_offsets, col_indices,
+                            X[:, 0], None if Y_in is None else Y_in[:, 0],
+                            alpha, beta, tiles, tickets)[:, None]
+    cdt = compute_dtype(plan.dtype)
+    Y = merge_csrmm(values.to(cdt).contiguous(), col_indices,
+                    row_end_offsets, X.to(cdt), *tiles, plan.tile_items,
+                    None if Y_in is None else Y_in.to(cdt), alpha, beta,
+                    tickets=tickets)
+    return Y.to(torch_dtype(plan.dtype))
+
+
 def csrmv(plan: SpmvPlan, values, row_end_offsets, col_indices, x,
           y_in=None, alpha=1.0, beta=0.0, interpret: bool = False,
           meta=None):
@@ -117,18 +139,14 @@ def csrmm(plan: SpmvPlan, values, row_end_offsets, col_indices, X,
           meta=None):
     """Y = alpha * A @ X + beta * Y_in  (SpMM; X is [num_cols, k]).
 
-    The "cuda" backend runs the merge kernels once per column of X, as
-    csrmm_column_loop (csrmv_pallas.py:1376-1406) does, with the tile
-    search done once for all columns."""
+    The "cuda" backend launches the multi-RHS merge kernel K1m once for
+    all k columns (its plain version for CPU tensors), with the tile search
+    done once: the function of csrmm_column_loop (csrmv_pallas.py:
+    1376-1406), which runs the TPU kernel once per column."""
     check_matrix_operands(plan, X, Y_in)
     if plan.backend == "cuda":
-        tiles = merge_tile_coordinates(row_end_offsets, plan.num_nonzeros,
-                                       plan.tile_items)
-        return torch.stack([
-            _csrmv_merge(plan, values, row_end_offsets, col_indices, X[:, k],
-                         None if Y_in is None else Y_in[:, k], alpha, beta,
-                         tiles)
-            for k in range(X.shape[1])], dim=1)
+        return _csrmm_merge(plan, values, row_end_offsets, col_indices, X,
+                            Y_in, alpha, beta)
     _check_plain_route(values, row_end_offsets, col_indices, X, Y_in)
     out_dt = torch_dtype(plan.dtype)
     return _torch.csrmm_torch(values.to(out_dt), row_end_offsets,

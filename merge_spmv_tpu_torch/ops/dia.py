@@ -15,8 +15,8 @@ the reference's cuSPARSE HybMV comparison point (gpu_spmv.cu:106-251) it
 is an opt-in that trades setup, reported as ``setup_ms``, for per-call
 speed.
 
-On the card the diagonal part is the CUDA kernel of ops/dia_cuda.py (K3)
-for every dtype and every D: the TPU package's gate (``_pallas_ok``,
+On the card the diagonal part is the CUDA kernel of ops/dia_cuda.py (K3;
+K3m for ``mm``, all k columns in one launch) for every dtype and every D: the TPU package's gate (``_pallas_ok``,
 dia.py:150-160) guarded VMEM and a Mosaic limit of 16 diagonals, neither
 of which the card has.  ``device="cpu"`` runs the kernels' plain versions.
 bfloat16 rounds the table and x to bfloat16, computes in float32 and rounds
@@ -36,7 +36,7 @@ from merge_spmv_tpu_torch.formats.csr import CsrMatrix
 from merge_spmv_tpu_torch.ops.csrmv import (check_matrix_operands,
                                             check_vector_operands,
                                             compute_dtype)
-from merge_spmv_tpu_torch.ops.dia_cuda import dia_matvec
+from merge_spmv_tpu_torch.ops.dia_cuda import dia_matmat, dia_matvec
 from merge_spmv_tpu_torch.ops.operator import build_operator, row_abs_sums
 from merge_spmv_tpu_torch.ops.split import _row_ids, _subset_csr
 from merge_spmv_tpu_torch.utils.device import (dtype_name, itemsize,
@@ -215,30 +215,40 @@ class DiaSpmvOperator:
 
     def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, interpret: bool = False,
            method: str = "auto"):
-        """SpMM: the diagonal kernel once per column of X, then the
-        leftover operator's ``mm`` (one merge pass per column).
-        ``method="wide"`` raises, as SpmvOperator.mm does; ``interpret``
+        """SpMM in the JAX operator's order (merge_spmv_tpu/ops/dia.py:
+        200-220): the diagonal part over all k columns in one K3m launch,
+        then the leftover operator's ``mm`` (one K1m launch), then
+        ``beta * Y_in``, which K3m adds itself when there is no leftover.
+        ``method="column"`` runs K3 and the leftover's op(x) once per column
+        instead; ``"wide"`` raises, as SpmvOperator.mm does; ``interpret``
         is accepted and ignored."""
         if method == "wide":
             raise ValueError(
                 "method='wide' is retired: the multi-RHS kernel measured "
                 "~0.3x the per-column loop on the TPU (BENCH_SPMM.json).  "
-                "Use method='auto' (column loop).")
+                "Use method='auto' (one K3m launch) or 'column'.")
         if method not in ("auto", "column"):
             raise ValueError(f"unknown method {method!r}")
         X, Y_in = self._vec(X), self._vec(Y_in)
         check_matrix_operands(self.plan, X, Y_in)
         Xv = self._rounded(X)
+        fused = (method == "auto" and self.rest_op is None
+                 and Y_in is not None)
         Y = None
-        if self.vtab is not None:
+        if self.vtab is not None and method == "column":
             Y = torch.stack([
                 dia_matvec(self.vtab, Xv[:, k].contiguous(), self.offsets_t,
                            self.num_rows, self.num_cols, alpha)
                 for k in range(X.shape[1])], dim=1)
+        elif self.vtab is not None:
+            Y = dia_matmat(self.vtab, Xv, self.offsets_t, self.num_rows,
+                           self.num_cols, alpha,
+                           Y_in.to(self._cdt) if fused else None, beta)
         if self.rest_op is not None:
             Y = self.rest_op.mm(Xv, Y_in=Y, alpha=alpha,
-                                beta=0.0 if Y is None else 1.0)
-        if Y_in is not None:
+                                beta=0.0 if Y is None else 1.0,
+                                method=method)
+        if Y_in is not None and not fused:
             Y = Y + beta * Y_in.to(self._cdt)
         return Y.to(self._store_dt)
 

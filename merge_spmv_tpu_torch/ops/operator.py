@@ -9,7 +9,7 @@ kernel directly, once per call (ops/csrmv_cuda.py).
     op = build_operator(csr, dtype="float32")      # on the card
     y = op(x)                                      # y = A @ x
     y = op(x, y_in=y0, alpha=2.0, beta=1.0)
-    Y = op.mm(X)                                   # SpMM, one launch per column
+    Y = op.mm(X)                                   # SpMM, one K1m launch
 
 The operator always runs the merge-path decomposition: the CUDA kernels for
 a matrix on the card, their plain PyTorch versions for a matrix on the CPU
@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from merge_spmv_tpu_torch.ops.csrmv import (_csrmv_merge,
+from merge_spmv_tpu_torch.ops.csrmv import (_csrmm_merge, _csrmv_merge,
                                             check_matrix_operands,
                                             compute_dtype)
 from merge_spmv_tpu_torch.ops.csrmv_cuda import ticket_counter
@@ -94,24 +94,36 @@ class SpmvOperator:
 
     def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, interpret: bool = False,
            method: str = "auto"):
-        """SpMM, one merge-kernel pass per column of X (the strategy of
-        csrmm_column_loop, csrmv_pallas.py:1376-1406).  ``method="wide"``
-        (the retired multi-RHS kernel of the JAX package) raises;
-        ``interpret`` is accepted and ignored, in the JAX package's
+        """SpMM, Y = alpha * A @ X + beta * Y_in for X [num_cols, k].
+
+        ``method="auto"`` runs the measured-fastest general path, as in the
+        JAX package; on this card that is one launch of the multi-RHS merge
+        kernel K1m for all k columns (ops/csrmv_cuda.py::merge_csrmm; k = 1
+        is op(x)): with X row-major a nonzero's X row is one coalesced
+        request, so the gather amortises over k, which it did not on the
+        TPU (there "auto" is csrmm_column_loop, csrmv_pallas.py:1376-1406).
+        ``"column"`` runs that loop: op(x) once per column.  ``"wide"``
+        (the JAX package's retired multi-RHS Pallas kernel) raises, as
+        there; ``interpret`` is accepted and ignored, in the JAX package's
         position."""
         if method == "wide":
             raise ValueError(
                 "method='wide' is retired: the multi-RHS kernel measured "
                 "~0.3x the per-column loop on the TPU (BENCH_SPMM.json).  "
-                "Use method='auto' (column loop).")
+                "Use method='auto' (one K1m launch) or 'column'.")
         if method not in ("auto", "column"):
             raise ValueError(f"unknown method {method!r}")
         X = self._vec(X)
         Y_in = self._vec(Y_in)
         check_matrix_operands(self.plan, X, Y_in)
-        return torch.stack([
-            self(X[:, k], None if Y_in is None else Y_in[:, k], alpha, beta)
-            for k in range(X.shape[1])], dim=1)
+        if method == "column":
+            return torch.stack([
+                self(X[:, k], None if Y_in is None else Y_in[:, k], alpha,
+                     beta)
+                for k in range(X.shape[1])], dim=1)
+        return _csrmm_merge(self.plan, self.values, self.row_end_offsets,
+                            self.col_indices, X, Y_in, alpha, beta,
+                            (self.tile_rows, self.tile_nnz), self.tickets)
 
     def describe(self) -> str:
         knobs = ", ".join(f"{k}={v!r}" for k, v in self.ignored.items())

@@ -28,7 +28,9 @@ __all__ = ["SpmvPlan", "make_plan", "TileGeometry", "tile_geometry",
            "tile_shared_bytes", "run_ends", "ITEMS_PER_THREAD",
            "MIN_TILE_ITEMS", "MAX_TILE_ITEMS", "H100_SMS", "POLICIES",
            "gather_sectors_per_nonzero", "gather_policy",
-           "l1_carveout_bytes", "L1_TILE_ITEMS"]
+           "l1_carveout_bytes", "L1_TILE_ITEMS", "MmLayout", "mm_layout",
+           "mm_shared_bytes", "MmGeometry", "mm_geometry", "MM_MAX_K",
+           "MM_THREADS", "MM_CHUNK_ITEMS", "MM_BLOCKS_PER_SM"]
 
 # Merge items each thread consumes in sequence (CUB's ITEMS_PER_THREAD).
 ITEMS_PER_THREAD = 8
@@ -75,6 +77,16 @@ WARP = 32                  # nonzeros of one warp request of the gather
 # streams' bytes
 GATHER_BOUND_RATIO = 2.0
 _SPREAD_SAMPLES = 4096     # warp requests sampled by the statistic
+
+# The multi-RHS tile kernel (K1m, csrc/merge_csrmm.cu): blocks of
+# MM_THREADS threads, at most MM_BLOCKS_PER_SM an SM (its launch bounds: 64
+# registers a thread), each staging about MM_CHUNK_ITEMS merge items at a
+# time in two stages; at most MM_MAX_K columns a launch.
+MM_THREADS = 256
+MM_BLOCKS_PER_SM = 4
+MM_CHUNK_ITEMS = 2048
+MM_MAX_K = 64
+_MM_WARPS = MM_THREADS // 32
 
 # The kernel indexes merge items, rows and nonzeros with int32.
 _INT32_LIMIT = 2**31 - 1
@@ -365,3 +377,111 @@ def gather_policy(num_rows: int, num_nonzeros: int, col_indices,
               * gather_sectors_per_nonzero(col_indices, dtype))
     streams = num_nonzeros * (vs + 4) + num_rows * (4 + vs)
     return "l1" if gather > GATHER_BOUND_RATIO * streams else "stream"
+
+
+# ---------------------------------------------------------------------- #
+# The multi-RHS tile kernel (K1m): lane layout and launch geometry
+# ---------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class MmLayout:
+    """How K1m's walkers hold k columns: a walker is ``lanes`` lanes of a
+    warp; lane l holds ``per`` columns, ``l * per + e`` read by one vector
+    load (``vector``) or ``l + e * lanes`` read one by one."""
+    per: int
+    vector: bool
+    lanes: int
+
+    @property
+    def width(self) -> int:
+        """Columns a walker holds (>= k)."""
+        return self.per * self.lanes
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def mm_layout(k: int, dtype="float32", align_bytes: int = 16) -> MmLayout:
+    """K1m's layout for ``k`` columns (1 <= k <= MM_MAX_K): the widest
+    vector load (16, 8 or 4 bytes) that divides a row of k values and
+    ``align_bytes`` (the alignment shared by the operands' pointers and row
+    strides), with a power of two of lanes at most 32; else strided scalar
+    loads, two columns a lane over 32 lanes (k of 33-64 that allow no
+    vector load)."""
+    if not 1 <= k <= MM_MAX_K:
+        raise ValueError(f"k must be in [1, {MM_MAX_K}] for one launch, "
+                         f"got {k}")
+    vs = _value_size(dtype)
+    for vbytes in (16, 8, 4):
+        per = vbytes // vs
+        if per < 1 or vbytes > align_bytes or k % per:
+            continue
+        lanes = _next_pow2(-(-k // per))
+        if lanes <= WARP:
+            return MmLayout(per, True, lanes)
+    return MmLayout(-(-k // WARP), False, WARP)
+
+
+def mm_shared_bytes(chunk_items: int, dtype, width: int) -> int:
+    """Dynamic shared memory of one K1m block, as csrc/merge_csrmm.cu lays
+    it out: the warps' k-wide scan totals (``width`` values each) and
+    flags, and two stages that each hold a chunk's values and its row ends
+    and column indices (rows + nonzeros <= chunk_items)."""
+    vs = _value_size(dtype)
+    return (_MM_WARPS * width * vs + _MM_WARPS * 4
+            + 2 * chunk_items * (vs + 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class MmGeometry:
+    """K1m's launch for k columns: ``grid`` persistent blocks of
+    ``threads`` threads and ``shared_bytes`` of dynamic shared memory, at
+    most ``blocks_per_sm`` an SM; block b owns the tiles ``[b * run_tiles,
+    (b + 1) * run_tiles)`` and stages ``chunk_tiles`` of them
+    (``chunk_items`` merge items at most) at a time; its carry pair holds k
+    values (``carry_bytes`` over the grid)."""
+    threads: int
+    shared_bytes: int
+    blocks_per_sm: int
+    grid: int
+    run_tiles: int
+    chunk_tiles: int
+    chunk_items: int
+    layout: MmLayout
+    carry_bytes: int
+
+
+def mm_geometry(num_tiles: int, tile_items: int, dtype="float32",
+                k: int = 1, align_bytes: int = 16, num_sms: int = H100_SMS,
+                blocks_per_sm: Optional[int] = None) -> MmGeometry:
+    """K1m's launch for ``num_tiles`` merge tiles of ``tile_items`` (the
+    operator's, K1's) and ``k`` columns: the layout of ``mm_layout``; the
+    tiles staged ``MM_CHUNK_ITEMS // tile_items`` at a time (at least
+    one); blocks per SM what threads, shared memory and the kernel's launch
+    bounds allow (``blocks_per_sm``, the card's occupancy figure, lowers
+    it); the tiles cut into equal contiguous runs, as few as fill every
+    resident block once, as ``tile_geometry`` cuts them for K1."""
+    if tile_items % MIN_TILE_ITEMS or not (
+            MIN_TILE_ITEMS <= tile_items <= MAX_TILE_ITEMS):
+        raise ValueError(f"tile_items must be a multiple of {MIN_TILE_ITEMS} "
+                         f"in [{MIN_TILE_ITEMS}, {MAX_TILE_ITEMS}], "
+                         f"got {tile_items}")
+    if num_tiles < 1 or num_sms < 1:
+        raise ValueError("num_tiles and num_sms must be positive")
+    layout = mm_layout(k, dtype, align_bytes)
+    chunk_tiles = max(1, MM_CHUNK_ITEMS // tile_items)
+    chunk_items = chunk_tiles * tile_items
+    shared = mm_shared_bytes(chunk_items, dtype, layout.width)
+    fit = min(SM_THREADS // MM_THREADS, MM_BLOCKS_PER_SM,
+              SM_SHARED_BYTES // (shared + BLOCK_RESERVED_SHARED))
+    if blocks_per_sm is not None:
+        fit = min(fit, blocks_per_sm)
+    fit = max(fit, 1)
+    run_tiles = -(-num_tiles // (fit * num_sms))
+    grid = -(-num_tiles // run_tiles)
+    return MmGeometry(threads=MM_THREADS, shared_bytes=shared,
+                      blocks_per_sm=fit, grid=grid, run_tiles=run_tiles,
+                      chunk_tiles=chunk_tiles, chunk_items=chunk_items,
+                      layout=layout,
+                      carry_bytes=grid * (4 + k * _value_size(dtype)))

@@ -16,7 +16,8 @@ duplicates kept):
   and wb_edu_class (powerlaw_web(9,845,725, 57,156,537)), float32, the
   hot/cold split's A/B on wb_edu_class and ``webbase_pair_per_nnz_ratio``;
 * ``spmm``: op.mm with k = 8 and 32 columns on the cant and pdb1HYS
-  (banded(36,417, 119, sigma 300)) classes, float32;
+  (banded(36,417, 119, sigma 300)) classes, float32: one K1m launch,
+  beside ``method="column"`` (K1 once per column) in the same run;
 * ``cage15``: cage15_class, banded(5,154,859, 19, sigma 10,000), float64;
 * ``kron``: kron_g500_logn21_class, rmat(21, 182,082,942), float64.
 
@@ -232,40 +233,71 @@ def _spmm_parts_ms(op, X, dev) -> dict:
             "column_is_copied": not X[:, 0].is_contiguous()}
 
 
-def run_spmm(label, csr, dev) -> dict:
-    """{"spmm_<label>_k<k>": entry} for k in SPMM_K: op.mm (K1 once per
-    column, X row-major [cols, k]) verified, then timed as one CUDA graph
-    of its k launches and the stack, and eagerly; cuSPARSE SpMM on the
-    same X; both again with X column-major (``colmajor_ms``: its columns
-    need no copy); the SpMM bound (A read once) and the column loop's (A
-    read k times).  The first entry also holds K1's single-column policy
-    record (``card_spmv``)."""
+def _spmm_check(Y, gold) -> tuple:
+    """(verified, relative error): the JAX tool's check of an SpMM result,
+    max |Y - gold| below SPMM_REL_TOL of max |gold|."""
+    err = float(np.max(np.abs(Y.cpu().numpy() - gold), initial=0.0))
+    scale = float(np.max(np.abs(gold), initial=0.0)) + 1e-9
+    ok = (tuple(Y.shape) == gold.shape and bool(torch.isfinite(Y).all())
+          and err / scale < SPMM_REL_TOL)
+    return ok, err / scale
+
+
+def _launched(fn, dev) -> tuple:
+    """fn()'s result and the K1 and K1m launches it made."""
+    before = dict(K.LAUNCHES)
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, {k: K.LAUNCHES[k] - before[k]
+                 for k in ("merge_tile_fused", "merge_tile_mm")}
+
+
+def run_spmm(label, csr, dev, gather_rows=None) -> dict:
+    """{"spmm_<label>_k<k>": entry} for k in SPMM_K, X row-major [cols, k]:
+    op.mm (one K1m launch) and op.mm(method="column") (K1 once per
+    column), each verified against spmm_gold, then timed in the same run
+    as one CUDA graph (and eagerly); cuSPARSE SpMM on the same X; both
+    again with X column-major (``colmajor_ms``: op.mm makes it row-major
+    once); the SpMM bound (A read once) and the column loop's (A read k
+    times); K1m alone warm and cold beside cuSPARSE in turns, against its
+    plain version (``card_spmm``), and its gather bound from the row-gather
+    probe (``gather_rows``: {k: tools/gather_rate.py::measure_rows' record
+    for rows of k floats}, measured here when None): the rows' rate at
+    this matrix's columns in their order (``gather_bound_ms``) and at
+    random ones over the same X (``gather_bound_random_ms``).  The first entry also holds K1's single-column
+    policy record (``card_spmv``)."""
     on_card = dev.type == "cuda"
     op = build_operator(csr, dtype="float32", device=dev)
     out = {}
+    from merge_spmv_tpu_torch.tools import gather_rate as GR
+    if on_card and gather_rows is None:
+        rows = GR.measure_rows(op.col_indices, csr.num_cols, SPMM_K)
+        gather_rows = {k: rows[str(k)] for k in SPMM_K}
     for k in SPMM_K:
         _log(f"== spmm_{label}_k{k} ==")
         X = np.random.RandomState(2).uniform(-1, 1, (csr.num_cols, k)
                                              ).astype(np.float32)
         Xd = torch.from_numpy(X).to(dev)
-        before = K.LAUNCHES["merge_tile_fused"]
-        Y = op.mm(Xd)
-        if on_card:
-            torch.cuda.synchronize()
-        launches = K.LAUNCHES["merge_tile_fused"] - before
         gold = csr.spmm_gold(X)
-        err = float(np.max(np.abs(Y.cpu().numpy() - gold)))
-        scale = float(np.max(np.abs(gold))) + 1e-9
-        ok = (tuple(Y.shape) == gold.shape and bool(torch.isfinite(Y).all())
-              and err / scale < SPMM_REL_TOL)
-        del Y, gold
+        Y, launches = _launched(lambda: op.mm(Xd), dev)
+        ok, rel = _spmm_check(Y, gold)
+        Yc, col_launches = _launched(lambda: op.mm(Xd, method="column"),
+                                     dev)
+        col_ok, col_rel = _spmm_check(Yc, gold)
+        del Y, Yc, gold
         ms = M.fn_ms(lambda: op.mm(Xd), dev)
+        col_ms = M.fn_ms(lambda: op.mm(Xd, method="column"), dev)
         gflops = 2 * csr.num_nonzeros * k / ms / 1e6
         rec = {"rows": csr.num_rows, "nnz": csr.num_nonzeros, "k": k,
                "avg_ms": ms, "gflops": gflops, "verified": ok,
-               "method": "column_loop",
+               "method": "k1m",
                "timing": "graph" if on_card else "host",
-               "rel_err": err / scale, "k1_launches": launches,
+               "rel_err": rel, "k1_launches": launches["merge_tile_fused"],
+               "k1m_launches": launches["merge_tile_mm"],
+               "column_loop_ms": col_ms, "column_loop_verified": col_ok,
+               "column_loop_rel_err": col_rel,
+               "column_loop_k1_launches": col_launches["merge_tile_fused"],
                "x_layout": "row-major [cols, k], the same tensor for op.mm "
                            "and cuSPARSE (colmajor_*: X column-major)",
                **M.device_record(dev)}
@@ -274,32 +306,41 @@ def run_spmm(label, csr, dev) -> dict:
             Xc = Xd.t().contiguous().t()     # the same X, column-major
             rec.update({
                 "eager_ms": M.fn_ms(lambda: op.mm(Xd), dev, graph=False),
+                "column_loop_eager_ms": M.fn_ms(
+                    lambda: op.mm(Xd, method="column"), dev, graph=False),
                 "colmajor_ms": M.fn_ms(lambda: op.mm(Xc), dev),
-                "cusparse_spmm_ms": M.fn_ms(
-                    lambda: torch.sparse.mm(lib, Xd), dev),
                 "cusparse_spmm_colmajor_ms": M.fn_ms(
                     lambda: torch.sparse.mm(lib, Xc), dev),
-                "spmm_bytes": M.spmm_bytes(csr.num_rows, csr.num_cols,
-                                           csr.num_nonzeros, k, 4),
                 "column_loop_bytes": k * M.spmv_bytes(
                     csr.num_rows, csr.num_cols, csr.num_nonzeros, 4),
-                **_spmm_parts_ms(op, Xd, dev)})
-            rec["spmm_bound_ms"] = M.bound_ms(rec["spmm_bytes"], dev)
+                **_spmm_parts_ms(op, Xd, dev), **M.card_spmm(op, Xd)})
             rec["column_loop_bound_ms"] = M.bound_ms(
                 rec["column_loop_bytes"], dev)
+            g = gather_rows[k]
+            rec["gather_rows"] = g
+            rec["gather_rate_gbps"] = g["matrix_rate_gbps"]
+            for key, rate in (("gather_bound_ms", g["matrix_rate_gbps"]),
+                              ("gather_bound_random_ms",
+                               g["random_rate_gbps"])):
+                rec[key] = GR.rows_gather_bound_ms(
+                    csr.num_nonzeros, 4 * k, rate, rec["spmm_bytes"],
+                    peak_hbm_bandwidth(dev))
             if k == SPMM_K[0]:
                 x1 = Xd[:, 0].contiguous()
                 rec["spmv_k1"] = M.card_spmv(op, x1)
             _log(f"  op.mm {ms:.4f} ms (eager {rec['eager_ms']:.4f}, X "
                  f"column-major {rec['colmajor_ms']:.4f}) {gflops:.1f} "
-                 f"GFLOP/s verified={ok}; cuSPARSE SpMM "
+                 f"GFLOP/s verified={ok}; column loop {col_ms:.4f} "
+                 f"verified={col_ok}; K1m warm {rec['k1m_ms']:.4f} cold "
+                 f"{rec['k1m_cold_ms']:.4f}; cuSPARSE SpMM "
                  f"{rec['cusparse_spmm_ms']:.4f} (X column-major "
                  f"{rec['cusparse_spmm_colmajor_ms']:.4f}); bound "
-                 f"{rec['spmm_bound_ms']:.4f} (column loop "
-                 f"{rec['column_loop_bound_ms']:.4f}); column copies "
-                 f"{rec['column_copies_ms']:.4f}, stack {rec['stack_ms']:.4f}")
+                 f"{rec['spmm_bound_ms']:.4f}, gather bound "
+                 f"{rec['gather_bound_ms']:.4f} (column loop "
+                 f"{rec['column_loop_bound_ms']:.4f})")
         else:
-            _log(f"  op.mm {ms:.4f} ms on the CPU verified={ok}")
+            _log(f"  op.mm {ms:.4f} ms, column loop {col_ms:.4f} ms on the "
+                 f"CPU verified={ok and col_ok}")
         out[f"spmm_{label}_k{k}"] = rec
     return out
 

@@ -1,23 +1,26 @@
-"""SpMM on the grid3d(n) Laplacian with k columns: the merge column loop
-(K1 once per column) against the DIA operator's (K3 once per column),
-beside cuSPARSE SpMM.
+"""SpMM on the grid3d(n) Laplacian with k columns: the merge operator's
+``op.mm`` (one K1m launch) and its column loop (``method="column"``: K1
+once per column), the DIA operator's ``mm`` (one K3m launch) and its
+column loop (K3 once per column), beside cuSPARSE SpMM.
 
     python -m merge_spmv_tpu_torch.tools.bench_spmm [n] [k] [--cpu]
         [--out PATH]
 
 Counterpart of tools/bench_spmm.py (n = 60, k = 32 by default; values and
-X uniform(0.5, 1.5) from RandomState(0)).  Both paths are verified against
+X uniform(0.5, 1.5) from RandomState(0)).  Every path is verified against
 ``spmm_gold`` (the JAX tool's check: the dense |A| |X| bound up to 4,096
-rows, else the ULP rule alone), then timed: ``op.mm(X)`` of
-``build_operator`` and of ``build_dia_operator``, each as one CUDA graph
-of its launches and its stack of columns (and eagerly).  The JAX tool
-times its DIA SpMM as a jnp shifted-FMA; here it is the operator's own
-``mm``.  ``actual_gbps`` keeps the JAX tool's "actual DIA bytes" (the
-diagonal table, X and Y once each; this K3 reads X within bounds, so
-without the JAX tool's padding).  Added: cuSPARSE SpMM (``torch.sparse.mm``
-of an int32 CSR by the same row-major X), the same with X column-major (the column loop's columns then need no
-copy), the SpMM bound (A read once), the launches per call, and the
-device.  Writes
+rows, else the ULP rule alone), then timed in the same run, each as one
+CUDA graph of its launches (and eagerly).  The JAX tool times its DIA SpMM
+as a jnp shifted-FMA; here it is the operator's own ``mm``, whose K3m is
+that shifted multiply-add as one kernel.  ``column_loop`` and ``dia`` keep
+the JAX record's keys (``column_loop`` is the column loop, as there;
+``dia`` the operator's ``mm``); ``k1m`` and ``dia_column`` are added.
+``actual_gbps`` keeps the JAX tool's "actual DIA bytes" (the diagonal
+table, X and Y once each; K3m reads X within bounds, so without the JAX
+tool's padding).  Added: cuSPARSE SpMM (``torch.sparse.mm`` of an int32 CSR
+by the same row-major X), the same with X column-major, the SpMM bound (A
+read once), the launches per call, K1m and K3m alone warm and with a cold
+L2 against their plain versions, and the device.  Writes
 ``bench/BENCH_SPMM_h100.json`` (``_cpu.json`` with ``--cpu``) or
 ``--out``; never the root's BENCH_SPMM.json, the TPU's.
 """
@@ -49,27 +52,56 @@ DENSE_BOUND_ROWS = 4096
 
 def _launches():
     return {"merge_tile_fused": K.LAUNCHES["merge_tile_fused"],
-            "dia_matvec": DK.LAUNCHES["dia_matvec"]}
+            "merge_tile_mm": K.LAUNCHES["merge_tile_mm"],
+            "dia_matvec": DK.LAUNCHES["dia_matvec"],
+            "dia_matmat": DK.LAUNCHES["dia_matmat"]}
 
 
 def _since(before):
     return {k: v - before[k] for k, v in _launches().items()}
 
 
-def _mm_entry(op, Xd, gold, bound, csr, k, dev) -> dict:
-    """op.mm(X) verified against gold, then timed (graph and eager)."""
+def _mm_entry(op, Xd, gold, bound, csr, k, dev, method="auto") -> dict:
+    """op.mm(X, method=method) verified against gold, then timed (graph
+    and eager)."""
     before = _launches()
-    Y = op.mm(Xd)
+    Y = op.mm(Xd, method=method)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
     launches = _since(before)
     ok = (tuple(Y.shape) == gold.shape and bool(torch.isfinite(Y).all())
           and compare_results(Y.cpu().numpy(), gold, verbose=False,
                               abs_bound=bound) is None)
-    ms = M.fn_ms(lambda: op.mm(Xd), dev)
+    ms = M.fn_ms(lambda: op.mm(Xd, method=method), dev)
     rec = {"avg_ms": ms, "gflops": 2 * k * csr.num_nonzeros / ms / 1e6,
-           "verified": ok, "launches": launches}
+           "verified": ok, "launches": launches, "method": method}
     if dev.type == "cuda":
-        rec["eager_ms"] = M.fn_ms(lambda: op.mm(Xd), dev, graph=False)
+        rec["eager_ms"] = M.fn_ms(lambda: op.mm(Xd, method=method), dev,
+                                  graph=False)
     return rec
+
+
+def card_dia_matmat(dop, Xd) -> dict:
+    """K3m alone on the DIA operator's table, warm and with a cold L2, and
+    its plain version (the JAX package's shifted multiply-add) on the same
+    X: the plain version's time (eager), the largest difference and
+    whether the two agree within |A| |X| per column."""
+    args = (dop.vtab, Xd, dop.offsets_t, dop.num_rows, dop.num_cols)
+    flush = M._Flush(Xd.device)
+    warm = M.event_ms(lambda: DK.dia_matmat(*args), iters=20)
+    cold = flush.cold_ms(lambda: DK.dia_matmat(*args))
+    Y = DK.dia_matmat(*args)
+    plain = DK.dia_matmat_plain(*args)
+    err = float((Y - plain).abs().max())
+    scale = DK.dia_matmat_plain(dop.vtab.abs(), Xd.abs(), *args[2:])
+    y, yp, sc = Y.cpu().numpy(), plain.cpu().numpy(), scale.cpu().numpy()
+    ok = all(compare_results(y[:, c], yp[:, c], verbose=False,
+                             abs_bound=sc[:, c]) is None
+             for c in range(Xd.shape[1]))
+    plain_ms = M.event_ms(lambda: DK.dia_matmat_plain(*args), iters=1,
+                          reps=2, warmup=1, graph=False)
+    return {"k3m_ms": warm, "k3m_cold_ms": cold, "k3m_plain_ms": plain_ms,
+            "k3m_plain_max_abs_err": err, "k3m_plain_ok": ok}
 
 
 def run(n: int = 60, k: int = 32, device=None) -> dict:
@@ -93,8 +125,10 @@ def run(n: int = 60, k: int = 32, device=None) -> dict:
            "x_layout": "row-major [cols, k], the same tensor for every "
                        "path", **M.device_record(dev)}
     op = build_operator(csr, dtype="float32", device=dev)
-    out["column_loop"] = _mm_entry(op, Xd, gold, bound, csr, k, dev)
+    out["column_loop"] = _mm_entry(op, Xd, gold, bound, csr, k, dev,
+                                   "column")
     out["column_loop"]["policy"] = op.plan.policy
+    out["k1m"] = _mm_entry(op, Xd, gold, bound, csr, k, dev)
     t0 = time.perf_counter()
     dop = build_dia_operator(csr, dtype="float32", device=dev)
     if dop.vtab is not None:
@@ -107,20 +141,26 @@ def run(n: int = 60, k: int = 32, device=None) -> dict:
                     "setup_ms": dop.setup_ms,
                     "wall_s": time.perf_counter() - t0})
         out["dia"] = rec
+        out["dia_column"] = _mm_entry(dop, Xd, gold, bound, csr, k, dev,
+                                      "column")
         if dev.type == "cuda":
             out["dia"]["bytes_bound_ms"] = M.bound_ms(dia_bytes, dev)
+            out["dia"].update(card_dia_matmat(dop, Xd))
     if dev.type == "cuda":
         lib = M.library_csr(op)
         Xc = Xd.t().contiguous().t()     # the same X, column-major
-        out["cusparse_spmm_ms"] = M.fn_ms(lambda: torch.sparse.mm(lib, Xd),
-                                          dev)
         out["cusparse_spmm_colmajor_ms"] = M.fn_ms(
             lambda: torch.sparse.mm(lib, Xc), dev)
-        out["column_loop"]["colmajor_ms"] = M.fn_ms(lambda: op.mm(Xc), dev)
-        out["spmm_bytes"] = M.spmm_bytes(csr.num_rows, csr.num_cols,
-                                         csr.num_nonzeros, k, 4)
-        out["spmm_bound_ms"] = M.bound_ms(out["spmm_bytes"], dev)
-    for name in ("column_loop", "dia"):
+        out["column_loop"]["colmajor_ms"] = M.fn_ms(
+            lambda: op.mm(Xc, method="column"), dev)
+        out["k1m"]["colmajor_ms"] = M.fn_ms(lambda: op.mm(Xc), dev)
+        # K1m alone warm and cold in turns with cuSPARSE SpMM, against its
+        # plain version; the SpMM bound
+        out["k1m"].update(M.card_spmm(op, Xd))
+        out["cusparse_spmm_ms"] = out["k1m"]["cusparse_spmm_ms"]
+        out["spmm_bytes"] = out["k1m"]["spmm_bytes"]
+        out["spmm_bound_ms"] = out["k1m"]["spmm_bound_ms"]
+    for name in ("column_loop", "k1m", "dia", "dia_column"):
         if name in out:
             r = out[name]
             print(f"{name}: {r['avg_ms']:8.4f} ms {r['gflops']:7.1f} GFLOP/s "
@@ -130,7 +170,11 @@ def run(n: int = 60, k: int = 32, device=None) -> dict:
         print(f"cuSPARSE SpMM {out['cusparse_spmm_ms']:.4f} ms (X "
               f"column-major {out['cusparse_spmm_colmajor_ms']:.4f}); column "
               f"loop with X column-major "
-              f"{out['column_loop']['colmajor_ms']:.4f} ms; SpMM bound "
+              f"{out['column_loop']['colmajor_ms']:.4f} ms; K1m warm "
+              f"{out['k1m']['k1m_ms']:.4f} cold {out['k1m']['k1m_cold_ms']:.4f}"
+              f"; K3m warm {out['dia']['k3m_ms']:.4f} cold "
+              f"{out['dia']['k3m_cold_ms']:.4f} (plain ok "
+              f"{out['dia']['k3m_plain_ok']}); SpMM bound "
               f"{out['spmm_bound_ms']:.4f} ms", flush=True)
     return out
 

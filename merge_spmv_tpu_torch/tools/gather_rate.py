@@ -16,6 +16,14 @@ peak)``.  ``gather_bound_ms`` then charges a matrix its distinct sectors
 per warp request (``warp_sectors``) at that rate, plus its streams at the
 HBM peak.
 
+The rows class is the multi-RHS tile kernel's gather (csrc/merge_csrmm.cu):
+every read a whole X row of 4 * lanes floats (32 B at k = 8, 128 B at
+k = 32), ``gather_rows`` / ``gather_rows_plain``.  ``measure_rows`` times it
+at a matrix's own column indices (spread over the grid, so that neighbouring
+nonzeros go to different SMs: L2's rate for whole requests) and at random
+ones over the same X; ``rows_gather_bound_ms`` charges an SpMM its nnz row
+requests at that rate plus A, X and Y once at the HBM peak.
+
     python -m merge_spmv_tpu_torch.tools.gather_rate
 
 prints one JSON line with the rates.  It writes no file.
@@ -39,11 +47,14 @@ from merge_spmv_tpu_torch.utils.cuda_build import (check_operand,
 from merge_spmv_tpu_torch.utils.device import device_info, peak_hbm_bandwidth
 
 __all__ = ["gather_sum", "gather_sum_plain", "warp_sectors", "measure",
-           "gather_bound_ms", "LAUNCHES", "reset_launches", "KERNEL_SOURCE",
-           "SIZES"]
+           "gather_bound_ms", "gather_rows", "gather_rows_plain",
+           "measure_rows", "rows_gather_bound_ms", "LAUNCHES",
+           "reset_launches", "KERNEL_SOURCE", "SIZES", "ROW_FLOATS"]
 
 KERNEL_SOURCE = "gather_rate"
-LAUNCHES = {"gather_rate": 0}
+LAUNCHES = {"gather_rate": 0, "gather_rows": 0}
+# row widths of the rows class: 4 * lanes floats
+ROW_FLOATS = (4, 8, 16, 32, 64)
 THREADS = 256
 BLOCKS_PER_SM = 8            # 2048 threads: a full SM
 H100_SMS = 132
@@ -54,7 +65,8 @@ COUNT = 1 << 26              # reads per launch
 
 
 def reset_launches():
-    LAUNCHES["gather_rate"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _lib():
@@ -64,6 +76,9 @@ def _lib():
         lib.gather_rate_f32.argtypes = [p, p, ctypes.c_longlong,
                                         ctypes.c_int, p, p]
         lib.gather_rate_f32.restype = ctypes.c_int
+        lib.gather_rows_f32.argtypes = [p, p, ctypes.c_longlong,
+                                        ctypes.c_int, ctypes.c_int, p, p]
+        lib.gather_rows_f32.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -105,6 +120,83 @@ def gather_sum(x, idx, blocks=None):
     raise_on_launch(KERNEL_SOURCE, rc, "gather_rate")
     LAUNCHES["gather_rate"] += 1
     return out
+
+
+def gather_rows_plain(X, idx, threads):
+    """``out[g, :] = sum_j X[idx[g + j * G], :]`` in j order, G = threads
+    / lanes groups of lanes = X.shape[1] / 4 threads, flattened: thread t's
+    four floats at [4 t, 4 t + 4)."""
+    G = threads * 4 // X.shape[1]
+    out = torch.zeros(G, X.shape[1], dtype=torch.float32, device=X.device)
+    for j in range(0, idx.shape[0], G):
+        seg = idx[j:j + G].long()
+        out[:seg.shape[0]] += X[seg]
+    return out.reshape(-1)
+
+
+def gather_rows(X, idx, blocks=None):
+    """The rows class: the kernel for CUDA tensors (``blocks`` of 256
+    threads, default a full card), the plain version for CPU tensors.
+    ``X`` float32 [n, row_floats] contiguous with row_floats in
+    ROW_FLOATS, ``idx`` int32 in ``[0, n)``."""
+    dev = X.device
+    blocks = _blocks(dev) if blocks is None else int(blocks)
+    if X.dim() != 2 or X.shape[1] not in ROW_FLOATS:
+        raise ValueError(f"X must be [n, w] with w in {ROW_FLOATS}")
+    if on_cpu(X, idx):
+        return gather_rows_plain(X, idx, blocks * THREADS)
+    check_operand("X", X, torch.float32)
+    check_operand("idx", idx, torch.int32)
+    if idx.dim() != 1:
+        raise ValueError("idx must be a vector")
+    out = torch.empty(blocks * THREADS * 4, dtype=torch.float32, device=dev)
+    with device_context(dev):
+        rc = _lib().gather_rows_f32(X.data_ptr(), idx.data_ptr(),
+                                    idx.shape[0], X.shape[1], blocks,
+                                    out.data_ptr(), raw_stream(dev))
+    raise_on_launch(KERNEL_SOURCE, rc, "gather_rows")
+    LAUNCHES["gather_rows"] += 1
+    return out
+
+
+def rows_gather_bound_ms(nnz: int, row_bytes: int, rate_gbps: float,
+                         stream_bytes: int, peak_gbps: float) -> float:
+    """The least time of an SpMM whose nnz X-row requests of
+    ``row_bytes`` come from L2 at ``rate_gbps``, plus ``stream_bytes`` (A,
+    X and Y once) at the HBM peak."""
+    return (nnz * row_bytes / rate_gbps + stream_bytes / peak_gbps) / 1e6
+
+
+def measure_rows(col_indices, num_cols: int, row_floats=(8, 32), seed=0,
+                 device=None) -> dict:
+    """Per row width: ms per launch reading one X row per index, at the
+    matrix's ``col_indices`` in their order and at as many random indices
+    over the same ``num_cols`` rows, and each case's rate in GB/s of rows
+    (its index and output streams taken off at the HBM peak).  Needs the
+    card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise RuntimeError("the gather rate is measured on the card")
+    peak = peak_hbm_bandwidth(dev)
+    blocks = _blocks(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cols = torch.as_tensor(col_indices).to(dev, torch.int32)
+    count = cols.shape[0]
+    rand = torch.randint(0, num_cols, (count,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    stream_bytes = count * 4 + blocks * THREADS * 16
+    result = {}
+    for w in row_floats:
+        X = torch.rand(num_cols, w, generator=gen, device=dev)
+        rec = {"row_bytes": 4 * w, "count": count}
+        for name, idx in (("matrix", cols), ("random", rand)):
+            ms = _event_ms(lambda: gather_rows(X, idx, blocks))
+            s = ms * 1e-3 - stream_bytes / (peak * 1e9)
+            rec[f"{name}_ms"] = ms
+            rec[f"{name}_rate_gbps"] = count * 4 * w / s / 1e9
+        result[str(w)] = rec
+        del X
+    return result
 
 
 def warp_sectors(col_indices, dtype="float32") -> int:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -23,7 +24,7 @@ import torch
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_library",
            "load_library", "on_cpu", "check_operand", "raise_on_launch",
-           "device_context", "raw_stream"]
+           "device_context", "raw_stream", "row_major", "alignment"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -126,3 +127,21 @@ def check_operand(name, t, dtype, shape=None):
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
+
+
+def row_major(t) -> bool:
+    """Rows of ``t`` [n, k] lie apart at ``stride(0)``, their k values next
+    to each other: what the multi-RHS kernels read in place."""
+    return (t.shape[1] <= 1 or t.stride(1) == 1) and \
+        (t.shape[0] <= 1 or t.stride(0) >= t.shape[1])
+
+
+def alignment(itemsize: int, *tensors) -> int:
+    """The largest of 16, 8, 4, ... bytes that divides every given
+    tensor's address and row stride in bytes: the widest vector load a
+    multi-RHS kernel may use on them."""
+    a = 16
+    for t in tensors:
+        if t is not None:
+            a = math.gcd(a, t.data_ptr(), t.stride(0) * itemsize)
+    return a

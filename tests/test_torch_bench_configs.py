@@ -235,12 +235,15 @@ def test_spmm_cpu_run_verified_with_jax_keys(tmp_path):
     with open(REPO / "BENCH_SPMM.json") as f:
         tpu = json.load(f)
     assert set(tpu) <= set(rec)
-    for part in ("column_loop", "dia"):
-        assert set(tpu[part]) <= set(rec[part])
+    for part in ("column_loop", "k1m", "dia", "dia_column"):
+        assert set(tpu.get(part, {})) <= set(rec[part])
         assert rec[part]["verified"] is True
         # the plain versions on the CPU: no kernel launched
         assert rec[part]["launches"] == {"merge_tile_fused": 0,
-                                         "dia_matvec": 0}
+                                         "merge_tile_mm": 0,
+                                         "dia_matvec": 0, "dia_matmat": 0}
+    assert rec["column_loop"]["method"] == rec["dia_column"]["method"] \
+        == "column"
     assert (rec["rows"], rec["nnz"], rec["k"]) == (216, 1080, 4)
     assert rec["dia"]["diagonals"] == 6 and rec["dia"]["rest_nnz"] == 0
     assert rec["device"] == "cpu"
@@ -272,8 +275,14 @@ def test_config_entry_has_jax_keys_and_is_verified(configs_run, key):
     assert set(want) <= set(got)
     assert got["verified"] is True
     for k in ("dtype", "k", "method", "gen"):
-        if k in want:
+        if k in want and not (k == "method" and key.startswith("spmm")):
             assert got[k] == want[k]
+    if key.startswith("spmm"):
+        # op.mm is one K1m launch here; the TPU's method, the column
+        # loop, is timed and verified beside it
+        assert (got["method"], want["method"]) == ("k1m", "column_loop")
+        assert got["column_loop_verified"] is True
+        assert got["column_loop_ms"] > 0
     assert got["timing"] == "host" and got["device"] == "cpu"
     assert got.get("pct_peak") is None
     if got.get("dtype") == "float64":

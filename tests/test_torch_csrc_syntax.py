@@ -65,7 +65,12 @@ template <class T> T __shfl_sync(unsigned, T, int);
 void __syncthreads();
 size_t __cvta_generic_to_shared(const void*);
 long long clock64();
+void __syncwarp(unsigned = 0xffffffffu);
 struct int4 { int x, y, z, w; };
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+struct double2 { double x, y; };
+float4 make_float4(float, float, float, float);
 int4 make_int4(int, int, int, int);
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }

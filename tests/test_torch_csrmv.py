@@ -187,7 +187,7 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     b = K.merge_csrmv_plain(v, ci, re_, torch.from_numpy(x), tr, tn, 1024)
     assert torch.equal(a, b)
     assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 0,
-                          "carry_fixup": 0}
+                          "carry_fixup": 0, "merge_tile_mm": 0}
 
 
 # ---------------------------------------------------------------------- #

@@ -521,9 +521,10 @@ def test_operator_counts_launches(card):
     y = op(torch.ones(csr.num_cols, device=card))
     Y = op.mm(torch.ones(csr.num_cols, 3, device=card))
     torch.cuda.synchronize()
-    # one launch per op(x) and per column: the fused kernel, no fix-up
-    assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 4,
-                          "carry_fixup": 0}
+    # one launch per op(x) (the fused kernel, no fix-up) and one K1m
+    # launch for all columns of op.mm
+    assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 1,
+                          "carry_fixup": 0, "merge_tile_mm": 1}
     gold = csr.spmv_gold(np.ones(csr.num_cols, np.float32))
     np.testing.assert_array_equal(y.cpu().numpy(), gold)
     np.testing.assert_array_equal(Y[:, 2].cpu().numpy(), gold)
@@ -575,7 +576,7 @@ def test_plain_route_and_short_operands_refused_on_the_card(card):
     with pytest.raises(ValueError, match="another tile size"):
         K.merge_tile(v, ci, re_, x, tr, tn, 1024)
     assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 0,
-                          "carry_fixup": 0}
+                          "carry_fixup": 0, "merge_tile_mm": 0}
 
 
 # ---------------------------------------------------------------------- #
@@ -654,9 +655,10 @@ def test_dia_operator_counts_launches(card):
     op(torch.ones(csr.num_cols, device=card))
     op.mm(torch.ones(csr.num_cols, 2, device=card))
     torch.cuda.synchronize()
-    assert D.LAUNCHES == {"dia_matvec": 3}
-    assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 3,
-                          "carry_fixup": 0}
+    # op(x): K3 and the leftover's K1; op.mm: K3m and the leftover's K1m
+    assert D.LAUNCHES == {"dia_matvec": 1, "dia_matmat": 1}
+    assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 1,
+                          "carry_fixup": 0, "merge_tile_mm": 1}
 
 
 def test_dia_operator_bfloat16(card):
@@ -686,7 +688,14 @@ def test_dia_wrapper_rejects_what_the_kernel_does_not_take(card):
         D.dia_matvec(op.vtab[:, ::2], x, *args)
     with pytest.raises(ValueError):
         D.dia_matvec(op.vtab, x.cpu(), *args)
-    assert D.LAUNCHES == {"dia_matvec": 0}
+    X = torch.ones(csr.num_cols, 4, device=card)
+    with pytest.raises(TypeError):
+        D.dia_matmat(op.vtab.double(), X, *args)
+    with pytest.raises(ValueError):
+        D.dia_matmat(op.vtab, X[:-1], *args)
+    with pytest.raises(ValueError):
+        D.dia_matmat(op.vtab, X, *args, Y_in=X[:2])
+    assert D.LAUNCHES == {"dia_matvec": 0, "dia_matmat": 0}
 
 
 # ---------------------------------------------------------------------- #
@@ -766,7 +775,9 @@ def test_split_operators_on_the_card(card, kind):
         card), alpha=1.5, beta=-0.5)
     Y = op.mm(torch.from_numpy(X).to(card))
     torch.cuda.synchronize()
-    assert K.LAUNCHES["merge_tile_fused"] == per_call * (2 + X.shape[1])
+    # op.mm: one K1m launch per merge operator inside, for all columns
+    assert K.LAUNCHES["merge_tile_fused"] == per_call * 2
+    assert K.LAUNCHES["merge_tile_mm"] == per_call
     assert K.LAUNCHES["merge_tile"] == K.LAUNCHES["carry_fixup"] == 0
     cases = [(y, cpu_op(torch.from_numpy(x)), csr.spmv_gold(x),
               csr.spmv_abs_bound(x)),
@@ -864,7 +875,27 @@ def test_gather_rate_kernel_vs_plain(card, count, blocks):
     got = GR.gather_sum(x, idx, blocks)
     want = GR.gather_sum_plain(x, idx, got.shape[0])
     torch.cuda.synchronize()
-    assert GR.LAUNCHES == {"gather_rate": 1}
+    assert GR.LAUNCHES == {"gather_rate": 1, "gather_rows": 0}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("blocks", [1, 3, None])
+@pytest.mark.parametrize("row_floats", [4, 8, 32, 64])
+@pytest.mark.parametrize("count", [0, 5_000, 1_000_003])
+def test_gather_rows_kernel_vs_plain(card, count, row_floats, blocks):
+    """The rows class sums each lane's four floats in the plain version's
+    order: the same bits, with the launch counted."""
+    from merge_spmv_tpu_torch.tools import gather_rate as GR
+    rs = np.random.RandomState(count + row_floats)
+    X = torch.from_numpy(rs.uniform(-1, 1, (10_000, row_floats)).astype(
+        np.float32)).to(card)
+    idx = torch.from_numpy(rs.randint(0, 10_000, count).astype(
+        np.int32)).to(card)
+    GR.reset_launches()
+    got = GR.gather_rows(X, idx, blocks)
+    want = GR.gather_rows_plain(X, idx, got.shape[0] // 4)
+    torch.cuda.synchronize()
+    assert GR.LAUNCHES == {"gather_rate": 0, "gather_rows": 1}
     assert torch.equal(got, want)
 
 
@@ -1019,7 +1050,7 @@ def test_cant_class_float64_against_gold_and_cusparse(card):
 
 def test_spmm_pdb1hys_k8_against_gold_and_cusparse(card):
     """pdb1HYS class (36,417 rows, 4,333,623 nonzeros, float32) times a
-    row-major X of 8 columns through op.mm, one K1 launch per column:
+    row-major X of 8 columns through op.mm, one K1m launch:
     against spmm_gold and cuSPARSE SpMM (torch.sparse.mm), each within
     the JAX tool's 1e-4 of max |Y| (tools/bench_baseline_configs.py:
     369-372)."""
@@ -1035,9 +1066,237 @@ def test_spmm_pdb1hys_k8_against_gold_and_cusparse(card):
     K.reset_launches()
     Y = op.mm(Xd)
     torch.cuda.synchronize()
-    assert K.LAUNCHES["merge_tile_fused"] == 8
+    assert K.LAUNCHES["merge_tile_mm"] == 1
+    assert K.LAUNCHES["merge_tile_fused"] == 0
     gold = csr.spmm_gold(X)
     scale = float(np.abs(gold).max())
     assert float(np.abs(Y.cpu().numpy() - gold).max()) < 1e-4 * scale
     lib = torch.sparse.mm(library_csr(op), Xd).cpu().numpy()
     assert float(np.abs(Y.cpu().numpy() - lib).max()) < 1e-4 * scale
+
+
+# ---------------------------------------------------------------------- #
+# K1m and K3m: SpMM in one launch (csrc/merge_csrmm.cu, dia_matmat)
+# ---------------------------------------------------------------------- #
+
+MM_CASES = ("wheel_hub_spans_tiles", "powerlaw", "empty_rows", "nnz0",
+            "dense_rows", "multi_chunk_cols", "one_col")
+MM_K = (2, 3, 8, 32, 33, 64)
+
+
+def _mm_setup(name, dev, k, dtype, tile_items=256, seed=0,
+              col_major=False):
+    """A CASES matrix with signed values, X [n, k] and Y_in [m, k] on
+    ``dev``; X column-major when asked."""
+    csr = CsrMatrix.from_coo(CASES[name]())
+    rs = np.random.RandomState(seed)
+    csr.values = rs.uniform(-1, 1, csr.num_nonzeros)
+    X = rs.uniform(-1, 1, (csr.num_cols, k))
+    Y_in = rs.uniform(-1, 1, (csr.num_rows, k))
+    v, re_, ci = csr.to_device(dtype=dtype, device=dev)
+    tiles = merge_tile_coordinates(re_, csr.num_nonzeros, tile_items)
+    Xd = torch.from_numpy(X).to(dev, dtype)
+    if col_major:
+        Xd = Xd.t().contiguous().t()
+    return csr, (v, ci, re_), Xd, torch.from_numpy(Y_in).to(dev, dtype), \
+        tiles, X, Y_in
+
+
+def _assert_columns(got, want, csr, X, Y_in, alpha, beta, what):
+    for j in range(X.shape[1]):
+        bound = csr.spmv_abs_bound(X[:, j], Y_in[:, j], alpha, beta)
+        assert compare_results(got[:, j], want[:, j], verbose=False,
+                               abs_bound=bound) is None, f"{what}[:, {j}]"
+
+
+@pytest.mark.parametrize("col_major", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", MM_K)
+@pytest.mark.parametrize("name", MM_CASES)
+def test_k1m_vs_plain_and_gold(card, name, k, dtype, col_major):
+    """K1m against its plain version at the same runs and against gold,
+    column by column within spmv_abs_bound, X row- or column-major (one
+    counted copy), one launch for k up to 64."""
+    csr, arrs, Xd, Yd, tiles, X, Y_in = _mm_setup(
+        name, card, k, dtype, col_major=col_major)
+    K.reset_launches()
+    Y = K.merge_csrmm(*arrs, Xd, *tiles, 256, Yd, 1.5, -0.5)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["merge_tile_mm"] == 1
+    assert K.COPIES["x_row_major"] == int(not Xd.is_contiguous())
+    geo = K.mm_launch_geometry(tiles[0].shape[0] - 1, 256, dtype, card, k)
+    plain = K.merge_csrmm_plain(*arrs, Xd, *tiles, 256, Yd, 1.5, -0.5,
+                                run_tiles=geo.run_tiles)
+    assert Y.shape == (csr.num_rows, k) and Y.dtype == dtype
+    gold = np.stack([csr.spmv_gold(X[:, j], Y_in[:, j], 1.5, -0.5)
+                     for j in range(k)], 1)
+    got = Y.cpu().numpy()
+    _assert_columns(got, plain.cpu().numpy(), csr, X, Y_in, 1.5, -0.5,
+                    "plain")
+    _assert_columns(got, gold, csr, X, Y_in, 1.5, -0.5, "gold")
+
+
+@pytest.mark.parametrize("k", [65, 130])
+def test_k1m_cuts_wide_k_into_column_blocks(card, k):
+    """k above 64: column blocks of 64, a launch each, each reading A
+    once; the result is the plain version's."""
+    csr, arrs, Xd, Yd, tiles, X, Y_in = _mm_setup("powerlaw", card, k,
+                                                  torch.float32)
+    K.reset_launches()
+    Y = K.merge_csrmm(*arrs, Xd, *tiles, 256, Yd, 1.5, -0.5)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["merge_tile_mm"] == -(-k // 64)
+    gold = np.stack([csr.spmv_gold(X[:, j], Y_in[:, j], 1.5, -0.5)
+                     for j in range(k)], 1)
+    _assert_columns(Y.cpu().numpy(), gold, csr, X, Y_in, 1.5, -0.5, "gold")
+
+
+@pytest.mark.parametrize("k", MM_K)
+def test_operator_mm_is_one_k1m_launch(card, k):
+    """op.mm with method="auto": one K1m launch for all k columns and no
+    K1 launch; method="column": k K1 launches; both agree with gold."""
+    csr = _big("hub").astype(np.float32)
+    op = build_operator(csr)
+    rs = np.random.RandomState(k)
+    X = rs.uniform(-1, 1, (csr.num_cols, k)).astype(np.float32)
+    Xd = torch.from_numpy(X).to(card)
+    K.reset_launches()
+    Y = op.mm(Xd)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 0,
+                          "carry_fixup": 0, "merge_tile_mm": 1}
+    Yc = op.mm(Xd, method="column")
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["merge_tile_fused"] == k
+    for j in range(k):
+        gold = csr.spmv_gold(X[:, j])
+        bound = csr.spmv_abs_bound(X[:, j])
+        for got in (Y, Yc):
+            assert compare_results(got[:, j].cpu().numpy(), gold,
+                                   verbose=False, abs_bound=bound) is None
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k1m_repeat_calls_and_graph_replays_bitwise_equal(card, dtype):
+    """Two eager op.mm calls, then 20 replays of a captured one, then an
+    eager call: the same bits every time (the carries are joined in run
+    order; the ticket counter is left at 0, shared with op(x))."""
+    csr = CsrMatrix.from_coo(CooMatrix.wheel(20_000))
+    csr.values = np.random.RandomState(9).uniform(-1, 1, csr.num_nonzeros)
+    op = build_operator(csr, dtype=dtype, tile_items=256)
+    X = torch.from_numpy(np.random.RandomState(10).uniform(
+        -1, 1, (csr.num_cols, 32))).to(card, op.values.dtype)
+    eager = op.mm(X)
+    assert torch.equal(eager, op.mm(X))
+    y = op(X[:, 0].contiguous())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = op.mm(X)
+    replays = []
+    for _ in range(20):
+        graph.replay()
+        replays.append(captured.clone())
+    after = op.mm(X)
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, eager) for r in replays)
+    assert torch.equal(after, eager)
+    assert torch.equal(op(X[:, 0].contiguous()), y)
+
+
+def test_k1m_indexing_past_int32(card):
+    """row * k and col * ldx past 2^31: 2^26 + 2^20 rows and columns, one
+    nonzero a row at a scattered column, k = 32 in float32 (X and Y 8.7 GB
+    each): every Y row is its one product, compared exactly."""
+    m = (1 << 26) + (1 << 20)
+    k = 32
+    assert (m - 1) * k >= 2**31
+    rows = torch.arange(m, device=card, dtype=torch.int64)
+    cols = ((rows * 7919 + 13) % m).to(torch.int32)
+    row_end = (rows + 1).to(torch.int32)
+    values = torch.rand(m, device=card) + 0.5
+    X = torch.rand(m, k, device=card)
+    tiles = merge_tile_coordinates(row_end, m, 2048)
+    Y = K.merge_csrmm(values, cols, row_end, X, *tiles, 2048)
+    torch.cuda.synchronize()
+    want = values[:, None] * X[cols.long()]
+    assert torch.equal(Y, want)
+
+
+def test_k1m_wrapper_rejects_what_the_kernel_does_not_take(card):
+    _, arrs, Xd, Yd, tiles, _, _ = _mm_setup("powerlaw", card, 8,
+                                             torch.float32)
+    with pytest.raises(TypeError):
+        K.merge_csrmm(*arrs, Xd.double(), *tiles, 256)
+    with pytest.raises(ValueError, match="Y_in"):
+        K.merge_csrmm(*arrs, Xd, *tiles, 256, Yd[:, :4])
+    with pytest.raises(ValueError, match="another tile size"):
+        K.merge_csrmm(*arrs, Xd, *tiles, 1024)
+    with pytest.raises(ValueError, match="several devices"):
+        K.merge_csrmm(*arrs, Xd.cpu(), *tiles, 256)
+
+
+@pytest.mark.parametrize("col_major", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("k", MM_K)
+@pytest.mark.parametrize("name", ["grid3d", "rectangular", "wide_band",
+                                  "mixed"])
+def test_k3m_vs_plain_and_gold(card, name, k, dtype, col_major):
+    """K3m against its plain version (the JAX package's shifted
+    multiply-add) and the DIA operator's op.mm against gold, column by
+    column within spmv_abs_bound; one K3m launch."""
+    csr, rs = _dia_case(name)
+    if dtype == "float64":
+        csr = csr.astype(np.float64)
+    op = build_dia_operator(csr, dtype=dtype, max_diags=64)
+    X = rs.uniform(-1, 1, (csr.num_cols, k)).astype(csr.values.dtype)
+    Y0 = rs.uniform(-1, 1, (csr.num_rows, k)).astype(csr.values.dtype)
+    Xd = torch.from_numpy(X).to(card)
+    if col_major:
+        Xd = Xd.t().contiguous().t()
+    Yd = torch.from_numpy(Y0).to(card)
+    D.reset_launches()
+    got = D.dia_matmat(op.vtab, Xd, op.offsets_t, op.num_rows, op.num_cols,
+                       1.5, Yd, -0.5)
+    torch.cuda.synchronize()
+    assert D.LAUNCHES == {"dia_matvec": 0, "dia_matmat": 1}
+    plain = D.dia_matmat_plain(op.vtab, Xd, op.offsets_t, op.num_rows,
+                               op.num_cols, 1.5, Yd, -0.5)
+    if dtype == "float64":
+        torch.testing.assert_close(got, plain, rtol=1e-12, atol=1e-12)
+    else:
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-6)
+    Y = op.mm(Xd, Y_in=Yd, alpha=2.0, beta=-0.5).cpu().numpy()
+    gold = np.stack([csr.spmv_gold(X[:, j], Y0[:, j], 2.0, -0.5)
+                     for j in range(k)], 1)
+    _assert_columns(Y, gold, csr, X, Y0, 2.0, -0.5, "gold")
+
+
+def test_dia_mm_one_k3m_launch_repeat_and_graph_bitwise_equal(card):
+    """DiaSpmvOperator.mm: one K3m launch (beta * Y_in fused, no
+    leftover), bitwise equal on a repeat and on graph replays;
+    method="column" runs K3 once per column."""
+    csr, rs = _dia_case("grid3d")
+    op = build_dia_operator(csr)
+    assert op.rest_op is None
+    X = torch.from_numpy(rs.uniform(-1, 1, (csr.num_cols, 32)).astype(
+        np.float32)).to(card)
+    Y0 = torch.ones(csr.num_rows, 32, device=card)
+    D.reset_launches()
+    K.reset_launches()
+    eager = op.mm(X, Y_in=Y0, alpha=2.0, beta=0.5)
+    torch.cuda.synchronize()
+    assert D.LAUNCHES == {"dia_matvec": 0, "dia_matmat": 1}
+    assert not any(K.LAUNCHES.values())
+    assert torch.equal(eager, op.mm(X, Y_in=Y0, alpha=2.0, beta=0.5))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = op.mm(X, Y_in=Y0, alpha=2.0, beta=0.5)
+    for _ in range(5):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    column = op.mm(X, Y_in=Y0, alpha=2.0, beta=0.5, method="column")
+    torch.cuda.synchronize()
+    assert D.LAUNCHES["dia_matvec"] == 32
+    torch.testing.assert_close(column, eager, rtol=1e-5, atol=1e-5)

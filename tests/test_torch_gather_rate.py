@@ -23,7 +23,7 @@ def test_cpu_gather_sum_is_the_plain_version(count, threads):
     idx = torch.from_numpy(rs.randint(0, 777, count).astype(np.int32))
     GR.reset_launches()
     got = GR.gather_sum(x, idx, threads // GR.THREADS)
-    assert GR.LAUNCHES == {"gather_rate": 0}
+    assert GR.LAUNCHES == {"gather_rate": 0, "gather_rows": 0}
     assert got.shape == (threads,)
     # out[t] = sum over k of x[idx[t + k * threads]], k in order
     want = np.zeros(threads, np.float32)
@@ -32,6 +32,38 @@ def test_cpu_gather_sum_is_the_plain_version(count, threads):
         seg = ids[k:k + threads]
         want[:seg.size] += xs[seg]
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("row_floats", GR.ROW_FLOATS)
+@pytest.mark.parametrize("count", [0, 1000, 20_003])
+def test_cpu_gather_rows_is_the_plain_version(count, row_floats):
+    """The rows class on CPU tensors: out[g, :] = sum over j of
+    X[idx[g + j * G], :], G = threads * 4 / row_floats, j in order;
+    thread t's four floats at [4 t, 4 t + 4)."""
+    rs = np.random.RandomState(count + row_floats)
+    X = torch.from_numpy(rs.uniform(-1, 1, (333, row_floats)).astype(
+        np.float32))
+    idx = torch.from_numpy(rs.randint(0, 333, count).astype(np.int32))
+    GR.reset_launches()
+    got = GR.gather_rows(X, idx, 2)
+    assert not any(GR.LAUNCHES.values())
+    G = 2 * GR.THREADS * 4 // row_floats
+    want = np.zeros((G, row_floats), np.float32)
+    xs, ids = X.numpy(), idx.numpy()
+    for j in range(0, count, G):
+        seg = ids[j:j + G]
+        want[:seg.size] += xs[seg]
+    np.testing.assert_array_equal(got.numpy(), want.reshape(-1))
+    with pytest.raises(ValueError):
+        GR.gather_rows(X[:, :3], idx, 2)
+
+
+def test_rows_gather_bound_arithmetic():
+    # 1e9 requests of 128 B at 6400 GB/s, plus 3.35e9 B at 3350 GB/s
+    assert GR.rows_gather_bound_ms(10**9, 128, 6400.0, 3_350_000_000,
+                                   3350.0) == pytest.approx(21.0)
+    with pytest.raises(RuntimeError, match="on the card"):
+        GR.measure_rows(torch.zeros(4, dtype=torch.int32), 4, device="cpu")
 
 
 def test_warp_sectors_counts_each_request():

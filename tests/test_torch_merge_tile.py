@@ -258,7 +258,7 @@ def test_cpu_wrapper_takes_the_geometry_runs():
     assert crow.shape[0] == geo.grid
     y = K.merge_csrmv(*args, 4096)
     assert K.LAUNCHES == {"merge_tile": 0, "merge_tile_fused": 0,
-                          "carry_fixup": 0}
+                          "carry_fixup": 0, "merge_tile_mm": 0}
     np.testing.assert_allclose(y.numpy(), t.spmv_gold(x), rtol=1e-12,
                                atol=1e-12)
     with pytest.raises(ValueError, match="run_tiles"):
