@@ -12,7 +12,11 @@ Phases, one line of output each (any failure exits non-zero and prints no
              dynamic shared memory and resident blocks per SM at the
              default tile size, in float32 and float64, for each gather
              policy (ops/plan.py::POLICIES); the same for the multi-RHS
-             tile kernel K1m (csrc/merge_csrmm.cu) at k = 8 and 32.
+             tile kernel K1m (csrc/merge_csrmm.cu) at k = 4, 8 and 32,
+             with its rows in flight a walker and its carveout, and the
+             registers and spills of its <float, 4, true, 2> and <float,
+             4, true, 8> instantiations (k = 8 and 32); fails if any K1m
+             instantiation spills.
    stream  — utils/device.py::measure_stream_bandwidth (the STREAM triad
              over 256 MB arrays, CUDA-graph replays) beside the published
              3,350 GB/s.
@@ -521,6 +525,7 @@ def main() -> int:
     from merge_spmv_tpu_torch.tools import gather_rate as GR
     from merge_spmv_tpu_torch.tools import make_corpus as MC
     from merge_spmv_tpu_torch.tools import make_corpus_stats as MS
+    from merge_spmv_tpu_torch.tools import mm_ablation as MMA
     from merge_spmv_tpu_torch.tools import sm_ceiling as P
     from merge_spmv_tpu_torch.utils.compare import compare_results
     from merge_spmv_tpu_torch.utils.cuda_build import (build_library,
@@ -561,16 +566,22 @@ def main() -> int:
                     f"{g.blocks_per_sm})")
     mm_kernel = []
     for dt in (torch.float32, torch.float64):
-        for k in (8, 32):
+        for k in (4, 8, 32):
             blocks, regs = K.mm_kernel_occupancy(dt, DEFAULT_TILE_ITEMS, k,
                                                  dev)
             g = K.mm_launch_geometry(1, DEFAULT_TILE_ITEMS, dt, dev, k)
             mm_kernel.append(
                 f"{str(dt)[6:]} k={k} layout {g.layout} {regs} registers, "
-                f"{g.shared_bytes} B dynamic shared memory, {blocks} blocks "
-                f"per SM (launched: {g.blocks_per_sm})")
-    mm_spills = [ln.strip() for ln in logs[4].splitlines()
-                 if "spill" in ln and not ln.strip().startswith("0 bytes")]
+                f"two batches of {g.batch_rows} X rows in flight a walker, "
+                f"{g.shared_bytes} B dynamic shared memory, carveout "
+                f"{g.carveout}%, {blocks} blocks per SM (launched: "
+                f"{g.blocks_per_sm})")
+    # K1m's instantiations by -Xptxas=-v: registers and spilled bytes
+    mm_ptxas = MMA.ptxas_report(logs[4])
+    mm_spills = sorted(n for n, (_, s) in mm_ptxas.items() if s)
+    mm_named = "; ".join(
+        f"<{n}>: {mm_ptxas[n][0]} registers, {mm_ptxas[n][1]} B spilled"
+        for n in ("float,4,1,2", "float,4,1,8") if n in mm_ptxas)
     print(f"build: {len(sources)} sources in {build_s:.2f} s; "
           f"{' | '.join(ptxas) or 'cached'}; merge_tile at "
           f"{DEFAULT_TILE_ITEMS} items: {'; '.join(tile_kernel)}; "
@@ -578,8 +589,11 @@ def main() -> int:
           f"{sum('Compiling entry' in ln for ln in logs[2].splitlines())} "
           f"instantiations; merge_tile_mm: "
           f"{sum('Compiling entry' in ln for ln in logs[4].splitlines())} "
-          f"instantiations, spills {mm_spills or 'none'}, "
+          f"instantiations, spills {mm_spills or 'none'}, {mm_named}; "
           f"{'; '.join(mm_kernel)}")
+    if mm_spills:
+        print(f"build: K1m instantiations spill registers: {mm_spills}")
+        return 1
     print(f"device: {info['device_kind']} x{info['num_devices']}; "
           f"nvidia-smi: {info['nvidia_smi']}")
 
@@ -768,7 +782,10 @@ def main() -> int:
           f"op.mm: {one_launch}), verified {len(checks) - len(bad)}/"
           f"{len(checks)}{' FAILED ' + str(bad) if bad else ''}; two op(x) "
           f"calls bitwise equal: {repeat_same}; K1m ({mm_geo.grid} blocks, "
-          f"layout {mm_geo.layout}) against its plain version max|err| "
+          f"{mm_geo.blocks_per_sm} per SM, layout {mm_geo.layout}, two "
+          f"batches of {mm_geo.batch_rows} X rows a walker, "
+          f"{mm_geo.shared_bytes} B shared memory, carveout "
+          f"{mm_geo.carveout}%) against its plain version max|err| "
           f"{mm_main_err:.3e}, within |A| |x| and equal to op.mm: "
           f"{mm_main_ok}")
     print(f"main merge_tile launch: fused G = {geo_f.grid} persistent blocks "
@@ -2290,7 +2307,8 @@ def main() -> int:
                 "main_path": True, "cold_ms": e["k1m_cold_ms"],
                 "gather_bound_ms": e["gather_bound_ms"],
                 "gather_bound_random_ms": e["gather_bound_random_ms"],
-                "column_loop_ms": e["column_loop_ms"], "k": e["k"]}
+                "column_loop_ms": e["column_loop_ms"], "k": e["k"],
+                "launch": e["k1m_launch"]}
     kernels.append({**k1m_entry("merge_tile_mm", entries["spmm_cant_k32"],
                                 mm_paths["main"]),
                     "launches_by_path": mm_paths})

@@ -296,7 +296,9 @@ def card_spmm(op, X) -> dict:
                            "threads": geo.threads,
                            "shared_bytes": geo.shared_bytes,
                            "blocks_per_sm": blocks, "registers": regs,
-                           "layout": [lay.per, lay.vector, lay.lanes]},
+                           "layout": [lay.per, lay.vector, lay.lanes],
+                           "batch_rows": geo.batch_rows,
+                           "carveout": geo.carveout},
             "k1m_plain_ms": plain_ms, "k1m_plain_max_abs_err": err,
             "k1m_plain_ok": ok, "spmm_bytes": nbytes,
             "spmm_bound_ms": bound_ms(nbytes, dev)}

@@ -16,43 +16,67 @@
 // block per run (ops/plan.py::mm_geometry), the blocks of one SM on
 // neighbouring runs; each run leaves one carry pair (row, k partials) and
 // the block that takes the last ticket adds every row's carries into Y in
-// run order, kTail pairs a walker at a time.  No floating-point atomics:
-// two calls give the same bits.
+// run order.  No floating-point atomics: two calls give the same bits.
 //
 // Inside a run.  The block walks its tiles in chunks of chunk_tiles tiles
-// (about 2048 merge items).  A chunk's row ends, column indices and values
-// are copied into one of two shared-memory stages by cp.async, the next
-// chunk's while this one is reduced.  Its merge items are then split evenly
-// between walkers: a walker is kLanes lanes of a warp (32 / kLanes walkers a
-// warp), its lane l holding kPer of the k columns, columns l * kPer + e
-// (kVector: one vector load of kPer values) or l + e * kLanes (strided
-// scalar loads).  A walker finds its start and end on the chunk's merge path
-// by a binary search over the staged row ends, then walks its nonzeros in
-// order, kBatch X rows in flight: closes every row that ends before the
-// next nonzero, adds value * X[col, :] into its k-wide partial.  The first
-// row a walker closes may have begun before it; every later one began in it
-// and is written at once, Y[r, :] = alpha * sum + beta * Y_in[r, :], one
-// coalesced store per row.  A segmented scan across the walkers (shuffles
-// within a warp, the warps' totals through shared memory) gives each
-// walker's first row the partial carried from the walkers, chunks and tiles
-// before it, and the chunk's carry into the next.
+// (about 2048 merge items).  A chunk's values, column indices and row ends
+// are three contiguous ranges: thread 0 copies each into one of two
+// shared-memory stages with a 1-D bulk copy (TMA), started at its first
+// element rounded down to 16 bytes, completion counted in bytes on the
+// stage's mbarrier; the next chunk's copies run while this one is walked.
+// The chunk's merge items are split evenly between walkers: a walker is
+// kLanes lanes of a warp (32 / kLanes walkers a warp), its lane l holding
+// kPer of the k columns, columns l * kPer + e (kVector: one vector load of
+// kPer values) or l + e * kLanes (strided scalar loads).  A walker finds
+// its start on the chunk's merge path by one binary search over the staged
+// row ends; its end is the next walker's start, passed by a shuffle within
+// the warp and through shared memory across warps.  It then walks its
+// nonzeros in order, their X rows in two register batches of kBatch rows
+// (batch_rows): the next batch's loads are issued before this batch's adds,
+// so the row-close loop (rows that end before the next nonzero, each end
+// read from shared memory once per row, not once per nonzero) and the adds,
+// value * X[col, :] into the k-wide partial, run with 2 * kBatch rows in
+// flight.  The first row a walker closes may have begun before it; every
+// later one began in it and is written at once, Y[r, :] = alpha * sum +
+// beta * Y_in[r, :], one coalesced store per row.  A segmented scan across
+// the walkers (shuffles within a warp, the warps' totals through shared
+// memory) gives each walker's first row the partial carried from the
+// walkers, chunks and tiles before it, and the chunk's carry into the next.
+// Two block barriers a chunk: one passes the walkers' ends, one the scan's
+// warp totals.  The tail reads all carry rows with one coalesced load into
+// shared memory, finds each pair's lead flag and further carries there, and
+// issues a round's carry and Y-row loads together (fix_up).
 //
 // What bounds it.  A is read once: a value and a column index per nonzero,
 // a row end per row; X and Y once each: spmm_bytes (bench/measure.py).  But
 // X rows are gathered once per nonzero, nnz * k * sizeof(V) bytes from L1 or
 // L2 (512 MB at k = 32 on the cant class against 48 MB of HBM bytes), so
 // only L1 hits bring the kernel to the bytes bound; the L2's rate for whole
-// 32 B and 128 B requests (tools/gather_rate.py, rows class) gives the
-// gather bound.  Hence: four blocks of 256 threads per SM on neighbouring
-// runs, the carveout set (merge_csrmm_init) to what their stages need, so
-// that the rest of the SM's 256 KB is L1 for the X window that a banded
-// matrix's neighbouring rows share; kBatch gathers in flight per walker; A's
-// streams copied asynchronously a chunk ahead.  Measured
-// (tools/mm_ablation.py, PERF.md): neither the gather's scatter nor L1's
-// capacity bounds it on the cant and pdb1HYS classes; the walk does (its
-// serial chain of gathers and adds at 32 warps an SM), then the search and
-// the scan each chunk costs; blocks of 256 threads beat 512 (their barriers
-// stall fewer warps), most at k = 8.
+// rows (tools/gather_rate.py, rows class) gives the gather bound.  Measured
+// (tools/mm_ablation.py, PERF.md; H100 80GB HBM3, 700 W): the previous
+// kernel (commit 51a0a74) spent 63-86% of thread 0's stamped time in its
+// walk, and inside the walk a batch's shared-memory loads before its X-row
+// loads issued (19-35%), the wait for the first row (19-27%) and the
+// row-close loop (26-43%: a dependent shared-memory load of the next row
+// end per nonzero) outweighed the adds (8-14%).  This design's walk is
+// 65-87% of the time again, but split 20-23% issue, 19-27% first-row wait,
+// 17-22% closes and 30-40% adds with the later rows' waits: the X rows'
+// arrival sets the pace, at 1.5-1.8x the gather bound at k = 32.  Neither
+// gathering the same bytes in nonzero order (COAL) nor masking X to 128 KB
+// of L1 (WIN) moves it by more than 12%.  The tail costs 2.0-4.7 us (the
+// previous one 2.2-9.5): at k = 32 its carry and Y rows (127 KB at G =
+// 496) outgrow one block's registers, so it takes four rounds of loads.
+//
+// Measured against the design and lost, in the same run (cant k = 32 /
+// k = 8, ms; tools/mm_ablation.py): a ring of D X-row slots a walker in
+// shared memory filled by cp.async, rows in flight holding no registers
+// (D = 4, 8, 16: 0.1056, 0.1082, 0.1144 / 0.0485, 0.0517, 0.0554 against
+// 0.0772 / 0.0365): a cp.async a lane a row and each row written to shared
+// memory and read back cost more than the registers saved, and D = 8 and
+// 16 cost blocks per SM; four rows a batch at 16-byte lanes (0.0799 /
+// 0.0381: they spill); the previous kernel's per-element cp.async staging
+// (equal here, 23% slower at grid3d(100) k = 4); two searches a walker
+// (0.0786 / 0.0367); the previous tail (0.0820 / 0.0367).
 //
 // Columns: k up to kMaxK = 64 per launch (a wider X is cut into column
 // blocks of 64 by the wrapper, one launch each); the wrapper picks kPer,
@@ -77,24 +101,39 @@ namespace {
 constexpr int kThreads = 256;         // ops/plan.py::MM_THREADS
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 64;             // ops/plan.py::MM_MAX_K
-constexpr int kBatch = 4;             // X rows a walker keeps in flight
 constexpr int kTail = 4;              // carry pairs a walker fixes at once
 constexpr int kBlocksPerSm = 4;       // __launch_bounds__: 64 registers
 constexpr int kChunkItems = 2048;     // ops/plan.py::MM_CHUNK_ITEMS
+constexpr int kStageSlack = 96;       // ops/plan.py::MM_STAGE_SLACK
 constexpr int kMaxSharedBytes = 232448;
 constexpr int kSmSharedBytes = 233472;
 constexpr int kBlockReserved = 1024;
 
-// Dynamic shared memory (ops/plan.py::mm_shared_bytes repeats it): the
-// warps' scan totals (kWarps x width values, width = kLanes * kPer), their
-// flags (kWarps ints), and two stages of chunk_items * (sizeof(V) + 4)
-// bytes: the values, then one int array holding the chunk's row ends
-// followed by its column indices (rows + nonzeros <= chunk_items).
+// X rows a walker loads in one batch, by the bytes a lane loads of each
+// row and the walker's lanes; two batches are in flight (ops/plan.py::
+// mm_batch_rows).  Four rows of 16-byte lanes spill at 64 registers.
+__host__ __device__ constexpr int batch_rows(int lane_bytes, int lanes) {
+  return lane_bytes < 16 ? 4 : lanes <= 2 ? 2 : 3;
+}
+
+// A stage: the chunk's values, then its row ends and column indices, each
+// range copied from its start rounded down to 16 bytes and its size rounded
+// up, so each may take up to 32 bytes more than its data.
 template <typename V>
-__host__ __device__ constexpr size_t mm_shared_bytes(int chunk_items,
-                                                     int width) {
-  return static_cast<size_t>(kWarps) * width * sizeof(V) + kWarps * 4 +
-         2 * static_cast<size_t>(chunk_items) * (sizeof(V) + 4);
+__host__ __device__ constexpr size_t stage_bytes(int chunk_items) {
+  return static_cast<size_t>(chunk_items) * (sizeof(V) + 4) + kStageSlack;
+}
+
+// Dynamic shared memory (ops/plan.py::mm_shared_bytes repeats it): the
+// stages' two mbarriers (16 bytes), two stages, the warps' scan totals
+// (kWarps x width values, width = per * lanes), their flags and the warps'
+// first merge-path starts (kWarps ints each).
+template <typename V>
+__host__ __device__ constexpr size_t mm_shared_bytes(int chunk_items, int per,
+                                                     int lanes) {
+  return 16 + 2 * stage_bytes<V>(chunk_items) +
+         static_cast<size_t>(kWarps) * per * lanes * sizeof(V) +
+         2 * kWarps * 4;
 }
 
 template <typename V, int N>
@@ -199,35 +238,125 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int kSize>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  if constexpr (kSize == 8)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;"
-                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+// --- the stages: bulk copies counted on an mbarrier -----------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
-// The block copies chunk (rows [r0, r1), nonzeros [n0, n1)) into a stage:
-// values at s_val, row ends then column indices at s_int, one cp.async per
-// element, as one commit group.  The clamp keeps the stage in bounds
-// whatever coordinates the caller passed.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        "  .reg .pred p;\n"
+        "  mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "  selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing as bytes on the barrier's transaction count.
+__device__ __forceinline__ void bulk_copy(const void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t head16(const void* p) {
+  return static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p) & 15u);
+}
+
+__device__ __forceinline__ uint32_t round16(uint32_t n) {
+  return (n + 15u) & ~15u;
+}
+
+// p rounded down to 16 bytes.
+__device__ __forceinline__ const unsigned char* floor16(const void* p) {
+  return static_cast<const unsigned char*>(p) - head16(p);
+}
+
+// A chunk of `rows` row ends from r0 and `nnz` nonzeros from n0 in a stage:
+// where each range's first element lands.  Each range is copied from its
+// first element rounded down to 16 bytes, so it lands as far past a 16-byte
+// boundary of the stage as it lies past one in memory: the values at 0,
+// the row ends at chunk_items * sizeof(V) + 32, the column indices after
+// them.
+template <typename V>
+struct StageView {
+  const V* val;
+  const int* re;
+  const int* col;
+};
+
+template <typename V>
+__device__ __forceinline__ StageView<V> stage_view(
+    const unsigned char* stage, const V* values, const int* cols,
+    const int* row_end, int r0, int rows, int n0, int chunk_items) {
+  const size_t vbytes = static_cast<size_t>(chunk_items) * sizeof(V) + 32;
+  const uint32_t hr = head16(row_end + r0);
+  const size_t cbase = vbytes + round16(hr + 4u * rows);
+  StageView<V> v;
+  v.val = reinterpret_cast<const V*>(stage + head16(values + n0));
+  v.re = reinterpret_cast<const int*>(stage + vbytes + hr);
+  v.col = reinterpret_cast<const int*>(stage + cbase + head16(cols + n0));
+  return v;
+}
+
+// The bytes of a bulk copy of `bytes` from src: from src rounded down to
+// 16 bytes, rounded up to 16 (0 for none).
+__device__ __forceinline__ uint32_t copy_bytes(const void* src,
+                                               uint32_t bytes) {
+  return bytes ? round16(head16(src) + bytes) : 0u;
+}
+
+// The chunk (rows [r0, r1), nonzeros [n0, n1)) into a stage: thread 0
+// expects the three ranges' bytes on the stage's barrier and starts one
+// bulk copy each.  The clamp keeps the stage in bounds whatever coordinates
+// the caller passed; the walkers clamp alike.
 template <typename V>
 __device__ __forceinline__ void stage_chunk(const V* values, const int* cols,
                                             const int* row_end, int r0,
                                             int r1, int n0, int n1,
-                                            int chunk_items, V* s_val,
-                                            int* s_int) {
+                                            int chunk_items,
+                                            unsigned char* stage,
+                                            uint64_t* bar) {
+  if (threadIdx.x != 0) return;
   const int nnz = min(max(n1 - n0, 0), chunk_items);
   const int rows = min(max(r1 - r0, 0), chunk_items - nnz);
-  for (int i = threadIdx.x; i < rows; i += blockDim.x)
-    copy_async<4>(s_int + i, row_end + r0 + i);
-  for (int j = threadIdx.x; j < nnz; j += blockDim.x) {
-    copy_async<4>(s_int + rows + j, cols + n0 + j);
-    copy_async<sizeof(V)>(s_val + j, values + n0 + j);
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
+  const StageView<V> v = stage_view(stage, values, cols, row_end, r0, rows,
+                                    n0, chunk_items);
+  const uint32_t bv = copy_bytes(values + n0, sizeof(V) * nnz);
+  const uint32_t br = copy_bytes(row_end + r0, 4u * rows);
+  const uint32_t bc = copy_bytes(cols + n0, 4u * nnz);
+  mbar_expect_tx(bar, bv + br + bc);
+  if (bv) bulk_copy(floor16(v.val), floor16(values + n0), bv, bar);
+  if (br) bulk_copy(floor16(v.re), floor16(row_end + r0), br, bar);
+  if (bc) bulk_copy(floor16(v.col), floor16(cols + n0), bc, bar);
+}
+
+// The X row of nonzero j of the chunk.
+template <typename V>
+__device__ __forceinline__ const V* x_row(const V* X, long long ldx,
+                                          const int* s_col, int j) {
+  return X + static_cast<long long>(s_col[j]) * ldx;
 }
 
 // The rows consumed before merge item d of a chunk of `rows` row ends (raw
@@ -266,6 +395,194 @@ __device__ __forceinline__ void write_row(V* Y, long long ldy, const V* y_in,
   store_row<V, kPer, kVector, kLanes>(Y + r * ldy, l, k, out);
 }
 
+// A walker's state over a chunk: `acc` is the sum since the last row end;
+// the first row closed keeps its partial in `first` for the scan.
+template <typename V, int kPer>
+struct Walk {
+  V acc[kPer];
+  V first[kPer];
+  int closed;
+  int first_row;
+};
+
+// Where closed rows go: Y[r_lo + i, :] for lane l's columns.
+template <typename V>
+struct RowSink {
+  V* Y;
+  long long ldy;
+  const V* y_in;
+  long long ldyin;
+  long long r_lo;
+  V alpha;
+  V beta;
+  int l;
+  int k;
+};
+
+// Closes row i: the walker's first closed row keeps its partial for the
+// scan, every later one is written.
+template <typename V, int kPer, bool kVector, int kLanes>
+__device__ __forceinline__ void close_row(Walk<V, kPer>& w,
+                                          const RowSink<V>& out, int i) {
+  if (w.closed) {
+    write_row<V, kPer, kVector, kLanes>(out.Y, out.ldy, out.y_in, out.ldyin,
+                                        out.r_lo + i, out.l, out.k, out.alpha,
+                                        out.beta, w.acc);
+  } else {
+    w.closed = 1;
+    w.first_row = i;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) w.first[e] = w.acc[e];
+  }
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) w.acc[e] = V(0);
+}
+
+// Lane l's columns of the X rows of nonzeros [j, j + kBatch) (zeros past
+// j_end): kBatch independent loads in flight.
+template <typename V, int kPer, bool kVector, int kLanes, int kBatch>
+__device__ __forceinline__ void load_batch(const StageView<V>& st, int n_lo,
+                                           int j, int j_end, const V* X,
+                                           long long ldx, int l, int k,
+                                           V (&xv)[kBatch][kPer]) {
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    if (j + u < j_end) {
+      load_row<V, kPer, kVector, kLanes, false>(
+          x_row(X, ldx, st.col, j + u), l, k, xv[u]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) xv[u][e] = V(0);
+    }
+  }
+}
+
+// Nonzeros [j, j + kBatch) (up to j_end) into the walker's partial, each
+// after closing the rows that end before it.  The next row end is kept in
+// a register, so a nonzero that closes no row reads no row end.
+template <typename V, int kPer, bool kVector, int kLanes, int kBatch>
+__device__ __forceinline__ void add_batch(const StageView<V>& st, int n_lo,
+                                          int& i, int i_end, int& next_end,
+                                          int j, int j_end,
+                                          const V (&xv)[kBatch][kPer],
+                                          const RowSink<V>& out,
+                                          Walk<V, kPer>& w) {
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    if (j + u >= j_end) break;
+    while (next_end <= j + u) {   // rows that end before nonzero j + u
+      close_row<V, kPer, kVector, kLanes>(w, out, i);
+      ++i;
+      next_end = i < i_end ? st.re[i] - n_lo : 0x7fffffff;
+    }
+    const V a = st.val[j + u];
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) w.acc[e] += a * xv[u][e];
+  }
+}
+
+// The walk of nonzeros [j, j_end) and rows [i, i_end) of a chunk: X rows
+// in two register batches, the next batch's loads issued before this
+// batch's adds and row closes, so 2 * kBatch rows are in flight.
+template <typename V, int kPer, bool kVector, int kLanes>
+__device__ __forceinline__ void walk(const StageView<V>& st, int n_lo, int i,
+                                     int i_end, int j, int j_end, const V* X,
+                                     long long ldx, const RowSink<V>& out,
+                                     Walk<V, kPer>& w) {
+  constexpr int kBatch =
+      batch_rows(kPer * static_cast<int>(sizeof(V)), kLanes);
+  int next_end = i < i_end ? st.re[i] - n_lo : 0x7fffffff;
+  V xa[kBatch][kPer], xb[kBatch][kPer];
+  load_batch<V, kPer, kVector, kLanes, kBatch>(st, n_lo, j, j_end, X, ldx,
+                                               out.l, out.k, xa);
+  for (; j < j_end; j += 2 * kBatch) {
+    load_batch<V, kPer, kVector, kLanes, kBatch>(st, n_lo, j + kBatch, j_end,
+                                                 X, ldx, out.l, out.k, xb);
+    add_batch<V, kPer, kVector, kLanes, kBatch>(st, n_lo, i, i_end,
+                                                next_end, j, j_end, xa, out,
+                                                w);
+    load_batch<V, kPer, kVector, kLanes, kBatch>(
+        st, n_lo, j + 2 * kBatch, j_end, X, ldx, out.l, out.k, xa);
+    add_batch<V, kPer, kVector, kLanes, kBatch>(st, n_lo, i, i_end,
+                                                next_end, j + kBatch, j_end,
+                                                xb, out, w);
+  }
+  for (; i < i_end; ++i)   // rows that end after the walker's last nonzero
+    close_row<V, kPer, kVector, kLanes>(w, out, i);
+}
+
+// The fix-up as the tail: for every row r < num_rows whose first carry is
+// pair t, Y[r, :] += alpha * (r's carries, in run order).  The block reads
+// the carry rows with one coalesced load into shared memory (`s_crow`,
+// room for cap + 1 of them; more pairs go in segments), where each walker
+// finds its pairs' lead flags and further carries; then it issues all of
+// its kTail pairs' carry and Y-row loads before adding any of them.  What
+// other blocks wrote is read through L2.
+template <typename V, int kPer, bool kVector, int kLanes>
+__device__ __forceinline__ void fix_up(const int* carry_row,
+                                       const V* carry_val, V* Y,
+                                       long long ldy, V alpha, int num_rows,
+                                       int num_pairs, int k, int walker,
+                                       int num_walkers, int l, int* s_crow,
+                                       int cap) {
+  for (int base = 0; base < num_pairs; base += cap) {
+    const int n = min(cap, num_pairs - base);
+    // s_crow[q] = carry_row[base - 1 + q], q in [0, n]
+    for (int q = threadIdx.x; q <= n; q += kThreads)
+      s_crow[q] = q + base > 0 ? __ldcg(carry_row + base - 1 + q) : -1;
+    __syncthreads();
+    for (int q0 = walker; q0 < n; q0 += num_walkers * kTail) {
+      int r[kTail], more[kTail];
+#pragma unroll
+      for (int u = 0; u < kTail; ++u) {
+        const int q = q0 + u * num_walkers;
+        r[u] = -1;
+        more[u] = 0;
+        if (q < n) {
+          const int row = s_crow[q + 1];
+          if (row < num_rows && s_crow[q] != row) {   // pair leads its row
+            r[u] = row;
+            int w = q + 2;
+            while (w <= n && s_crow[w] == row) ++w;
+            more[u] = w - q - 2;
+            if (w > n)   // the row's carries reach past the segment
+              for (int t = base + n; t < num_pairs &&
+                                     __ldcg(carry_row + t) == row; ++t)
+                ++more[u];
+          }
+        }
+      }
+      V s[kTail][kPer], yv[kTail][kPer];
+#pragma unroll
+      for (int u = 0; u < kTail; ++u) {
+        if (r[u] < 0) continue;
+        const long long t = base + q0 + u * num_walkers;
+        load_row<V, kPer, kVector, kLanes, true>(carry_val + t * k, l, k,
+                                                 s[u]);
+        load_row<V, kPer, kVector, kLanes, true>(
+            Y + static_cast<long long>(r[u]) * ldy, l, k, yv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kTail; ++u) {
+        if (r[u] < 0) continue;
+        const long long t = base + q0 + u * num_walkers;
+        for (int m = 1; m <= more[u]; ++m) {   // rare: several carries
+          V x[kPer];
+          load_row<V, kPer, kVector, kLanes, true>(carry_val + (t + m) * k,
+                                                   l, k, x);
+#pragma unroll
+          for (int e = 0; e < kPer; ++e) s[u][e] += x[e];
+        }
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) yv[u][e] += alpha * s[u][e];
+        store_row<V, kPer, kVector, kLanes>(
+            Y + static_cast<long long>(r[u]) * ldy, l, k, yv[u]);
+      }
+    }
+    __syncthreads();   // s_crow is free for the next segment
+  }
+}
+
 // The kernel's ticket counter for launches given none.
 __device__ unsigned int g_mm_tickets = 0;
 
@@ -287,20 +604,20 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   constexpr int kWidth = kLanes * kPer;   // columns a walker holds
   constexpr int kWalkersPerWarp = 32 / kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
-  V* s_wtot = reinterpret_cast<V*>(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* stages = smem + 16;
+  const size_t stage_len = stage_bytes<V>(chunk_items);
+  V* s_wtot = reinterpret_cast<V*>(stages + 2 * stage_len);
   int* s_wflag = reinterpret_cast<int*>(s_wtot + kWarps * kWidth);
-  unsigned char* stages = reinterpret_cast<unsigned char*>(s_wflag + kWarps);
-  const size_t stage_len =
-      static_cast<size_t>(chunk_items) * (sizeof(V) + 4);
+  int* s_start = s_wflag + kWarps;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
   const int wl = lane % kLanes;           // lane within the walker
   const int p = lane / kLanes;            // walker within the warp
   const int walker = warp * kWalkersPerWarp + p;
-  const int num_walkers = blockDim.x / kLanes;
+  const int num_walkers = kThreads / kLanes;
   const unsigned full = 0xffffffffu;
 
   // Block b walks run b, or, with sm_blocks = s > 1 (G a multiple of s),
@@ -316,9 +633,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   const int end = min(num_tiles - first, run_tiles) + first;
   const int num_chunks = (end - first + chunk_tiles - 1) / chunk_tiles;
 
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 1, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
   // Chunk c is tiles [first + c * chunk_tiles, ...) up to end; (r_lo, n_lo)
   // and (r_hi, n_hi) are its merge coordinates, (r_nx, n_nx) the next
-  // chunk's end, loaded a chunk ahead of its copy.
+  // chunk's end; chunks c and c + 1 are in flight while c is walked.
   int r_lo = __ldg(tile_rows + first), n_lo = __ldg(tile_nnz + first);
   int t_hi = min(first + chunk_tiles, end);
   int r_hi = __ldg(tile_rows + t_hi), n_hi = __ldg(tile_nnz + t_hi);
@@ -329,8 +653,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     n_nx = __ldg(tile_nnz + t_nx);
   }
   stage_chunk(values, cols, row_end, r_lo, r_hi, n_lo, n_hi, chunk_items,
-              reinterpret_cast<V*>(stages),
-              reinterpret_cast<int*>(stages + chunk_items * sizeof(V)));
+              stages, bars);
+  if (num_chunks > 1)
+    stage_chunk(values, cols, row_end, r_hi, r_nx, n_hi, n_nx, chunk_items,
+                stages + stage_len, bars + 1);
 
   V cin[kPer];   // the partial of the row open at the chunk's start
 #pragma unroll
@@ -338,102 +664,50 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 
   for (int c = 0; c < num_chunks; ++c) {
     unsigned char* stage = stages + (c & 1) * stage_len;
-    if (c + 1 < num_chunks) {
-      unsigned char* next = stages + ((c + 1) & 1) * stage_len;
-      stage_chunk(values, cols, row_end, r_hi, r_nx, n_hi, n_nx,
-                  chunk_items, reinterpret_cast<V*>(next),
-                  reinterpret_cast<int*>(next + chunk_items * sizeof(V)));
-      asm volatile("cp.async.wait_group 1;" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;" ::: "memory");
-    }
     int r_nn = 0, n_nn = 0;   // chunk c + 2's end
     const int t_nn = min(t_nx + chunk_tiles, end);
     if (c + 2 < num_chunks) {
       r_nn = __ldg(tile_rows + t_nn);
       n_nn = __ldg(tile_nnz + t_nn);
     }
-    __syncthreads();   // every thread's copies of chunk c have landed
+    mbar_wait(bars + (c & 1), (c >> 1) & 1);   // chunk c has landed
 
     const int nnz = min(max(n_hi - n_lo, 0), chunk_items);
     const int rows = min(max(r_hi - r_lo, 0), chunk_items - nnz);
-    const V* s_val = reinterpret_cast<const V*>(stage);
-    const int* s_re = reinterpret_cast<const int*>(stage +
-                                                   chunk_items * sizeof(V));
-    const int* s_col = s_re + rows;
+    const StageView<V> st = stage_view(stage, values, cols, row_end, r_lo,
+                                       rows, n_lo, chunk_items);
     const int items = rows + nnz;
     const int share = (items + num_walkers - 1) / num_walkers;
     const int d0 = min(walker * share, items);
+    const int i = merge_search(st.re, n_lo, rows, nnz, d0);
+    // The walker's end is the next walker's start: from the next walker of
+    // the warp, or the next warp's first, or the chunk's end.
+    int i_end = __shfl_down_sync(full, i, kLanes);
+    if (lane == 0) s_start[warp] = i;
+    __syncthreads();   // every warp's first start is in s_start
+    if (p == kWalkersPerWarp - 1)
+      i_end = warp + 1 < kWarps ? s_start[warp + 1] : rows;
     const int d1 = min(d0 + share, items);
-    int i = merge_search(s_re, n_lo, rows, nnz, d0);
-    const int i_end = merge_search(s_re, n_lo, rows, nnz, d1);
     const int j_end = d1 - i_end;
 
-    // The walk.  `acc` is the sum since the last row end; the first row
-    // closed keeps its partial in `first` for the scan.
-    V acc[kPer], first[kPer];
+    Walk<V, kPer> w;
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) acc[e] = first[e] = V(0);
-    int closed = 0, first_row = 0;
-    for (int jb = d0 - i; jb < j_end; jb += kBatch) {
-      V xv[kBatch][kPer];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        if (jb + u < j_end) {
-          load_row<V, kPer, kVector, kLanes, false>(
-              X + static_cast<long long>(s_col[jb + u]) * ldx, wl, k, xv[u]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < kPer; ++e) xv[u][e] = V(0);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const int j = jb + u;
-        if (j >= j_end) break;
-        for (; i < i_end && s_re[i] - n_lo <= j; ++i) {
-          if (closed) {
-            write_row<V, kPer, kVector, kLanes>(
-                Y, ldy, y_in, ldyin, static_cast<long long>(r_lo) + i, wl, k,
-                alpha, beta, acc);
-          } else {
-            closed = 1;
-            first_row = i;
-#pragma unroll
-            for (int e = 0; e < kPer; ++e) first[e] = acc[e];
-          }
-#pragma unroll
-          for (int e = 0; e < kPer; ++e) acc[e] = V(0);
-        }
-        const V a = s_val[j];
-#pragma unroll
-        for (int e = 0; e < kPer; ++e) acc[e] += a * xv[u][e];
-      }
-    }
-    for (; i < i_end; ++i) {   // rows that end after the walker's last nonzero
-      if (closed) {
-        write_row<V, kPer, kVector, kLanes>(
-            Y, ldy, y_in, ldyin, static_cast<long long>(r_lo) + i, wl, k,
-            alpha, beta, acc);
-      } else {
-        closed = 1;
-        first_row = i;
-#pragma unroll
-        for (int e = 0; e < kPer; ++e) first[e] = acc[e];
-      }
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) acc[e] = V(0);
-    }
+    for (int e = 0; e < kPer; ++e) w.acc[e] = w.first[e] = V(0);
+    w.closed = 0;
+    w.first_row = 0;
+    const RowSink<V> out{Y, ldy, y_in, ldyin, r_lo, alpha, beta, wl, k};
+    walk<V, kPer, kVector, kLanes>(st, n_lo, i, i_end, d0 - i, j_end, X, ldx,
+                                   out, w);
     __syncwarp();
 
     // Segmented scan of the walkers' (closed a row, open partial) pairs, a
     // before b: b's partial restarts after a row end.  Within the warp by
     // shuffles over walkers, kLanes lanes apart; then across the warps'
     // totals in shared memory, entered by the chunk's carry.
-    int f = closed;
+    int f = w.closed;
     V v[kPer];
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) v[e] = acc[e];
+    for (int e = 0; e < kPer; ++e) v[e] = w.acc[e];
 #pragma unroll
     for (int d = 1; d < kWalkersPerWarp; d <<= 1) {
       const int f2 = __shfl_up_sync(full, f, d * kLanes);
@@ -467,11 +741,14 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         s_wtot[warp * kWidth + column<kPer, kVector, kLanes>(wl, e)] = v[e];
       if (wl == 0) s_wflag[warp] = f;
     }
-    __syncthreads();
+    __syncthreads();   // the warps' totals are in; the stage is read
+    if (c + 2 < num_chunks)
+      stage_chunk(values, cols, row_end, r_nx, r_nn, n_nx, n_nn, chunk_items,
+                  stage, bars + (c & 1));
     V pv[kPer], mv[kPer];   // prefix of all warps so far; of those before
 #pragma unroll
     for (int e = 0; e < kPer; ++e) pv[e] = mv[e] = cin[e];
-    for (int q = 0; q < nwarps; ++q) {
+    for (int q = 0; q < kWarps; ++q) {
       if (q == warp) {
 #pragma unroll
         for (int e = 0; e < kPer; ++e) mv[e] = pv[e];
@@ -483,17 +760,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
         pv[e] = qf ? qv : pv[e] + qv;
       }
     }
-    if (closed) {
+    if (w.closed) {
       V s[kPer];
 #pragma unroll
-      for (int e = 0; e < kPer; ++e) s[e] = (ef ? ev[e] : mv[e] + ev[e]) + first[e];
+      for (int e = 0; e < kPer; ++e)
+        s[e] = (ef ? ev[e] : mv[e] + ev[e]) + w.first[e];
       write_row<V, kPer, kVector, kLanes>(
-          Y, ldy, y_in, ldyin, static_cast<long long>(r_lo) + first_row, wl,
+          Y, ldy, y_in, ldyin, static_cast<long long>(r_lo) + w.first_row, wl,
           k, alpha, beta, s);
     }
 #pragma unroll
     for (int e = 0; e < kPer; ++e) cin[e] = pv[e];
-    __syncthreads();   // the stage and the warp totals are free again
 
     r_lo = r_hi;
     n_lo = n_hi;
@@ -511,12 +788,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     if (wl == 0) carry_row[my_run] = r_lo;
   }
 
-  // The fix-up as the tail, as K1's: once the block's rows and pair are
-  // written, thread 0 takes a ticket with an acquire-release increment at
-  // device scope that wraps the counter to 0 at the last ticket; the block
-  // that takes it adds, for every row r < num_rows whose first carry is
-  // pair t, alpha * (r's carries, in run order) into Y[r, :], reading what
-  // other blocks wrote through L2.
+  // The tail, as K1's: once the block's rows and pair are written, thread 0
+  // takes a ticket with an acquire-release increment at device scope that
+  // wraps the counter to 0 at the last ticket; the block that takes it runs
+  // fix_up over every pair, in the stages' memory.
   __syncthreads();
   if (tid == 0) {
     unsigned int* counter = tickets != nullptr ? tickets : &g_mm_tickets;
@@ -528,61 +803,15 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
   __syncthreads();
   if (!s_wflag[0]) return;
-  // kTail pairs a walker at a time, their loads issued together: a
-  // pair's row, its neighbours' rows and its carry, then the Y rows of the
-  // pairs that lead their row; a row with several carries (rare) sums the
-  // rest in run order.
-  const int num_pairs = static_cast<int>(gridDim.x);
-  for (int base = walker; base < num_pairs; base += num_walkers * kTail) {
-    int r[kTail], r_next[kTail];
-    bool lead[kTail];
-    V s[kTail][kPer];
-#pragma unroll
-    for (int u = 0; u < kTail; ++u) {
-      const int t = base + u * num_walkers;
-      lead[u] = false;
-      r[u] = r_next[u] = -1;
-      if (t < num_pairs) {
-        r[u] = __ldcg(carry_row + t);
-        const int r_before = __ldcg(carry_row + max(t - 1, 0));
-        r_next[u] = t + 1 < num_pairs ? __ldcg(carry_row + t + 1) : -1;
-        lead[u] = r[u] < num_rows && (t == 0 || r_before != r[u]);
-        load_row<V, kPer, kVector, kLanes, true>(
-            carry_val + static_cast<long long>(t) * k, wl, k, s[u]);
-      }
-    }
-    V yv[kTail][kPer];
-#pragma unroll
-    for (int u = 0; u < kTail; ++u) {
-      if (!lead[u]) continue;
-      if (r_next[u] == r[u]) {
-        const int t = base + u * num_walkers;
-        for (int w = t + 1; w < num_pairs && __ldcg(carry_row + w) == r[u];
-             ++w) {
-          V more[kPer];
-          load_row<V, kPer, kVector, kLanes, true>(
-              carry_val + static_cast<long long>(w) * k, wl, k, more);
-#pragma unroll
-          for (int e = 0; e < kPer; ++e) s[u][e] += more[e];
-        }
-      }
-      load_row<V, kPer, kVector, kLanes, true>(
-          Y + static_cast<long long>(r[u]) * ldy, wl, k, yv[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < kTail; ++u) {
-      if (!lead[u]) continue;
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) yv[u][e] += alpha * s[u][e];
-      store_row<V, kPer, kVector, kLanes>(
-          Y + static_cast<long long>(r[u]) * ldy, wl, k, yv[u]);
-    }
-  }
+  fix_up<V, kPer, kVector, kLanes>(
+      carry_row, carry_val, Y, ldy, alpha, num_rows,
+      static_cast<int>(gridDim.x), k, walker, num_walkers, wl,
+      reinterpret_cast<int*>(stages), static_cast<int>(2 * stage_len / 4) - 1);
 }
 
 // The instantiation for (per, vector, lanes); null for a layout it lacks.
-// kVector with kPer values a lane (one 4, 8 or 16-byte load), or strided
-// with two (k of 33-64 columns that allow no vector load).
+// kVector with kPer values a lane (one 4, 8 or 16-byte copy), or strided
+// with two (k of 33-64 columns that allow no vector copy).
 template <typename V, int kPer, bool kVector>
 const void* by_lanes(int lanes) {
   switch (lanes) {
@@ -626,39 +855,43 @@ const void* mm_kernel(int per, int vector, int lanes) {
   return nullptr;
 }
 
-// Every layout the wrapper may pick, for the attributes set at init.
+// The carveout (percent of the SM's shared memory) for a layout: what holds
+// as many blocks as fit, at most kBlocksPerSm, at the default chunk; the
+// rest of the SM's 256 KB is L1 for the X window (ops/plan.py::
+// mm_carveout).
 template <typename V>
-cudaError_t for_each_kernel(cudaError_t (*fn)(const void*)) {
-  cudaError_t e = cudaSuccess;
-  const int pers[] = {1, 2, 4};
-  for (int per : pers)
-    for (int lanes = 1; lanes <= 32 && e == cudaSuccess; lanes <<= 1) {
-      const void* kernel = mm_kernel<V>(per, 1, lanes);
-      if (kernel != nullptr) e = fn(kernel);
-    }
-  if (e == cudaSuccess) e = fn(mm_kernel<V>(2, 0, 32));
-  return e;
+__host__ __device__ constexpr int mm_carveout(int per, int lanes) {
+  const size_t block = mm_shared_bytes<V>(kChunkItems, per, lanes) +
+                       kBlockReserved;
+  const size_t fit = kSmSharedBytes / block < kBlocksPerSm
+                         ? kSmSharedBytes / block
+                         : kBlocksPerSm;
+  return static_cast<int>(((fit > 0 ? fit : 1) * block * 100 +
+                           kSmSharedBytes - 1) / kSmSharedBytes);
 }
 
-// The carveout that holds kBlocksPerSm blocks at the default chunk and the
-// widest k: the rest of the SM's 256 KB is L1 for the X window.
+// The attributes of every layout the wrapper may pick, set at init.
 template <typename V>
-int mm_carveout() {
-  const size_t need =
-      kBlocksPerSm * (mm_shared_bytes<V>(kChunkItems, kMaxK) +
-                      kBlockReserved);
-  return static_cast<int>((need * 100 + kSmSharedBytes - 1) /
-                          kSmSharedBytes);
-}
-
-template <typename V>
-cudaError_t set_attributes(const void* kernel) {
+cudaError_t set_attributes(int per, int vector, int lanes) {
+  const void* kernel = mm_kernel<V>(per, vector, lanes);
+  if (kernel == nullptr) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSharedBytes);
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                             mm_carveout<V>());
+                             mm_carveout<V>(per, lanes));
+  return e;
+}
+
+template <typename V>
+cudaError_t set_all_attributes() {
+  cudaError_t e = cudaSuccess;
+  const int pers[] = {1, 2, 4};
+  for (int per : pers)
+    for (int lanes = 1; lanes <= 32 && e == cudaSuccess; lanes <<= 1)
+      e = set_attributes<V>(per, 1, lanes);
+  if (e == cudaSuccess) e = set_attributes<V>(2, 0, 32);
   return e;
 }
 
@@ -676,9 +909,9 @@ int launch_merge_tile_mm(const void* values, const void* cols,
   const void* kernel = mm_kernel<V>(per, vector, lanes);
   if (kernel == nullptr || k < 1 || k > kMaxK || k > per * lanes ||
       num_tiles < 1 || run_tiles < 1 || chunk_tiles < 1 ||
-      chunk_items < 1 || threads != kThreads ||
+      chunk_items < 1 || chunk_items % 16 != 0 || threads != kThreads ||
       static_cast<size_t>(shared_bytes) !=
-          mm_shared_bytes<V>(chunk_items, per * lanes))
+          mm_shared_bytes<V>(chunk_items, per, lanes))
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = num_tiles / run_tiles + (num_tiles % run_tiles != 0);
   if (sm_blocks < 1 || grid % sm_blocks != 0)
@@ -731,8 +964,8 @@ extern "C" {
 // launch, so that no launch (nor a CUDA graph that captures one) sets an
 // attribute.
 int merge_csrmm_init() {
-  cudaError_t e = for_each_kernel<float>(set_attributes<float>);
-  if (e == cudaSuccess) e = for_each_kernel<double>(set_attributes<double>);
+  cudaError_t e = set_all_attributes<float>();
+  if (e == cudaSuccess) e = set_all_attributes<double>();
   return static_cast<int>(e);
 }
 

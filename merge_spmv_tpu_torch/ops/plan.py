@@ -30,7 +30,8 @@ __all__ = ["SpmvPlan", "make_plan", "TileGeometry", "tile_geometry",
            "gather_sectors_per_nonzero", "gather_policy",
            "l1_carveout_bytes", "L1_TILE_ITEMS", "MmLayout", "mm_layout",
            "mm_shared_bytes", "MmGeometry", "mm_geometry", "MM_MAX_K",
-           "MM_THREADS", "MM_CHUNK_ITEMS", "MM_BLOCKS_PER_SM"]
+           "MM_THREADS", "MM_CHUNK_ITEMS", "MM_BLOCKS_PER_SM",
+           "MM_STAGE_SLACK", "mm_batch_rows", "mm_carveout"]
 
 # Merge items each thread consumes in sequence (CUB's ITEMS_PER_THREAD).
 ITEMS_PER_THREAD = 8
@@ -81,10 +82,13 @@ _SPREAD_SAMPLES = 4096     # warp requests sampled by the statistic
 # The multi-RHS tile kernel (K1m, csrc/merge_csrmm.cu): blocks of
 # MM_THREADS threads, at most MM_BLOCKS_PER_SM an SM (its launch bounds: 64
 # registers a thread), each staging about MM_CHUNK_ITEMS merge items at a
-# time in two stages; at most MM_MAX_K columns a launch.
+# time in two stages of bulk copies (MM_STAGE_SLACK bytes a stage for their
+# 16-byte alignment) and keeping two batches of mm_batch_rows X rows a
+# walker in flight; at most MM_MAX_K columns a launch.
 MM_THREADS = 256
 MM_BLOCKS_PER_SM = 4
 MM_CHUNK_ITEMS = 2048
+MM_STAGE_SLACK = 96
 MM_MAX_K = 64
 _MM_WARPS = MM_THREADS // 32
 
@@ -423,14 +427,36 @@ def mm_layout(k: int, dtype="float32", align_bytes: int = 16) -> MmLayout:
     return MmLayout(-(-k // WARP), False, WARP)
 
 
-def mm_shared_bytes(chunk_items: int, dtype, width: int) -> int:
+def mm_batch_rows(dtype, layout: MmLayout) -> int:
+    """X rows a K1m walker loads in one batch (two batches are in flight)
+    for its lane layout (csrc/merge_csrmm.cu::batch_rows): four, or with
+    16-byte lanes three (four spill at 64 registers), two for walkers of
+    one or two lanes."""
+    if layout.per * _value_size(dtype) < 16:
+        return 4
+    return 2 if layout.lanes <= 2 else 3
+
+
+def mm_shared_bytes(chunk_items: int, dtype, layout: MmLayout) -> int:
     """Dynamic shared memory of one K1m block, as csrc/merge_csrmm.cu lays
-    it out: the warps' k-wide scan totals (``width`` values each) and
-    flags, and two stages that each hold a chunk's values and its row ends
-    and column indices (rows + nonzeros <= chunk_items)."""
+    it out: two mbarriers, two stages that each hold a chunk's values, row
+    ends and column indices (rows + nonzeros <= chunk_items, plus the bulk
+    copies' alignment slack), the warps' k-wide scan totals and their
+    flags and first starts."""
     vs = _value_size(dtype)
-    return (_MM_WARPS * width * vs + _MM_WARPS * 4
-            + 2 * chunk_items * (vs + 4))
+    stage = chunk_items * (vs + 4) + MM_STAGE_SLACK
+    return 16 + 2 * stage + _MM_WARPS * layout.width * vs + 2 * _MM_WARPS * 4
+
+
+def mm_carveout(dtype, layout: MmLayout) -> int:
+    """The shared-memory carveout, percent of the SM's, that K1m's
+    instantiation for ``layout`` asks for at init: as many blocks as fit,
+    at most MM_BLOCKS_PER_SM, at the default chunk; the rest of the SM's
+    256 KB is L1 for X (csrc/merge_csrmm.cu::mm_carveout)."""
+    block = (mm_shared_bytes(MM_CHUNK_ITEMS, dtype, layout)
+             + BLOCK_RESERVED_SHARED)
+    fit = max(min(SM_SHARED_BYTES // block, MM_BLOCKS_PER_SM), 1)
+    return -(-fit * block * 100 // SM_SHARED_BYTES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -439,8 +465,10 @@ class MmGeometry:
     ``threads`` threads and ``shared_bytes`` of dynamic shared memory, at
     most ``blocks_per_sm`` an SM; block b owns the tiles ``[b * run_tiles,
     (b + 1) * run_tiles)`` and stages ``chunk_tiles`` of them
-    (``chunk_items`` merge items at most) at a time; its carry pair holds k
-    values (``carry_bytes`` over the grid)."""
+    (``chunk_items`` merge items at most) at a time, its walkers keeping
+    two batches of ``batch_rows`` X rows in flight each; its carry pair
+    holds k values (``carry_bytes`` over the grid); its instantiation asks
+    for a ``carveout`` percent of the SM's shared memory."""
     threads: int
     shared_bytes: int
     blocks_per_sm: int
@@ -450,6 +478,8 @@ class MmGeometry:
     chunk_items: int
     layout: MmLayout
     carry_bytes: int
+    batch_rows: int
+    carveout: int
 
 
 def mm_geometry(num_tiles: int, tile_items: int, dtype="float32",
@@ -458,9 +488,9 @@ def mm_geometry(num_tiles: int, tile_items: int, dtype="float32",
     """K1m's launch for ``num_tiles`` merge tiles of ``tile_items`` (the
     operator's, K1's) and ``k`` columns: the layout of ``mm_layout``; the
     tiles staged ``MM_CHUNK_ITEMS // tile_items`` at a time (at least
-    one); blocks per SM what threads, shared memory and the kernel's launch
-    bounds allow (``blocks_per_sm``, the card's occupancy figure, lowers
-    it); the tiles cut into equal contiguous runs, as few as fill every
+    one); blocks per SM what threads, the shared memory its carveout
+    grants and the kernel's launch bounds allow (``blocks_per_sm``, the
+    card's occupancy figure, lowers it); the tiles cut into equal contiguous runs, as few as fill every
     resident block once, as ``tile_geometry`` cuts them for K1."""
     if tile_items % MIN_TILE_ITEMS or not (
             MIN_TILE_ITEMS <= tile_items <= MAX_TILE_ITEMS):
@@ -472,9 +502,12 @@ def mm_geometry(num_tiles: int, tile_items: int, dtype="float32",
     layout = mm_layout(k, dtype, align_bytes)
     chunk_tiles = max(1, MM_CHUNK_ITEMS // tile_items)
     chunk_items = chunk_tiles * tile_items
-    shared = mm_shared_bytes(chunk_items, dtype, layout.width)
+    shared = mm_shared_bytes(chunk_items, dtype, layout)
+    carveout = mm_carveout(dtype, layout)
+    granted = next(kb * 1024 for kb in SM_CARVEOUTS_KB
+                   if kb * 1024 * 100 >= carveout * SM_SHARED_BYTES)
     fit = min(SM_THREADS // MM_THREADS, MM_BLOCKS_PER_SM,
-              SM_SHARED_BYTES // (shared + BLOCK_RESERVED_SHARED))
+              granted // (shared + BLOCK_RESERVED_SHARED))
     if blocks_per_sm is not None:
         fit = min(fit, blocks_per_sm)
     fit = max(fit, 1)
@@ -484,4 +517,6 @@ def mm_geometry(num_tiles: int, tile_items: int, dtype="float32",
                       blocks_per_sm=fit, grid=grid, run_tiles=run_tiles,
                       chunk_tiles=chunk_tiles, chunk_items=chunk_items,
                       layout=layout,
-                      carry_bytes=grid * (4 + k * _value_size(dtype)))
+                      carry_bytes=grid * (4 + k * _value_size(dtype)),
+                      batch_rows=mm_batch_rows(dtype, layout),
+                      carveout=carveout)

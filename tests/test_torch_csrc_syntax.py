@@ -62,6 +62,9 @@ template <class T> T __ldg(const T*);
 template <class T> T __ldcg(const T*);
 template <class T> T __shfl_up_sync(unsigned, T, int);
 template <class T> T __shfl_sync(unsigned, T, int);
+template <class T> T __shfl_down_sync(unsigned, T, int);
+template <class T>
+cudaError_t cudaMemcpyFromSymbol(void*, const T&, size_t, size_t = 0);
 void __syncthreads();
 size_t __cvta_generic_to_shared(const void*);
 long long clock64();
@@ -107,3 +110,116 @@ def test_the_front_end_catches_a_shadowed_name(tmp_path):
     assert text.count("carry_row[my_run]") == 1
     proc = _front_end(tmp_path, text.replace("my_run", "run"))
     assert proc.returncode != 0 and "error" in proc.stdout
+
+
+def _mm_layouts():
+    """Every (dtype, per, lanes) that ops/plan.py::mm_layout picks for a
+    launch of 1-64 columns at any alignment."""
+    from merge_spmv_tpu_torch.ops import plan as P
+    out = set()
+    for dtype, size in (("float32", 4), ("float64", 8)):
+        for k in range(1, P.MM_MAX_K + 1):
+            for align in (a for a in (16, 8, 4) if a >= size):
+                lay = P.mm_layout(k, dtype, align)
+                out.add((dtype, lay))
+    return sorted(out, key=str)
+
+
+def test_k1m_shared_layout_is_the_plans(tmp_path):
+    """csrc/merge_csrmm.cu's own constexpr figures, checked by static_assert
+    against ops/plan.py for every layout a launch can take and every chunk
+    a tile size gives: the block's dynamic shared memory (mm_shared_bytes),
+    the rows of a walker's load batch and the carveout the instantiation
+    asks for."""
+    from merge_spmv_tpu_torch.ops import plan as P
+    chunks = sorted({max(1, P.MM_CHUNK_ITEMS // t) * t for t in range(
+        P.MIN_TILE_ITEMS, P.MAX_TILE_ITEMS + 1, P.MIN_TILE_ITEMS)})
+    lines = []
+    for dtype, lay in _mm_layouts():
+        ctype = "double" if dtype == "float64" else "float"
+        size = 8 if dtype == "float64" else 4
+        lines.append(f"static_assert(batch_rows({lay.per * size}, "
+                     f"{lay.lanes}) == {P.mm_batch_rows(dtype, lay)});")
+        lines.append(f"static_assert(mm_carveout<{ctype}>({lay.per}, "
+                     f"{lay.lanes}) == {P.mm_carveout(dtype, lay)});")
+        for c in chunks:
+            lines.append(f"static_assert(mm_shared_bytes<{ctype}>({c}, "
+                         f"{lay.per}, {lay.lanes}) == "
+                         f"{P.mm_shared_bytes(c, dtype, lay)}u);")
+    text = (CSRC_DIR / "merge_csrmm.cu").read_text()
+    checks = "namespace {\n" + "\n".join(lines) + "\n}  // namespace\n"
+    proc = _front_end(tmp_path, text + checks)
+    assert proc.returncode == 0, proc.stdout
+    assert len(lines) > 100
+    wrong = lines[-1].replace("u);", "1u);")
+    proc = _front_end(tmp_path, text + "namespace {\n" + wrong + "\n}\n")
+    assert proc.returncode != 0 and "static assert" in proc.stdout
+
+
+# PTX instructions the kernel may use: (operand count, positions of its
+# shared-memory addresses, positions of its global addresses).
+PTX_OPERANDS = {
+    "mbarrier.init.shared::cta.b64": (2, {0}, set()),
+    "fence.mbarrier_init.release.cluster": (0, set(), set()),
+    "mbarrier.arrive.expect_tx.shared::cta.b64": (3, {1}, set()),
+    "mbarrier.try_wait.parity.shared::cta.b64": (3, {1}, set()),
+    "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes":
+        (4, {0, 3}, {1}),
+    "atom.acq_rel.gpu.inc.u32": (3, set(), {1}),
+    "selp.u32": (4, set(), set()),
+}
+_LITERALS = re.compile(r'\s*((?:"(?:[^"\\]|\\.)*"\s*)+)', re.S)
+
+
+def _asm_statements(text: str):
+    """(PTX text, operand constraints) of each inline-PTX statement of a
+    source: the leading string literals, then the constraints of the
+    output and input lists."""
+    out = []
+    for m in re.finditer(r"asm volatile\((.*?)\);", text, flags=re.S):
+        body = m.group(1)
+        lit = _LITERALS.match(body)
+        code = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', lit.group(1)))
+        rest = body[lit.end():]
+        constraints = re.findall(r'"([=+]?[a-z])"\s*\(', rest)
+        out.append((code, constraints))
+    return out
+
+
+def test_k1m_inline_ptx_is_well_formed():
+    """Every inline-PTX statement of csrc/merge_csrmm.cu (the bulk copies,
+    the mbarriers and the ticket): each instruction is
+    one the kernel is meant to use, with its number of operands; every %n
+    names an operand and every operand is named; shared-memory addresses
+    are 32-bit registers ("r") and global ones 64-bit ("l"); the barriers'
+    initialisation is fenced."""
+    text = (CSRC_DIR / "merge_csrmm.cu").read_text()
+    stmts = _asm_statements(text)
+    assert len(stmts) >= 6
+    seen = set()
+    for code, constraints in stmts:
+        refs = {int(n) for n in re.findall(r"%(\d+)", code)}
+        assert refs == set(range(len(constraints))), (code, constraints)
+        for line in code.replace("\\n", "\n").split("\n"):
+            line = line.strip().rstrip(";")
+            if not line or line in ("{", "}") or line.startswith(".reg"):
+                continue
+            op, _, args = line.partition(" ")
+            assert op in PTX_OPERANDS, op
+            seen.add(op)
+            count, shared, glob = PTX_OPERANDS[op]
+            operands = [a for a in re.split(r",\s*", args.strip()) if a]
+            assert len(operands) == count, line
+            for pos, operand in enumerate(operands):
+                ref = re.fullmatch(r"\[%(\d+)\]", operand)
+                if pos in shared | glob:
+                    assert ref, line
+                    want = "r" if pos in shared else "l"
+                    assert constraints[int(ref.group(1))].lstrip("=+") \
+                        == want, line
+    assert {"cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes", "mbarrier.init.shared::cta.b64",
+            "mbarrier.arrive.expect_tx.shared::cta.b64",
+            "mbarrier.try_wait.parity.shared::cta.b64",
+            "fence.mbarrier_init.release.cluster",
+            "atom.acq_rel.gpu.inc.u32"} <= seen

@@ -1223,6 +1223,164 @@ def test_k1m_indexing_past_int32(card):
     assert torch.equal(Y, want)
 
 
+def _k1m_vs_plain(csr, arrs, Xd, tiles, tile_items, k, run_tiles=None,
+                  Yd=None):
+    """One K1m launch against its plain version at the kernel's runs (or
+    ``run_tiles``): within spmv_abs_bound column by column, and the launch
+    repeated gives the same bits."""
+    K.reset_launches()
+    args = (*arrs, Xd, *tiles, tile_items, Yd, 1.5, -0.5)
+    Y = K.merge_csrmm(*args, run_tiles=run_tiles)
+    again = K.merge_csrmm(*args, run_tiles=run_tiles)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["merge_tile_mm"] == 2
+    assert torch.equal(Y, again)
+    if run_tiles is None:
+        run_tiles = K.mm_launch_geometry(tiles[0].shape[0] - 1, tile_items,
+                                         Xd.dtype, Xd.device, k).run_tiles
+    plain = K.merge_csrmm_plain(*args, run_tiles=run_tiles)
+    X = Xd.cpu().numpy()
+    Y_in = (np.zeros((csr.num_rows, k)) if Yd is None
+            else Yd.cpu().numpy())
+    _assert_columns(Y.cpu().numpy(), plain.cpu().numpy(), csr, X, Y_in,
+                    1.5, 0.0 if Yd is None else -0.5, "plain")
+    return Y
+
+
+def _mm_matrix(rows, cols, row_ids, seed=3):
+    """A CSR matrix with the given row of each nonzero, signed values and
+    scattered columns."""
+    rs = np.random.RandomState(seed)
+    row_ids = np.asarray(row_ids)
+    return CsrMatrix.from_coo(CooMatrix(rows, cols, row_ids,
+                                        rs.randint(0, cols, row_ids.size),
+                                        rs.uniform(-1, 1, row_ids.size)))
+
+
+@pytest.mark.parametrize("k", [8, 32])
+def test_k1m_row_longer_than_a_share_and_a_batch(card, k):
+    """One row of 20,003 nonzeros among rows of three: it spans many
+    walkers' shares, chunks and runs, and every walker on it walks far more
+    nonzeros than its two batches hold rows."""
+    long_row = np.full(20_000, 700)
+    short = np.repeat(np.arange(2_000), 3)
+    csr = _mm_matrix(2_000, 3_000, np.concatenate([short, long_row]))
+    Xd = torch.from_numpy(np.random.RandomState(4).uniform(
+        -1, 1, (csr.num_cols, k))).to(card, torch.float32)
+    v, re_, ci = csr.to_device(dtype=torch.float32, device=card)
+    tiles = merge_tile_coordinates(re_, csr.num_nonzeros, 256)
+    assert int(np.diff(csr.row_offsets).max()) == 20_003
+    _k1m_vs_plain(csr, (v, ci, re_), Xd, tiles, 256, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1m_chunks_of_empty_rows(card, dtype):
+    """200,000 rows and a nonzero every 25,000th row: whole chunks hold row
+    ends only, so walkers close rows with nothing in their ring, and the
+    rows between nonzeros are written as Y_in's share."""
+    csr = _mm_matrix(200_000, 64, np.arange(0, 200_000, 25_000))
+    v, re_, ci = csr.to_device(dtype=dtype, device=card)
+    tiles = merge_tile_coordinates(re_, csr.num_nonzeros, 256)
+    rs = np.random.RandomState(5)
+    Xd = torch.from_numpy(rs.uniform(-1, 1, (64, 16))).to(card, dtype)
+    Yd = torch.from_numpy(rs.uniform(-1, 1, (200_000, 16))).to(card, dtype)
+    Y = _k1m_vs_plain(csr, (v, ci, re_), Xd, tiles, 256, 16, Yd=Yd)
+    empty = np.setdiff1d(np.arange(200_000), np.arange(0, 200_000, 25_000))
+    torch.testing.assert_close(Y[empty], -0.5 * Yd[empty], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k1m_unaligned_a_streams(card, offset):
+    """values, column indices and row ends that start 4, 8 or 12 bytes past
+    a 16-byte boundary (views into larger buffers): the bulk copies start
+    at the boundary below and the walkers find the data past it."""
+    csr = CsrMatrix.from_coo(CooMatrix.random_powerlaw(3000, 2500, 40_000,
+                                                       seed=6))
+    csr.values = np.random.RandomState(7).uniform(-1, 1, csr.num_nonzeros)
+    v, re_, ci = csr.to_device(dtype=torch.float32, device=card)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=card)
+        view = buf[offset:offset + t.numel()]
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4 * offset
+        return view
+    tiles = merge_tile_coordinates(re_, csr.num_nonzeros, 256)
+    Xd = torch.from_numpy(np.random.RandomState(8).uniform(
+        -1, 1, (csr.num_cols, 8))).to(card, torch.float32)
+    want = K.merge_csrmm(v, ci, re_, Xd, *tiles, 256, None, 1.5, -0.5)
+    got = _k1m_vs_plain(csr, (shifted(v), shifted(ci), shifted(re_)), Xd,
+                        tiles, 256, 8)
+    assert torch.equal(got, want)   # the same sums as from aligned arrays
+
+
+def test_k1m_tail_joins_many_carries_per_row(card):
+    """The wheel of 1M rows at 256-item tiles, a run per tile: about 11,700
+    carry pairs, more than the tail's shared-memory segment holds, the hub
+    row's carries spanning thousands of runs; bit for bit the plain
+    version at the same runs, and the ticket counter left at 0."""
+    csr = CsrMatrix.from_coo(CooMatrix.wheel(1_000_000))
+    csr.values = np.random.RandomState(9).uniform(-1, 1, csr.num_nonzeros)
+    v, re_, ci = csr.to_device(dtype=torch.float32, device=card)
+    tiles = merge_tile_coordinates(re_, csr.num_nonzeros, 256)
+    assert tiles[0].shape[0] - 1 > 10_000
+    Xd = torch.from_numpy(np.random.RandomState(10).uniform(
+        -1, 1, (csr.num_cols, 2))).to(card, torch.float32)
+    tickets = K.ticket_counter(card)
+    Y = K.merge_csrmm(v, ci, re_, Xd, *tiles, 256, run_tiles=1,
+                      tickets=tickets)
+    torch.cuda.synchronize()
+    plain = K.merge_csrmm_plain(v, ci, re_, Xd, *tiles, 256, run_tiles=1)
+    assert int(tickets.item()) == 0
+    X = Xd.cpu().numpy()
+    _assert_columns(Y.cpu().numpy(), plain.cpu().numpy(), csr, X,
+                    np.zeros((csr.num_rows, 2)), 1.0, 0.0, "plain")
+
+
+@pytest.mark.parametrize("k", range(1, 65))
+def test_k1m_every_k(card, k):
+    """Every k a launch takes, once: the layout mm_layout picks for it,
+    against the plain version with Y_in."""
+    csr, arrs, Xd, Yd, tiles, X, Y_in = _mm_setup("powerlaw", card, k,
+                                                  torch.float32)
+    Y = _k1m_vs_plain(csr, arrs, Xd, tiles, 256, k, Yd=Yd)
+    gold = np.stack([csr.spmv_gold(X[:, j], Y_in[:, j], 1.5, -0.5)
+                     for j in range(k)], 1)
+    _assert_columns(Y.cpu().numpy(), gold, csr, X, Y_in, 1.5, -0.5, "gold")
+
+
+@pytest.mark.parametrize("rows_a,rows_b", [(2_000, 3_000),
+                                           (60_000, 200_000)])
+def test_k1m_operators_on_two_streams_at_once(card, rows_a, rows_b):
+    """Two operators' op.mm (one K1m launch each, each operator's own
+    ticket counter) on two streams with no ordering between them, queued
+    behind a GPU sleep so that they run at once: every result is the bits
+    of the same call made alone, and each counter is left at 0."""
+    ops = (build_operator(_carried_rows(rows_a), tile_items=256),
+           build_operator(CsrMatrix.from_coo(CooMatrix.wheel(rows_b)),
+                          tile_items=256))
+    rs = np.random.RandomState(21)
+    xs = [[torch.from_numpy(rs.uniform(0.5, 1.5, (op.plan.num_cols, 8)))
+           .to(card, torch.float32) for _ in range(4)] for op in ops]
+    want = [[op.mm(x) for x in xk] for op, xk in zip(ops, xs)]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(card), torch.cuda.Stream(card))
+    got = ([], [])
+    for _ in range(3):
+        for st in streams:
+            with torch.cuda.stream(st):
+                torch.cuda._sleep(20_000_000)   # ~10 ms of clock cycles
+        for k in range(20):
+            for i, (op, st) in enumerate(zip(ops, streams)):
+                with torch.cuda.stream(st):
+                    got[i].append(op.mm(xs[i][k % 4]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(g, want[i][k % 4])
+                   for k, g in enumerate(got[i]))
+        assert int(ops[i].tickets.item()) == 0
+
+
 def test_k1m_wrapper_rejects_what_the_kernel_does_not_take(card):
     _, arrs, Xd, Yd, tiles, _, _ = _mm_setup("powerlaw", card, 8,
                                              torch.float32)

@@ -375,43 +375,108 @@ def test_mm_layout_holds_k_columns(k, dtype, align):
 def test_mm_geometry(tile_items):
     """Chunks of about MM_CHUNK_ITEMS merge items, at most
     MM_BLOCKS_PER_SM blocks an SM, one wave, k-wide carries, and the
-    shared memory of csrc/merge_csrmm.cu's layout."""
+    shared memory of csrc/merge_csrmm.cu's layout: two mbarriers, two
+    stages with the bulk copies' slack, the warps' scan totals, flags and
+    starts."""
     g = P.mm_geometry(3966, tile_items, "float32", 32)
     assert g.chunk_items == max(tile_items, P.MM_CHUNK_ITEMS)
     assert g.chunk_tiles * tile_items == g.chunk_items
     assert g.blocks_per_sm == min(
         P.MM_BLOCKS_PER_SM,
-        P.SM_SHARED_BYTES // (g.shared_bytes + P.BLOCK_RESERVED_SHARED))
+        _granted(g.carveout) // (g.shared_bytes + P.BLOCK_RESERVED_SHARED))
     assert g.grid <= P.MM_BLOCKS_PER_SM * P.H100_SMS
     assert (g.grid - 1) * g.run_tiles < 3966 <= g.grid * g.run_tiles
     assert g.carry_bytes == g.grid * (4 + 32 * 4)
     warps = P.MM_THREADS // 32
-    assert g.shared_bytes == (warps * 32 * 4 + warps * 4
-                              + 2 * g.chunk_items * (4 + 4))
+    assert g.shared_bytes == (16 + 2 * (g.chunk_items * (4 + 4)
+                                        + P.MM_STAGE_SLACK)
+                              + warps * 32 * 4 + 2 * warps * 4)
+    assert g.batch_rows == 3   # 16-byte lanes, 8 a walker
     g64 = P.mm_geometry(3966, tile_items, "float64", 64)
-    assert g64.shared_bytes == (warps * 64 * 8 + warps * 4
-                                + 2 * g64.chunk_items * (8 + 4))
+    assert g64.shared_bytes == (16 + 2 * (g64.chunk_items * (8 + 4)
+                                          + P.MM_STAGE_SLACK)
+                                + warps * 64 * 8 + 2 * warps * 4)
     assert g64.shared_bytes <= P.BLOCK_SHARED_MAX
     one = P.mm_geometry(1, tile_items, "float32", 3, blocks_per_sm=1)
     assert (one.grid, one.run_tiles, one.blocks_per_sm) == (1, 1, 1)
 
 
+def _granted(carveout: int) -> int:
+    """The shared memory an SM gives for a carveout preference (percent):
+    the smallest carveout the card offers that holds it."""
+    return next(kb * 1024 for kb in P.SM_CARVEOUTS_KB
+                if kb * 1024 * 100 >= carveout * P.SM_SHARED_BYTES)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("k", range(1, P.MM_MAX_K + 1))
+def test_mm_geometry_fits_every_k(k, dtype):
+    """For every k a launch takes, every alignment and every tile size:
+    the block's shared memory is csrc/merge_csrmm.cu's layout for its lane
+    layout, fits a block's 227 KB, and the blocks an SM runs fit the
+    carveout the instantiation asks for (at least one block)."""
+    size = 8 if dtype == "float64" else 4
+    for align in (a for a in (16, 8, 4) if a >= size):
+        lay = P.mm_layout(k, dtype, align)
+        rows = P.mm_batch_rows(dtype, lay)
+        assert rows in (2, 3, 4)
+        for tile_items in range(P.MIN_TILE_ITEMS, P.MAX_TILE_ITEMS + 1,
+                                P.MIN_TILE_ITEMS):
+            g = P.mm_geometry(3966, tile_items, dtype, k, align)
+            assert g.layout == lay and g.batch_rows == rows
+            assert g.shared_bytes == P.mm_shared_bytes(g.chunk_items, dtype,
+                                                       lay)
+            assert g.shared_bytes <= P.BLOCK_SHARED_MAX
+            assert g.carveout == P.mm_carveout(dtype, lay) <= 100
+            assert 1 <= g.blocks_per_sm <= P.MM_BLOCKS_PER_SM
+            assert g.blocks_per_sm * (g.shared_bytes
+                                      + P.BLOCK_RESERVED_SHARED) \
+                <= _granted(g.carveout)
+
+
 def test_mm_ablation_variants_change_one_thing_each():
     """tools/mm_ablation.py's variants of K1m's source: each is the source
-    with its one substitution; a source without the text is refused."""
+    with its substitutions, each of which matches one place; a source
+    without the text is refused."""
     from merge_spmv_tpu_torch.tools import mm_ablation as MA
     from merge_spmv_tpu_torch.utils.cuda_build import CSRC_DIR
     src = (CSRC_DIR / "merge_csrmm.cu").read_text()
-    v = MA.variants(src)
-    assert set(v) == {"A0", "COAL", "WIN", "B2", "B8", "NOTAIL", "T512",
-                      "STAMP"}
-    assert v["STAMP"].count("clock64()") == 5
-    assert "kThreads = 512;" in v["T512"] and "kBlocksPerSm = 2;" in v["T512"]
+    v = {name: fn() for name, fn in MA.variants(src).items()}
+    assert set(v) == {"A0", "NOTAIL", "COAL", "WIN", "TAIL0", "SEARCH2",
+                      "ELEM", "STAMP", "B2", "B3", "B4", "LB3", "T6", "T8",
+                      "P8", "RING4", "RING8", "RING16"}
     assert v["A0"] == src
+    assert all(text != src for name, text in v.items() if name != "A0")
     for name, new in (("COAL", "% 32768"), ("WIN", "& 1023"),
-                      ("B2", "kBatch = 2;"), ("B8", "kBatch = 8;"),
-                      ("NOTAIL", "\n  return;\n")):
+                      ("B2", "return 2;"), ("B4", "return 4;"),
+                      ("NOTAIL", "\n  return;\n"),
+                      ("RING8", "cp.async.wait_group"),
+                      ("TAIL0", "r_next[u]"),
+                      ("ELEM", "cp.async.mbarrier.arrive.noinc")):
         assert new in v[name] and new not in src, name
-        assert len(v[name].splitlines()) == len(src.splitlines())
+    for name in ("COAL", "WIN", "B2", "B3", "B4", "NOTAIL"):
+        assert len(v[name].splitlines()) == len(src.splitlines()), name
+        assert v[name] != src, name
+    for depth in (4, 8, 16):
+        ring = v[f"RING{depth}"]
+        assert f"kDepth = {depth};" in ring and "walk_ring<" in ring
+        assert ring.count(f"static_cast<size_t>({depth}) * kThreads") == 2
+    assert v["SEARCH2"].count("merge_search(st.re") == 2
+    assert "s_start[warp + 1]" not in v["SEARCH2"]
+    assert "fix_up<V, kPer, kVector, kLanes>(\n" not in v["TAIL0"]
+    assert "mbar_init(bars, kThreads);" in v["ELEM"]
+    assert "kBlocksPerSm = 3;" in v["LB3"] and "return 4;" in v["LB3"]
+    assert "kTail = 6;" in v["T6"] and "kTail = 8;" in v["T8"]
+    assert "by_lanes<V, 8, true>" in v["P8"] and "struct float8" in v["P8"]
+    assert MA._layout("P8", 32, None) == P.MmLayout(8, True, 4)
+    assert v["STAMP"].count("clock64()") == 16
+    for anchor, name in ((MA.BATCH, "B2"), (MA.WALK_CALL, "RING8"),
+                         ("  if (!s_wflag[0]) return;", "NOTAIL"),
+                         ("  return X + static_cast<long long>(s_col[j]) * "
+                          "ldx;\n", "COAL")):
+        with pytest.raises(ValueError):
+            MA.variants(src.replace(anchor, ""))[name]()
     with pytest.raises(ValueError):
-        MA.variants(src.replace(MA.GATHER, ""))
+        MA.variants(src.replace("    int i_end = __shfl_down_sync", ""))
+    with pytest.raises(ValueError):   # STAMPB needs the previous text
+        MA.base_variants(src)["STAMPB"]()
