@@ -126,6 +126,18 @@ Phases, one line of output each (any failure exits non-zero and prints no
              its hot windows and hot/cold nonzeros; op(x) and the alpha/beta
              call verified with two fused launches per op(x); timed beside
              merge op(x) and cuSPARSE; build_suggested on the matrix.
+   large tools — the circuit- and kron-class benchmark tools
+             (tools/bench_large.py, bench_hotcold.py, split_compact_bench.py)
+             through their run() on the two matrices above and the circuit
+             class's quarter: merge op(x) beside cuSPARSE, the host
+             quantile split at B = 16 (the records' own runs sweep 8, 16
+             and 32), the geometric (8, 32) split, the device-built split
+             (built twice), hot/cold or its refusal; hot/cold's A/B on the
+             kron class; the compact split at B = 16 with the stacked
+             kernel and the re-expansion timed alone, beside the plain
+             stack.  One line per tool; fails on a JAX key missing, an
+             entry not verified or an error key (bench/measure.py::
+             record_faults), or no K1 launch in the phase.
    pagerank — PageRank through K1 on the kron class's column-stochastic
              transpose, stopped at an L1 step of 1e-6, against a float64
              SciPy run of the same iterations (L1 distance).
@@ -517,7 +529,10 @@ def main() -> int:
     from merge_spmv_tpu_torch.ops.plan import DEFAULT_TILE_ITEMS, POLICIES
     from merge_spmv_tpu_torch.ops.suggest import build_suggested, suggest_backend
     from merge_spmv_tpu_torch.parallel import mp_worker as MPW
+    from merge_spmv_tpu_torch.bench import measure as M
     from merge_spmv_tpu_torch.tools import bench_baseline_configs as BC
+    from merge_spmv_tpu_torch.tools import bench_hotcold as BH
+    from merge_spmv_tpu_torch.tools import bench_large as BL
     from merge_spmv_tpu_torch.tools import bench_multichip as MCB
     from merge_spmv_tpu_torch.tools import bench_skew as SKB
     from merge_spmv_tpu_torch.tools import bench_spmm as SPB
@@ -527,6 +542,7 @@ def main() -> int:
     from merge_spmv_tpu_torch.tools import make_corpus_stats as MS
     from merge_spmv_tpu_torch.tools import mm_ablation as MMA
     from merge_spmv_tpu_torch.tools import sm_ceiling as P
+    from merge_spmv_tpu_torch.tools import split_compact_bench as SCB
     from merge_spmv_tpu_torch.utils.compare import compare_results
     from merge_spmv_tpu_torch.utils.cuda_build import (build_library,
                                                        device_context,
@@ -1837,6 +1853,76 @@ def main() -> int:
                       time.perf_counter() - t0)
     del op_r, xkd
     print(f"hotcold phase: {time.perf_counter() - t_phase:.1f} s")
+
+    # ------------------------------------------------------------ large tools
+    # the circuit- and kron-class benchmark tools' run() on the two
+    # matrices above and the circuit class's quarter, the sweep and the
+    # compact run cut to B = 16; each record held to its JAX keys
+    # (bench/measure.py::record_faults: every key, every entry verified,
+    # no error)
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    large = {}
+    t0 = time.perf_counter()
+    large["bench_large"] = (BL.run(sweep=(16,), device=dev, csr=circ),
+                            BL.record_keys((16,)))
+    del circ
+    large_s = {"bench_large": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    large["bench_hotcold"] = (BH.run(device=dev, csr=kron), BH.RECORD_KEYS)
+    large_s["bench_hotcold"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    large["split_compact_bench"] = (
+        SCB.run(bands=(16,), device=dev, csr=BL.circuit_csr(*SCB.QUARTER)),
+        SCB.record_keys((16,)))
+    large_s["split_compact_bench"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    paths["large_tools"] = K.LAUNCHES["merge_tile_fused"]
+    faults = {name: M.record_faults(rec, keys)
+              for name, (rec, keys) in large.items()}
+    bl, bh = large["bench_large"][0], large["bench_hotcold"][0]
+    sc = large["split_compact_bench"][0]
+    bl_hc = ("declined" if bl["hotcold"].get("declined") else
+             f"{bl['hotcold']['avg_ms']:.4f} ms "
+             f"({bl['hotcold']['hot_windows']} hot windows)")
+    bsd = bl["split_device"]
+    print(f"large tools bench_large: {bl['rows']} rows {bl['nnz']} nnz; "
+          f"merge {bl['merge']['avg_ms']:.4f} ms ({bl['merge']['policy']}), "
+          f"cuSPARSE (xla) {bl['xla']['avg_ms']:.4f}, merge_vs_xla_speedup "
+          f"{bl['merge_vs_xla_speedup']:.4f}; split B=16 "
+          f"{bl['split']['avg_ms']:.4f} ms ({bl['split']['stacked_rows']} "
+          f"stacked rows), split_vs_xla_speedup "
+          f"{bl['split_vs_xla_speedup']:.4f}; split_geometric "
+          f"{bl['split_geometric']['avg_ms']:.4f} ms; split_device "
+          f"{bsd['avg_ms']:.4f} ms, setup {bsd['split_setup_ms']:.1f} ms "
+          f"(first {bsd['first_setup_ms']:.1f}); hotcold {bl_hc}; faults "
+          f"{faults['bench_large'] or 'none'}; "
+          f"{large_s['bench_large']:.1f} s")
+    bh_hc = bh["hotcold"]
+    print(f"large tools bench_hotcold: {bh['rows']} rows {bh['nnz']} nnz; "
+          f"merge {bh['merge']['avg_ms']:.4f} ms ({bh['merge']['policy']}), "
+          f"cuSPARSE {bh['cusparse']['avg_ms']:.4f}, "
+          f"merge_vs_cusparse_speedup "
+          f"{bh['merge_vs_cusparse_speedup']:.4f}; hotcold "
+          + ("declined" if bh_hc.get("declined") else
+             f"{bh_hc['avg_ms']:.4f} ms ({bh_hc['hot_windows']} hot "
+             f"windows), hotcold_speedup {bh['hotcold_speedup']:.4f}")
+          + f"; faults {faults['bench_hotcold'] or 'none'}; "
+          f"{large_s['bench_hotcold']:.1f} s")
+    sca, scc = sc["attribution"], sc["configs"]["B16_compact"]
+    print(f"large tools split_compact_bench: {sc['matrix']}; B16 compact "
+          f"{scc['avg_ms']:.4f} ms ({scc['stacked_rows']} stacked rows): "
+          f"the stacked kernel alone {sca['B16_kernel_only_ms']:.4f}, the "
+          f"re-expansion alone {sca['B16_epilogue_only_ms']:.4f}; plain "
+          f"B16 {sca['plain_B16_total_ms']:.4f} ms "
+          f"({sca['plain_B16_stacked_rows']} stacked rows); faults "
+          f"{faults['split_compact_bench'] or 'none'}; "
+          f"{large_s['split_compact_bench']:.1f} s")
+    print(f"large tools phase: K1 launches {paths['large_tools']}; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if any(faults.values()) or paths["large_tools"] == 0:
+        return 1
+    del large, bl, bh, sc
 
     # ------------------------------------------------------------ pagerank
     # the kron class as a link graph (row -> column), its column-stochastic

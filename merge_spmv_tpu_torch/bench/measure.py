@@ -25,6 +25,9 @@ and where they keep it.
   input read once and each output written once (SpMM: A read once).
 * ``fp64_bound`` / ``fp64_check``: the rounding bound a float64 result is
   held to beside compare_results, whose limits are float32's.
+* ``verify_spmv``: an op(x) result against gold within spmv_abs_bound.
+* ``record_faults``: what a tool's record lacks of its JAX counterpart's
+  keys, and which of its entries failed.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ from merge_spmv_tpu_torch.utils.timers import event_ms, host_ms
 __all__ = ["BENCH_DIR", "device_record", "record_path", "load_record",
            "save_record", "row_cov", "fn_ms", "library_csr",
            "spmv_bytes", "spmm_bytes", "bound_ms", "fp64_bound",
-           "fp64_check", "card_spmv", "card_spmm", "abs_product"]
+           "fp64_check", "card_spmv", "card_spmm", "abs_product",
+           "verify_spmv", "record_faults"]
 
 BENCH_DIR = Path(__file__).resolve().parent
 # bytes written before each launch of a cold-L2 time: five times the
@@ -162,6 +166,53 @@ def fp64_check(y, ref, lengths, abs_bound):
         ratio = np.where(bound > 0, err / bound,
                          np.where(err > 0, np.inf, 0.0))
     return bool(np.all(err <= bound)), float(np.max(ratio, initial=0.0))
+
+
+def verify_spmv(y, gold, bound) -> bool:
+    """Whether op(x)'s result ``y`` has gold's shape, is finite and
+    passes compare_results against ``gold`` within ``bound`` (the
+    matrix's spmv_abs_bound at that x)."""
+    return (tuple(y.shape) == gold.shape
+            and bool(torch.isfinite(y).all())
+            and compare_results(y.cpu().numpy(), gold, verbose=True,
+                                abs_bound=bound) is None)
+
+
+def record_faults(rec: dict, keys: dict) -> list:
+    """What a tool's record lacks or failed, as "path: what" strings.
+
+    ``keys`` maps a key of the record, or a dotted path to an entry
+    ("split_sweep.16"), to the keys that entry must hold (an empty tuple
+    for a value).  A path absent, or a key absent from its entry, is a
+    fault, except in an entry ``{"declined": true}`` (an operator that
+    found nothing to split).  Anywhere in the record, an ``error`` key is
+    a fault, and so is a ``verified`` or ``*_verified`` value that is not
+    true."""
+    faults = []
+
+    def walk(path, entry):
+        for k, v in entry.items():
+            at = f"{path}.{k}" if path else k
+            if k == "error":
+                faults.append(f"{at}: {v}")
+            elif (k == "verified" or k.endswith("_verified")) and v is not True:
+                faults.append(f"{at}: {v}")
+            elif isinstance(v, dict):
+                walk(at, v)
+
+    walk("", rec)
+    for path, want in keys.items():
+        entry = rec
+        for k in path.split("."):
+            if not isinstance(entry, dict) or k not in entry:
+                faults.append(f"{path}: missing")
+                break
+            entry = entry[k]
+        else:
+            if isinstance(entry, dict) and not entry.get("declined"):
+                faults += [f"{path}.{k}: missing" for k in want
+                           if k not in entry]
+    return faults
 
 
 def bound_ms(nbytes: int, dev) -> float:

@@ -62,7 +62,6 @@ from merge_spmv_tpu_torch.formats.csr import CsrMatrix
 from merge_spmv_tpu_torch.ops import csrmv_cuda as K
 from merge_spmv_tpu_torch.ops.operator import build_operator
 from merge_spmv_tpu_torch.ops.split import build_hotcold_operator
-from merge_spmv_tpu_torch.utils.compare import compare_results
 from merge_spmv_tpu_torch.utils.device import (peak_hbm_bandwidth,
                                                resolve_device)
 from merge_spmv_tpu_torch.utils.timers import op_rate_ms
@@ -106,13 +105,6 @@ def build(gen, dtype) -> CsrMatrix:
     return csr
 
 
-def _verify(y, csr, gold, bound) -> bool:
-    return (tuple(y.shape) == (csr.num_rows,)
-            and bool(torch.isfinite(y).all())
-            and compare_results(y.cpu().numpy(), gold, verbose=True,
-                                abs_bound=bound) is None)
-
-
 def _gather_bound(op, rec, dev):
     """The gather bound (tools/gather_rate.py): the distinct sectors of
     each warp request at the probe's L2 sector rate for an x of this
@@ -148,7 +140,7 @@ def run_csrmv(csr, dtype_name, dev, gather_bound=False) -> dict:
         torch.cuda.synchronize()
     launches = K.LAUNCHES["merge_tile_fused"] - before
     setup_s = time.perf_counter() - t0
-    ok = _verify(y, csr, gold, bound)
+    ok = M.verify_spmv(y, gold, bound)
     del bound
     fp64 = {}
     if csr.values.dtype == np.float64:
@@ -209,7 +201,7 @@ def run_hotcold(csr, dev) -> dict:
         torch.cuda.synchronize()
     launches = K.LAUNCHES["merge_tile_fused"] - before
     setup_s = time.perf_counter() - t0
-    ok = _verify(y, csr, csr.spmv_gold(x), csr.spmv_abs_bound(x))
+    ok = M.verify_spmv(y, csr.spmv_gold(x), csr.spmv_abs_bound(x))
     ms = op_rate_ms(op, xd)
     total_bytes = csr.num_nonzeros * 12 + csr.num_rows * 8
     return {"avg_ms": ms, "gflops": 2 * csr.num_nonzeros / ms / 1e6,

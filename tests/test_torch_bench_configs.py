@@ -351,7 +351,8 @@ def test_stale_webbase_generator_is_dropped(configs_run, tmp_path):
 
 def test_tools_never_write_the_tpu_records():
     import torch
-    for name in ("BASELINE_CONFIGS", "BENCH_SPMM", "SKEW", "WEAKSCALING"):
+    for name in ("BASELINE_CONFIGS", "BENCH_SPMM", "SKEW", "WEAKSCALING",
+                 "BENCH_LARGE", "SPLIT_COMPACT", "BENCH_HOTCOLD"):
         for dev in ("cpu", "cuda"):
             p = M.record_path(name, torch.device(dev))
             assert p.parent == REPO / "merge_spmv_tpu_torch" / "bench"
