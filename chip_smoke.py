@@ -15,8 +15,8 @@ Phases, one line of output each (any failure exits non-zero and prints no
              tile kernel K1m (csrc/merge_csrmm.cu) at k = 4, 8 and 32,
              with its rows in flight a walker and its carveout, and the
              registers and spills of its <float, 4, true, 2> and <float,
-             4, true, 8> instantiations (k = 8 and 32); fails if any K1m
-             instantiation spills.
+             4, true, 8> instantiations (k = 8 and 32); fails if any K1
+             or K1m instantiation spills.
    stream  — utils/device.py::measure_stream_bandwidth (the STREAM triad
              over 256 MB arrays, CUDA-graph replays) beside the published
              3,350 GB/s.
@@ -24,7 +24,11 @@ Phases, one line of output each (any failure exits non-zero and prints no
              sequential gold SpMV on the corner cases of the JAX package's
              tests (tile-spanning hub row, empty rows, duplicates, a row
              ending on a tile boundary, alpha/beta, signed values, nnz = 0,
-             one column), in float32, then float64 and bfloat16 on two cases.
+             one column), and two cases of the fused kernel's tail (one
+             row over every run, G above the tail block's threads; long
+             rows whose carries meet at a chunk's edge), in float32, then
+             float64 and bfloat16 on two cases; the tail cases also two
+             calls and the two kernels bitwise equal.
 3. determinism — two calls on the same input give the same bits.
 4. main    — the user path at full size: grid3d(100) (1M rows, 5.94M
              nonzeros, float32) through build_operator / op(x) /
@@ -77,6 +81,12 @@ Phases, one line of output each (any failure exits non-zero and prints no
              verified and timed; the per-nonzero ratio is the paper's claim
              that the time does not depend on row-length skew, and fails
              the run below SKEW_RATIO_MIN; the two-kernel path timed too.
+             Then wheel_1m (one hub row over a third of the runs):
+             verified, K1 beside cuSPARSE, and the tail's share of the
+             fused time (against the tile kernel alone and the two kernels
+             at the same runs); and banded_n1024k_bw128_d5 at full size:
+             the policy and tile the plan picks, K1 under "stream" and
+             under "l1" at both its tiles, beside cuSPARSE.
    headline — python -m merge_spmv_tpu_torch.bench.headline as a
              subprocess: its JSON line (bench.py's keys: the grid3d(100)
              merge headline, the DIA block, the controlled and natural
@@ -197,6 +207,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -238,6 +249,11 @@ CORPUS_FULL = ("grid2d_500", "grid3d_64", "banded_n256k_bw4096_d9",
                "tall_512k_x_4k", "wide_1k_x_512k", "empties_n1m_p146k",
                "blocks_4096", "kron_like_1m", "uglobal_512k")
 CORPUS_FILES = 25 + len(CORPUS_FULL)
+# the tail case whose long rows meet at pair 128 (a chunk's edge for the
+# 128-thread blocks of TILE_ITEMS_CASES), at pair 172 (inside a 32-pair
+# group) and at the sentinel, short rows between them
+TAIL_EDGE_ROWS = [128 * TILE_ITEMS_CASES + 5, 44 * TILE_ITEMS_CASES + 7, 3,
+                  0, 5, 90 * TILE_ITEMS_CASES, 1, 2 * TILE_ITEMS_CASES + 9]
 
 
 class MergeDirect:
@@ -282,6 +298,18 @@ class DiaDirect:
         y = self.DK.dia_matvec(o.vtab, x, o.offsets_t, o.num_rows,
                                o.num_cols, alpha)
         return self.rest(x, y, alpha, 1.0)
+
+
+def tail_rows(lengths, n_cols=5000, seed=40):
+    """A COO matrix with these row lengths, random columns and values."""
+    import numpy as np
+
+    from merge_spmv_tpu_torch.formats.coo import CooMatrix
+    rs = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(len(lengths)), lengths)
+    return CooMatrix(len(lengths), n_cols, rows,
+                     rs.randint(0, n_cols, rows.size),
+                     rs.uniform(-1, 1, rows.size))
 
 
 def csr_bytes(rows, cols, nnz, vs=4):
@@ -526,7 +554,11 @@ def main() -> int:
     from merge_spmv_tpu_torch.ops.dia import build_dia_operator
     from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
     from merge_spmv_tpu_torch.ops.operator import build_operator
-    from merge_spmv_tpu_torch.ops.plan import DEFAULT_TILE_ITEMS, POLICIES
+    from merge_spmv_tpu_torch.ops.plan import (DEFAULT_TILE_ITEMS,
+                                               L1_TILE_ITEMS,
+                                               L1_WIDE_TILE_ITEMS, POLICIES,
+                                               gather_sectors_per_nonzero,
+                                               tile_sectors)
     from merge_spmv_tpu_torch.ops.suggest import build_suggested, suggest_backend
     from merge_spmv_tpu_torch.parallel import mp_worker as MPW
     from merge_spmv_tpu_torch.bench import measure as M
@@ -592,6 +624,10 @@ def main() -> int:
                 f"{g.shared_bytes} B dynamic shared memory, carveout "
                 f"{g.carveout}%, {blocks} blocks per SM (launched: "
                 f"{g.blocks_per_sm})")
+    # K1's instantiations (tile kernel and fix-up): any spilled bytes
+    k1_spills = [ln.strip() for ln in logs[0].splitlines()
+                 if "bytes spill" in ln and any(
+                     int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
     # K1m's instantiations by -Xptxas=-v: registers and spilled bytes
     mm_ptxas = MMA.ptxas_report(logs[4])
     mm_spills = sorted(n for n, (_, s) in mm_ptxas.items() if s)
@@ -606,7 +642,11 @@ def main() -> int:
           f"instantiations; merge_tile_mm: "
           f"{sum('Compiling entry' in ln for ln in logs[4].splitlines())} "
           f"instantiations, spills {mm_spills or 'none'}, {mm_named}; "
-          f"{'; '.join(mm_kernel)}")
+          f"{'; '.join(mm_kernel)}; merge_csrmv spills "
+          f"{k1_spills or 'none'}")
+    if k1_spills:
+        print(f"build: K1 instantiations spill registers: {k1_spills}")
+        return 1
     if mm_spills:
         print(f"build: K1m instantiations spill registers: {mm_spills}")
         return 1
@@ -660,6 +700,11 @@ def main() -> int:
         "nnz0": lambda: CooMatrix(700, 9, rows=[], cols=[], vals=[]),
         "one_col": lambda: CooMatrix(6, 1, rows=[0, 2, 2, 5],
                                      cols=[0, 0, 0, 0], vals=[1., 2., 3., 4.]),
+        # the fix-up's chunks (blockDim.x pairs): one row over every run,
+        # G > blockDim.x; long rows meeting at a chunk's edge (pair 128 of
+        # the 128-thread blocks of these tiles) and inside a warp's group
+        "tail_one_row": lambda: tail_rows([600 * TILE_ITEMS_CASES]),
+        "tail_chunk_edge": lambda: tail_rows(TAIL_EDGE_ROWS),
     }
     # (case, alpha, beta, with y_in, signed values)
     runs = [(name, 1.0, 0.0, False, False) for name in cases]
@@ -714,8 +759,31 @@ def main() -> int:
         if yb.dtype != torch.bfloat16 or not np.allclose(
                 yb.float().cpu().numpy(), want, rtol=2.0**-7, atol=0.0):
             failures.append(f"{name} bfloat16")
+    # the tail cases: G > the block, fused bitwise the two kernels at the
+    # same runs, two calls bitwise equal
+    tail_g = {}
+    for name in ("tail_one_row", "tail_chunk_edge"):
+        csr = CsrMatrix.from_coo(cases[name]()).astype(np.float32)
+        v, re_, ci = csr.to_device(dtype=torch.float32, device=dev)
+        tr, tn = merge_tile_coordinates(re_, csr.num_nonzeros,
+                                        TILE_ITEMS_CASES)
+        xk = torch.from_numpy(np.random.RandomState(5).uniform(
+            -1, 1, csr.num_cols).astype(np.float32)).to(dev)
+        args = (v, ci, re_, xk, tr, tn, TILE_ITEMS_CASES)
+        geo = K.launch_geometry(tr.shape[0] - 1, TILE_ITEMS_CASES,
+                                torch.float32, dev, fused=True)
+        a, b = K.merge_csrmv(*args), K.merge_csrmv(*args)
+        y0, crow, cval = K.merge_tile(*args, run_tiles=geo.run_tiles)
+        two = K.carry_fixup(y0, crow, cval)
+        torch.cuda.synchronize()
+        tail_g[name] = (crow.shape[0], geo.threads)
+        if not (torch.equal(a, b) and torch.equal(a, two)
+                and crow.shape[0] > geo.threads):
+            failures.append(f"{name} tail bits")
     print(f"cases: {len(runs)} float32 runs + float64/bfloat16 on 2 cases; "
-          f"max |kernel - plain| = {worst:.3e}; failures: {failures or 'none'}")
+          f"max |kernel - plain| = {worst:.3e}; the tail cases' (G pairs, "
+          f"block) {tail_g}, two calls and the two kernels bitwise equal; "
+          f"failures: {failures or 'none'}")
     if failures:
         return 1
 
@@ -1401,6 +1469,93 @@ def main() -> int:
     if not (ok_u and ok_p) or ms_u / ms_p < SKEW_RATIO_MIN:
         return 1
     del skew, rows_u, rows_p, cols_k, ones
+
+    # the wheel of the stats corpus (wheel_1m: its hub row's carries come
+    # from a third of the runs, all summed by the fused kernel's tail):
+    # K1 beside cuSPARSE, and the tail's share, the fused kernel against
+    # the tile kernel alone and the two kernels at the same runs
+    rw = np.random.RandomState(14)
+    cw = CsrMatrix.from_coo(CooMatrix.wheel(1 << 20)).astype(np.float32)
+    cw.values = rw.uniform(0.5, 1.5, cw.num_nonzeros).astype(np.float32)
+    xh = rw.uniform(-1, 1, cw.num_cols).astype(np.float32)
+    xw = torch.from_numpy(xh).to(dev)
+    K.reset_launches()
+    ow = build_operator(cw)
+    yw = ow(xw)
+    torch.cuda.synchronize()
+    wheel_launches = K.LAUNCHES["merge_tile_fused"]
+    fused_w, two_w = MergeDirect(K, ow, True, dev), MergeDirect(K, ow, False,
+                                                                 dev)
+    wheel_ok = (verified(yw, cw, xh) and bool(torch.equal(yw, ow(xw)))
+                and bool(torch.equal(fused_w(xw), two_w(xw))))
+    wargs = (ow.values, ow.col_indices, ow.row_end_offsets, xw,
+             ow.tile_rows, ow.tile_nnz, ow.plan.tile_items)
+    yp = K.merge_csrmv_plain(*wargs, run_tiles=fused_w.run)
+    w_err = float((yw - yp).abs().max())
+    wheel_ok = wheel_ok and compare_results(
+        yw.cpu().numpy(), yp.cpu().numpy(), verbose=False,
+        abs_bound=cw.spmv_abs_bound(xh)) is None
+    w_plain = event_ms(lambda: K.merge_csrmv_plain(
+        *wargs, run_tiles=fused_w.run), iters=3, reps=2, graph=False)
+    w_ms = event_ms(lambda: fused_w(xw), iters=20)
+    w_two = event_ms(lambda: two_w(xw), iters=20)
+    w_tile = event_ms(lambda: K.merge_tile(
+        *wargs, run_tiles=fused_w.run, policy=fused_w.policy), iters=20)
+    lib_w = M.library_csr(ow)
+    w_lib = event_ms(lambda: torch.mv(lib_w, xw), iters=20)
+    w_bytes = csr_bytes(cw.num_rows, cw.num_cols, cw.num_nonzeros)
+    w_bound = w_bytes / info["peak_hbm_gbps"] / 1e6
+    G_w = -(-ow.plan.num_tiles // fused_w.run)
+    print(f"skew wheel: wheel_1m {cw.num_rows} rows {cw.num_nonzeros} nnz, "
+          f"{ow.describe()}, G = {G_w} pairs; K1 (fused) {w_ms:.4f} ms "
+          f"beside cuSPARSE {w_lib:.4f} ms ({w_ms / w_lib:.3f}x); the tile "
+          f"kernel alone {w_tile:.4f}, the two kernels {w_two:.4f}: the "
+          f"tail's share of the fused time {(w_ms - w_tile) / w_ms:.3f}; "
+          f"bytes bound {w_bound:.4f}; plain {w_plain:.2f} ms, max|err| "
+          f"{w_err:.3e}; one launch {wheel_launches == 1}; verified, two "
+          f"calls and the two kernels bitwise equal: {wheel_ok}")
+    if not wheel_ok or wheel_launches != 1:
+        return 1
+    k1_w = {"name": "merge_tile_fused@wheel_1m", "route": "cuda",
+            "source": "merge_spmv_tpu_torch/csrc/merge_csrmv.cu",
+            "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
+            "launches": wheel_launches, "max_abs_err": w_err, "ms": w_ms,
+            "plain_ms": w_plain, "bound_ms": w_bound, "bound_by": "bytes",
+            "library_ms": w_lib, "main_path": True,
+            "policy": ow.plan.policy, "two_kernels_ms": w_two,
+            "tile_alone_ms": w_tile}
+    del cw, ow, yw, yp, lib_w, fused_w, two_w, wargs, xw
+
+    # the gather policy's pick for a row-local band at full size
+    # (banded_n1024k_bw128_d5 of the stats corpus), both policies timed
+    cb_ = CsrMatrix.from_coo(MS.build_gens()["banded_n1024k_bw128_d5"]()
+                             ).astype(np.float32)
+    ob = build_operator(cb_)
+    xb = torch.ones(cb_.num_cols, device=dev)
+    band_ok = verified(ob(xb), cb_, np.ones(cb_.num_cols, np.float32))
+    band_ms = {}
+    for pol, T in (("stream", DEFAULT_TILE_ITEMS), ("l1", L1_TILE_ITEMS),
+                   ("l1", L1_WIDE_TILE_ITEMS)):
+        trb, tnb = merge_tile_coordinates(ob.row_end_offsets,
+                                          cb_.num_nonzeros, T)
+        bargs = (ob.values, ob.col_indices, ob.row_end_offsets, xb, trb,
+                 tnb, T)
+        band_ms[f"{pol} {T}"] = event_ms(lambda: K.merge_csrmv(
+            *bargs, tickets=ob.tickets, policy=pol), iters=20)
+    lib_b = M.library_csr(ob)
+    b_lib = event_ms(lambda: torch.mv(lib_b, xb), iters=20)
+    pick = f"{ob.plan.policy} {ob.plan.tile_items}"
+    print(f"skew band: banded_n1024k_bw128_d5 {cb_.num_rows} rows "
+          f"{cb_.num_nonzeros} nnz picks {pick} (tile sectors "
+          f"{tile_sectors(cb_.num_rows, cb_.col_indices):.1f}, "
+          f"{gather_sectors_per_nonzero(cb_.col_indices):.3f} a nonzero "
+          f"per warp request); K1 ms "
+          f"{ {k: round(v, 5) for k, v in band_ms.items()} } beside "
+          f"cuSPARSE {b_lib:.4f} (the pick: {band_ms[pick] / b_lib:.3f}x); "
+          f"verified {band_ok}")
+    if not band_ok:
+        return 1
+    del cb_, ob, xb, lib_b
 
     # ------------------------------------------------------------ headline
     # python -m merge_spmv_tpu_torch.bench.headline: bench.py's JSON line
@@ -2377,7 +2532,7 @@ def main() -> int:
                               "baseline_spmm":
                                   dia_launches["baseline_spmm"]}},
     ]
-    kernels += [k1_c, k1_k, k1_b]
+    kernels += [k1_c, k1_k, k1_b, k1_w]
     # K1m: launches from the main phase's op.mm, by path, and per SpMM
     # config (counted around that config's op.mm); times at cant, k = 32
     mm_src = "merge_spmv_tpu_torch/csrc/merge_csrmm.cu"

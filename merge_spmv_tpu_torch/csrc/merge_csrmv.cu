@@ -42,9 +42,14 @@
 //                       tile_items, so no thread takes more than kItems
 //                       nonzeros and kItems rows, however skewed the rows.
 //   the fix-up          adds alpha * (sum of the carries of one row) into y,
-//                       summing each row's carries in run order: no
-//                       floating-point atomics, so two calls on the same input
-//                       give the same bits.  The fused instantiation of
+//                       by one block: the G pairs loaded coalesced in chunks
+//                       of blockDim.x and summed by a block-wide segmented
+//                       scan in an order fixed by the pair indices
+//                       (fix_up_pairs): no floating-point atomics, so two
+//                       calls on the same input give the same bits, and a
+//                       row with carries from many runs (a hub row) costs a
+//                       few L2 round trips, not one per run.  The fused
+//                       instantiation of
 //                       merge_tile_kernel (kFused) runs it as its tail: each
 //                       block, once its run's rows and carry pair are
 //                       written, takes a ticket from a counter with an
@@ -106,6 +111,7 @@ constexpr int kMaxSharedBytes = 232448;   // a block's most on sm_90 (227 KB)
 constexpr int kSmSharedBytes = 233472;    // an SM's most (228 KB)
 constexpr int kBlockReserved = 1024;      // kept per resident block
 constexpr int kDefaultTileItems = 2048;   // ops/plan.py::DEFAULT_TILE_ITEMS
+constexpr int kFixupThreads = 256;        // carry_fixup_kernel's one block
 
 // Gather policies (ops/plan.py::POLICIES), one instantiation each, so that
 // each keeps its own shared-memory carveout:
@@ -327,29 +333,93 @@ __device__ __forceinline__ Header prepare(const unsigned char* stage,
   return h;
 }
 
-// The fix-up of pairs t = first, first + step, ...: where pair t is the
-// first carry of its row r < num_rows, y[r] += alpha * (the carries of r,
-// summed in run order).  In the fused kernel the pairs and y were written
-// by other blocks of the same launch, so every load goes through L2
-// (__ldcg); the read-only path (__ldg) is not coherent within a launch.
-// The loads of a pair's row, its neighbours' rows and its carry do not
-// depend on each other and are issued together, so a row with one carry
-// (the common case) costs two L2 round trips: these, then y[r].
+// One carry pair as the fix-up holds it: its row, its neighbours' rows and
+// its value (past the last pair: row -1, value 0).
+template <typename V>
+struct Pair {
+  int row, before, after;
+  V val;
+};
+
+// Pair t.  In the fused kernel the pairs were written by other blocks of
+// the same launch, so every load goes through L2 (__ldcg); the read-only
+// path (__ldg) is not coherent within a launch.  The four loads do not
+// depend on each other and are issued together.
+template <typename V>
+__device__ __forceinline__ Pair<V> load_pair(const int* carry_row,
+                                             const V* carry_val, int t,
+                                             int num_pairs) {
+  Pair<V> p = {-1, -1, -1, V(0)};
+  if (t < num_pairs) {
+    p.row = __ldcg(carry_row + t);
+    p.before = t > 0 ? __ldcg(carry_row + t - 1) : -1;
+    p.after = t + 1 < num_pairs ? __ldcg(carry_row + t + 1) : -1;
+    p.val = __ldcg(carry_val + t);
+  }
+  return p;
+}
+
+// The fix-up, run by one whole block: y[r] += alpha * (the carries of row
+// r), for every row r < num_rows that has carries (rows at or past
+// num_rows are the last run's sentinel).  The pairs are taken in chunks of
+// blockDim.x, one a thread, loaded coalesced, the next chunk's loads issued
+// before this chunk is summed.  The sums are a segmented scan with the
+// tile's operator (combine), a change of row starting a segment, in an
+// order fixed by the pair indices alone: within each group of 32 pairs (a
+// warp), the warp's shuffle scan; across groups, a fold from the first
+// group to the last, carried from chunk to chunk.  So every block size (a
+// multiple of 32) gives the same bits, and two calls give the same bits;
+// no floating-point atomics.  The thread that holds a row's last pair
+// writes y[r] = y[r] + alpha * sum, with y[r] loaded (through L2: other
+// blocks wrote it) before the scan.  s_val / s_flag: 2 * kMaxWarps slots
+// each, the groups' totals, double-buffered by chunk.
 template <typename V>
 __device__ void fix_up_pairs(const int* carry_row, const V* carry_val,
                              int num_pairs, int num_rows, V alpha, V* y,
-                             int first, int step) {
-  for (int t = first; t < num_pairs; t += step) {
-    const int r = __ldcg(carry_row + t);
-    const int r_before = __ldcg(carry_row + max(t - 1, 0));
-    int r_next = __ldcg(carry_row + min(t + 1, num_pairs - 1));
-    V sum = __ldcg(carry_val + t);
-    if (r >= num_rows || (t > 0 && r_before == r)) continue;
-    for (int u = t + 1; u < num_pairs && r_next == r;) {
-      sum += __ldcg(carry_val + u);
-      if (++u < num_pairs) r_next = __ldcg(carry_row + u);
+                             V* s_val, int* s_flag) {
+  const unsigned full = 0xffffffffu;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int open_f = 0;   // the fold of every group before this chunk
+  V open = V(0);
+  Pair<V> p = load_pair(carry_row, carry_val, tid, num_pairs);
+  for (int base = 0, c = 0; base < num_pairs; base += blockDim.x, ++c) {
+    const bool ends = p.row >= 0 && p.row < num_rows && p.after != p.row;
+    const V y_old = ends ? __ldcg(y + p.row) : V(0);
+    const Pair<V> next = load_pair(carry_row, carry_val,
+                                   base + blockDim.x + tid, num_pairs);
+    int f = p.before != p.row;
+    V v = p.val;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int f2 = __shfl_up_sync(full, f, d);
+      const V v2 = __shfl_up_sync(full, v, d);
+      if (lane >= d) combine(f2, v2, f, v);
     }
-    y[r] = __ldcg(y + r) + alpha * sum;
+    int* flags = s_flag + (c & 1) * kMaxWarps;
+    V* vals = s_val + (c & 1) * kMaxWarps;
+    if (lane == 31) {
+      flags[warp] = f;
+      vals[warp] = v;
+    }
+    __syncthreads();
+    // the groups folded in order; at its own, a thread takes the fold of
+    // the groups before it (unrolled: the totals' loads issue together)
+#pragma unroll
+    for (int w = 0; w < kMaxWarps; ++w) {
+      if (w < nwarps) {
+        if (w == warp) combine(open_f, open, f, v);
+        int gf = flags[w];
+        V gv = vals[w];
+        combine(open_f, open, gf, gv);
+        open_f = gf;
+        open = gv;
+      }
+    }
+    if (ends) y[p.row] = y_old + alpha * v;
+    p = next;
   }
 }
 
@@ -575,7 +645,8 @@ __global__ void __launch_bounds__(kMaxThreads) merge_tile_kernel(
     // increment wraps: it stores 0 where it hands out ticket G - 1, so the
     // counter is 0 again for the next launch without a store of its own.
     // The warp totals are no longer read: s_warp_flag[0] carries "this
-    // block took the last ticket" to the block's threads.
+    // block took the last ticket" to the block's threads, and the tile's
+    // partials, no longer read either, hold the fix-up's group totals.
     __syncthreads();
     if (tid == 0) {
       unsigned int* counter = tickets != nullptr ? tickets : &g_tickets;
@@ -588,18 +659,22 @@ __global__ void __launch_bounds__(kMaxThreads) merge_tile_kernel(
     __syncthreads();
     if (s_warp_flag[0])
       fix_up_pairs(carry_row, carry_val, static_cast<int>(gridDim.x),
-                   num_rows, alpha, y, tid, blockDim.x);
+                   num_rows, alpha, y, s_partial,
+                   reinterpret_cast<int*>(s_partial + 2 * kMaxWarps));
   }
 }
 
+// The fix-up as a launch of its own: one block, the fused tail's body, so
+// its bits are the fused kernel's at the same runs.
 template <typename V>
 __global__ void carry_fixup_kernel(const int* __restrict__ carry_row,
                                    const V* __restrict__ carry_val,
                                    int num_pairs, int num_rows, V alpha,
                                    V* __restrict__ y) {
-  fix_up_pairs(carry_row, carry_val, num_pairs, num_rows, alpha, y,
-               static_cast<int>(blockIdx.x * blockDim.x + threadIdx.x),
-               static_cast<int>(gridDim.x * blockDim.x));
+  __shared__ V s_val[2 * kMaxWarps];
+  __shared__ int s_flag[2 * kMaxWarps];
+  fix_up_pairs(carry_row, carry_val, num_pairs, num_rows, alpha, y, s_val,
+               s_flag);
 }
 
 // The instantiation for (fused, policy); null for an unknown policy.
@@ -708,9 +783,7 @@ template <typename V>
 int launch_carry_fixup(const void* carry_row, const void* carry_val,
                        int num_pairs, int num_rows, double alpha, void* y,
                        void* stream) {
-  const int threads = 256;
-  const int blocks = (num_pairs + threads - 1) / threads;
-  carry_fixup_kernel<V><<<blocks, threads, 0,
+  carry_fixup_kernel<V><<<1, kFixupThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(carry_row), static_cast<const V*>(carry_val),
       num_pairs, num_rows, static_cast<V>(alpha), static_cast<V*>(y));

@@ -27,8 +27,9 @@ from merge_spmv_tpu_torch.utils.device import dtype_name, itemsize
 __all__ = ["SpmvPlan", "make_plan", "TileGeometry", "tile_geometry",
            "tile_shared_bytes", "run_ends", "ITEMS_PER_THREAD",
            "MIN_TILE_ITEMS", "MAX_TILE_ITEMS", "H100_SMS", "POLICIES",
-           "gather_sectors_per_nonzero", "gather_policy",
-           "l1_carveout_bytes", "L1_TILE_ITEMS", "MmLayout", "mm_layout",
+           "gather_sectors_per_nonzero", "gather_policy", "gather_choice",
+           "tile_sectors", "stream_l1_bytes", "l1_carveout_bytes",
+           "L1_TILE_ITEMS", "L1_WIDE_TILE_ITEMS", "MmLayout", "mm_layout",
            "mm_shared_bytes", "MmGeometry", "mm_geometry", "MM_MAX_K",
            "MM_THREADS", "MM_CHUNK_ITEMS", "MM_BLOCKS_PER_SM",
            "MM_STAGE_SLACK", "mm_batch_rows", "mm_carveout"]
@@ -41,9 +42,13 @@ ITEMS_PER_THREAD = 8
 MIN_TILE_ITEMS = 32 * ITEMS_PER_THREAD
 MAX_TILE_ITEMS = 512 * ITEMS_PER_THREAD
 DEFAULT_TILE_ITEMS = 256 * ITEMS_PER_THREAD
-# The "l1" policy's default tile: two blocks of 128 threads share the
-# SM's smallest carveout that holds one default tile (l1_carveout_bytes).
+# The "l1" policy's tiles: for scattered columns two blocks of 128 threads
+# share the SM's smallest carveout that holds one default tile
+# (l1_carveout_bytes), leaving it the most L1; for a window of x read
+# several times a tile, one block of 512 threads (16 warps), for which the
+# CUDA driver raises the carveout at launch (132 KB in float32).
 L1_TILE_ITEMS = 128 * ITEMS_PER_THREAD
+L1_WIDE_TILE_ITEMS = 512 * ITEMS_PER_THREAD
 
 # Shared-memory stages of the tile kernel: a tile's streams arrive in one
 # while the tile before is prepared from the other.
@@ -62,6 +67,7 @@ BLOCK_SHARED_MAX = 232_448
 BLOCK_SHARED_DEFAULT = 49_152
 # the shared-memory carveouts an SM can take, KB (the same guide)
 SM_CARVEOUTS_KB = (0, 8, 16, 32, 64, 100, 132, 164, 196, 228)
+SM_L1_SHARED_BYTES = 256 * 1024   # an SM's L1 and shared memory together
 # SMs of the H100 SXM: the geometry's default where no card is asked.
 H100_SMS = 132
 
@@ -70,14 +76,21 @@ H100_SMS = 132
 # (about 28 KB of L1 left for x at the default tile); "l1" runs the blocks
 # that fit the smallest carveout holding one default tile (64 KB in
 # float32), so that the rest of the SM's 256 KB, 192 KB, is L1 for x.
-# gather_policy picks one per matrix.
+# gather_choice picks one per matrix, and "l1"'s tile.
 POLICIES = ("stream", "l1")
 SECTOR_BYTES = 32          # an L2 sector: what a scattered 4-byte read moves
 WARP = 32                  # nonzeros of one warp request of the gather
-# "l1" when the gather's sectors move more than this many times the
-# streams' bytes
-GATHER_BOUND_RATIO = 2.0
+# "l1" when the windows of x do not fit "stream"'s L1 and the gather's
+# warp requests move more than this many times the streams' bytes (the
+# lowest such ratio measured, gen_powerlaw_1m's 1.95, ran fastest under
+# "l1": PERF.md §5)
+GATHER_BOUND_RATIO = 1.0
+# "l1" takes L1_TILE_ITEMS when a tile's nonzeros read at least this many
+# sectors each, else L1_WIDE_TILE_ITEMS (measured: 0.26-0.59 ran fastest
+# at 4096 items, 0.74-0.87 at 1024; PERF.md §5)
+L1_SCATTER_SECTORS = 0.65
 _SPREAD_SAMPLES = 4096     # warp requests sampled by the statistic
+_TILE_SAMPLES = 256        # tiles sampled by tile_sectors
 
 # The multi-RHS tile kernel (K1m, csrc/merge_csrmm.cu): blocks of
 # MM_THREADS threads, at most MM_BLOCKS_PER_SM an SM (its launch bounds: 64
@@ -175,8 +188,8 @@ def make_plan(num_rows: int, num_cols: int, num_nonzeros: int,
     The arguments after ``num_rhs`` are the TPU package's, in its order,
     so that a caller of either package may call the other.  As there,
     ``col_indices`` (a numpy array or a tensor) tightens the kernel's
-    knobs: it picks the gather policy (``gather_policy``) and, for "l1",
-    the default tile L1_TILE_ITEMS; without it the policy is "stream".
+    knobs: it picks the gather policy and its default tile
+    (``gather_choice``); without it the policy is "stream".
     The others are accepted and ignored, and the plan names those given
     (``plan.ignored``, shown by ``describe()``).
 
@@ -193,10 +206,11 @@ def make_plan(num_rows: int, num_cols: int, num_nonzeros: int,
         raise ValueError(
             f"{num_rows} rows + {num_nonzeros} nonzeros exceed the kernel's "
             "int32 merge coordinates")
-    policy = ("stream" if col_indices is None else
-              gather_policy(num_rows, num_nonzeros, col_indices, dname))
+    policy, default_tile = (
+        ("stream", DEFAULT_TILE_ITEMS) if col_indices is None else
+        gather_choice(num_rows, num_nonzeros, col_indices, dname))
     if tile_items is None:
-        tile_items = L1_TILE_ITEMS if policy == "l1" else DEFAULT_TILE_ITEMS
+        tile_items = default_tile
         # no point in a tile much larger than the whole merge list
         total = num_rows + num_nonzeros
         while tile_items > MIN_TILE_ITEMS and tile_items >= 4 * total:
@@ -334,6 +348,25 @@ def run_ends(num_tiles: int, run_tiles: int) -> torch.Tensor:
                        * run_tiles, max=num_tiles)
 
 
+def _distinct_sectors(cols: torch.Tensor, dtype, width: int,
+                      samples: Optional[int]) -> float:
+    """Distinct 32-byte sectors of x among ``width`` consecutive nonzeros,
+    averaged over ``samples`` groups spread evenly over the nonzeros (or
+    over every group, the nonzeros cut into groups of ``width``, with
+    ``samples=None``).  Integer arithmetic, so the same samples on every
+    device; one host read."""
+    nnz = cols.shape[0]
+    per_sector = SECTOR_BYTES // _value_size(dtype)
+    groups = nnz // width
+    count = groups if samples is None else min(samples, groups)
+    step = width if count == groups else (nnz - width) // max(count - 1, 1)
+    starts = torch.arange(count, device=cols.device) * step
+    idx = starts[:, None] + torch.arange(width, device=cols.device)
+    sectors = torch.sort(cols[idx].long() // per_sector, dim=1).values
+    distinct = 1 + (sectors[:, 1:] != sectors[:, :-1]).sum(1)
+    return float(distinct.double().mean())
+
+
 def gather_sectors_per_nonzero(col_indices, dtype="float32",
                                samples: Optional[int] = _SPREAD_SAMPLES
                                ) -> float:
@@ -341,23 +374,30 @@ def gather_sectors_per_nonzero(col_indices, dtype="float32",
     nonzeros (one warp request of the tile kernel's gather): about 1 when
     the columns scatter, 1 / WARP when a request reads one sector.  On
     ``samples`` requests spread evenly over the nonzeros, or on every
-    request (the nonzeros cut into groups of WARP) with ``samples=None``.
-    A torch tensor on any device, or a numpy array; one host read."""
+    request with ``samples=None``.  A torch tensor on any device, or a
+    numpy array."""
+    cols = torch.as_tensor(col_indices)
+    if cols.shape[0] == 0:
+        return 0.0
+    width = min(WARP, cols.shape[0])
+    return _distinct_sectors(cols, dtype, width, samples) / width
+
+
+def tile_sectors(num_rows: int, col_indices, dtype="float32",
+                 tile_items: int = DEFAULT_TILE_ITEMS,
+                 samples: Optional[int] = _TILE_SAMPLES) -> float:
+    """Distinct 32-byte sectors of x among the nonzeros of one merge tile
+    of ``tile_items`` items (its share of nonzeros, ``tile_items * nnz /
+    (rows + nnz)`` consecutive ones), on ``samples`` tiles as
+    ``gather_sectors_per_nonzero`` samples requests: the sectors a tile's
+    gather moves when each is fetched once, however many of the tile's
+    warp requests read it."""
     cols = torch.as_tensor(col_indices)
     nnz = cols.shape[0]
     if nnz == 0:
         return 0.0
-    per_sector = SECTOR_BYTES // _value_size(dtype)
-    width = min(WARP, nnz)
-    groups = nnz // width
-    count = groups if samples is None else min(samples, groups)
-    # integer arithmetic: the same samples on every device
-    step = width if count == groups else (nnz - width) // max(count - 1, 1)
-    starts = torch.arange(count, device=cols.device) * step
-    idx = starts[:, None] + torch.arange(width, device=cols.device)
-    sectors = torch.sort(cols[idx].long() // per_sector, dim=1).values
-    distinct = 1 + (sectors[:, 1:] != sectors[:, :-1]).sum(1)
-    return float(distinct.double().mean()) / width
+    width = max(1, min(nnz, tile_items * nnz // (int(num_rows) + nnz)))
+    return _distinct_sectors(cols, dtype, width, samples)
 
 
 def l1_carveout_bytes(dtype="float32") -> int:
@@ -369,18 +409,62 @@ def l1_carveout_bytes(dtype="float32") -> int:
     return next(kb * 1024 for kb in SM_CARVEOUTS_KB if kb * 1024 >= need)
 
 
-def gather_policy(num_rows: int, num_nonzeros: int, col_indices,
-                  dtype="float32") -> str:
-    """The gather policy for a matrix with these columns: "l1" when the
-    sectors its gather moves (``gather_sectors_per_nonzero`` per nonzero,
-    32 bytes each) exceed GATHER_BOUND_RATIO times its streams (a value
-    and a column index per nonzero, a row end and a y per row), so that
-    the time goes to the gather and L1 hits save it; "stream" otherwise."""
+def stream_l1_bytes(dtype="float32") -> int:
+    """L1 left to x under "stream" at the default tile: the SM's 256 KB
+    less the smallest carveout that holds its blocks (28 KB in float32,
+    60 KB in float64)."""
+    g = tile_geometry(1, DEFAULT_TILE_ITEMS, dtype)
+    need = g.blocks_per_sm * (g.shared_bytes + BLOCK_RESERVED_SHARED)
+    return SM_L1_SHARED_BYTES - next(kb * 1024 for kb in SM_CARVEOUTS_KB
+                                     if kb * 1024 >= need)
+
+
+def gather_choice(num_rows: int, num_nonzeros: int, col_indices,
+                  dtype="float32") -> tuple:
+    """(policy, default tile) for a matrix with these columns.
+
+    Under "stream" the blocks of an SM each gather from their tile's
+    window of x, ``tile_sectors`` sectors (together at most x's own).
+    When those windows fit the L1 that "stream" leaves
+    (``stream_l1_bytes``), each sector comes from L2 about once a tile,
+    whatever the warp requests read: "stream" (the stencils, the bands of
+    a few hundred columns, the wheel, an x of a few thousand columns).
+    Otherwise each warp request fetches its own sectors
+    (``gather_sectors_per_nonzero``), and "l1" is taken when they move
+    more than GATHER_BOUND_RATIO times the streams (a value and a column
+    index per nonzero, a row end and a y per row).  "l1"'s tile:
+    L1_TILE_ITEMS when a tile's nonzeros read L1_SCATTER_SECTORS sectors
+    each or more (scattered: only the SM's L1 across tiles saves their
+    sectors, and two 128-thread blocks leave it 192 KB), else
+    L1_WIDE_TILE_ITEMS (a window read several times a tile: one block of
+    16 warps hides L2's latency, and its L1 holds the window)."""
+    dtype = dtype_name(dtype)
+    if num_nonzeros == 0:
+        return "stream", DEFAULT_TILE_ITEMS
+    per_tile = tile_sectors(num_rows, col_indices, dtype)
+    blocks = tile_geometry(1, DEFAULT_TILE_ITEMS, dtype).blocks_per_sm
+    x_sectors = (int(torch.as_tensor(col_indices).max())
+                 // (SECTOR_BYTES // _value_size(dtype)) + 1)
+    window = min(blocks * per_tile, x_sectors) * SECTOR_BYTES
+    if window <= stream_l1_bytes(dtype):
+        return "stream", DEFAULT_TILE_ITEMS
     vs = _value_size(dtype)
     gather = (num_nonzeros * SECTOR_BYTES
               * gather_sectors_per_nonzero(col_indices, dtype))
     streams = num_nonzeros * (vs + 4) + num_rows * (4 + vs)
-    return "l1" if gather > GATHER_BOUND_RATIO * streams else "stream"
+    if gather <= GATHER_BOUND_RATIO * streams:
+        return "stream", DEFAULT_TILE_ITEMS
+    tile_nnz = max(1, min(num_nonzeros, DEFAULT_TILE_ITEMS * num_nonzeros
+                          // (int(num_rows) + num_nonzeros)))
+    if per_tile >= L1_SCATTER_SECTORS * tile_nnz:
+        return "l1", L1_TILE_ITEMS
+    return "l1", L1_WIDE_TILE_ITEMS
+
+
+def gather_policy(num_rows: int, num_nonzeros: int, col_indices,
+                  dtype="float32") -> str:
+    """The gather policy of ``gather_choice``."""
+    return gather_choice(num_rows, num_nonzeros, col_indices, dtype)[0]
 
 
 # ---------------------------------------------------------------------- #

@@ -3,10 +3,13 @@
     python -m merge_spmv_tpu_torch.tools.tail_mutants
 
 For each mutant, copies the package and tests/test_torch_cuda.py into a
-temporary directory, breaks the tail's ordering in that copy's
-csrc/merge_csrmv.cu (``relaxed_ticket``: the ticket taken by a relaxed
-instead of an acquire-release atomic; ``no_barrier``: no block barrier
-before it), and runs the card tests that exercise the tail from the copy.
+temporary directory, breaks the tail in that copy's csrc/merge_csrmv.cu
+(its ordering: ``relaxed_ticket``, the ticket taken by a relaxed instead
+of an acquire-release atomic; ``no_barrier``, no block barrier before it;
+its sums: ``no_group_barrier``, the groups' totals read with no barrier
+after their writes; ``no_prefix``, a pair's group not joined to the
+groups before it), and runs the card tests that exercise the tail from
+the copy.
 Prints one JSON line: per mutant, pytest's summary and whether any test
 failed.  Nothing broken is written into the tree.
 """
@@ -24,12 +27,16 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]
 TESTS = PKG.parent / "tests" / "test_torch_cuda.py"
-SELECT = "fused_tail or two_streams or graph_replays"
+SELECT = "fused_tail or tail_ or two_streams or graph_replays"
 MUTANTS = {
     "relaxed_ticket": ("atom.acq_rel.gpu.inc.u32", "atom.relaxed.gpu.inc.u32"),
     "no_barrier": ("    __syncthreads();\n    if (tid == 0) {\n"
                    "      unsigned int* counter",
                    "    if (tid == 0) {\n      unsigned int* counter"),
+    "no_group_barrier": ("    __syncthreads();\n    // the groups folded",
+                         "    // the groups folded"),
+    "no_prefix": ("        if (w == warp) combine(open_f, open, f, v);\n",
+                  ""),
 }
 
 

@@ -29,10 +29,30 @@ bits: seconds where the host generators take ~100 s).
   launched at 1 to 8 blocks per SM, set through the carveout preference
   (an ``extern "C" set_carveout`` appended to the variant), with the
   occupancy the card reports for it.
+* With ``--tail``, the tail study, on the matrices where K1 lost to
+  cuSPARSE (the long rows: wheel_1m, wheel_2m, gen_powerlaw_1m; the
+  row-local 1M-row bands and power laws of tools/make_corpus_stats.py;
+  the skew trio at 2^20 x 8, bench/matrices.py::skew_trio) and the ones
+  it must not lose on (grid3d100, cant_class in float64, the circuit5M
+  and kron classes), made at full size: the gather statistics of
+  ops/plan.py (per warp request and per tile); every policy at each of
+  its tiles through the package, warm and with a cold L2 (a 256 MB write
+  before each launch, its time taken off), beside cuSPARSE on the same
+  timer; at each (policy, tile) the plan picks from (``CHOICES``) the
+  two-kernel path at the same runs, the unfused tile kernel alone, and
+  two variants of the committed
+  source: NOTAIL (the fused kernel with its fix-up skipped: a wrong
+  result, for timing only) and TAILSTAMP (``clock64()`` and the global
+  timer read by the last block before and after its fix-up, into a side
+  buffer).  ``--ref FILE`` builds an earlier committed kernel (``git
+  show <commit>:merge_spmv_tpu_torch/csrc/merge_csrmv.cu``) as REF and
+  times it beside the committed one at each (policy, tile), in turns.
+  ``--out PATH`` also writes every line to PATH.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import math
@@ -45,12 +65,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from merge_spmv_tpu_torch.bench.matrices import skew_trio
+from merge_spmv_tpu_torch.bench.measure import _Flush
 from merge_spmv_tpu_torch.formats.coo import CooMatrix
 from merge_spmv_tpu_torch.formats.csr import CsrMatrix
 from merge_spmv_tpu_torch.ops import csrmv_cuda as K
 from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
-from merge_spmv_tpu_torch.ops.plan import (POLICIES, gather_policy,
-                                           tile_geometry, tile_shared_bytes)
+from merge_spmv_tpu_torch.ops.plan import (DEFAULT_TILE_ITEMS, L1_TILE_ITEMS,
+                                           L1_WIDE_TILE_ITEMS, POLICIES,
+                                           gather_choice,
+                                           gather_sectors_per_nonzero,
+                                           gather_policy, tile_geometry,
+                                           tile_sectors, tile_shared_bytes)
 from merge_spmv_tpu_torch.tools import gather_rate as GR
 from merge_spmv_tpu_torch.utils.cuda_build import BUILD_DIR, NVCC_FLAGS, _nvcc
 from merge_spmv_tpu_torch.utils.device import (nvidia_smi_name_power,
@@ -88,6 +114,30 @@ A0_CONFIGS = [(2048, 4), (2048, 3), (2048, 2), (2048, 1), (4096, 2),
               (4096, 1), (1024, 8), (1024, 4), (1024, 2), (-2048, 4)]
 FEW_CONFIGS = [(2048, 4), (2048, 1), (4096, 1), (1024, 2)]
 POLICY_TILES = {"stream": (2048, 4096), "l1": (1024, 2048, 4096)}
+# the (policy, tile) pairs the plan picks from (ops/plan.py::gather_choice)
+CHOICES = (("stream", DEFAULT_TILE_ITEMS), ("l1", L1_TILE_ITEMS),
+           ("l1", L1_WIDE_TILE_ITEMS))
+# the fused kernel's tail: the last block's call of the fix-up
+TAIL = "    if (s_warp_flag[0])\n"
+TAIL_CLOCKS = r'''
+__device__ long long g_tail[2];
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+'''
+READ_TAIL = r'''
+extern "C" int read_tail(long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_tail,
+                                               2 * sizeof(long long)));
+}
+'''
+# the matrices of the tail study from tools/make_corpus_stats.py
+TAIL_CORPUS = ("wheel_1m", "wheel_2m", "gen_powerlaw_1m",
+               "banded_n1024k_bw128_d5", "banded_n1024k_bw1024_d5",
+               "banded_n1024k_bw128_d9", "banded_n1024k_bw1024_d9",
+               "plaw_n1024k_a1p2", "plaw_n1024k_a1p5", "plaw_n1024k_a1p8")
 
 
 def _sub(text, old, new):
@@ -151,7 +201,33 @@ extern "C" int read_stamps(long long* host, int n) {
     return {k: s + CARVEOUT for k, s in v.items()}
 
 
-def _build(item):
+def tail_variants(src: str) -> dict:
+    """The committed kernel's tail variants, by name: NOTAIL (the last
+    block skips the fix-up) and TAILSTAMP (its clock64() and global-timer
+    time, start to end of the fix-up, in a side buffer read by
+    ``read_tail``)."""
+    if src.count(TAIL) != 1:
+        raise ValueError(f"the source does not hold exactly one {TAIL!r}")
+    at = src.index(TAIL) + len(TAIL)
+    call = src[at:src.index(";\n", at) + 2]
+    stamp = ("    if (s_warp_flag[0]) {\n"
+             "      const long long c0 = clock64(), n0 = global_ns();\n"
+             + call +
+             "      __syncthreads();\n"
+             "      if (tid == 0) {\n"
+             "        g_tail[0] = clock64() - c0;\n"
+             "        g_tail[1] = global_ns() - n0;\n"
+             "      }\n"
+             "    }\n")
+    t = _sub(src, "__device__ unsigned int g_tickets = 0;\n",
+             "__device__ unsigned int g_tickets = 0;\n" + TAIL_CLOCKS)
+    return {"NOTAIL": _sub(src, TAIL + call, "    if (false)\n" + call),
+            "TAILSTAMP": _sub(t, TAIL + call, stamp) + READ_TAIL}
+
+
+def _build(item, committed=False):
+    """Build one variant; ``committed``: the committed kernel's entry
+    (with SM grouping and policy), else the base's."""
     name, src = item
     out = BUILD_DIR / "ablation"
     out.mkdir(parents=True, exist_ok=True)
@@ -164,11 +240,16 @@ def _build(item):
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
     lib = ctypes.CDLL(str(so))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.merge_tile_f32.argtypes = [P] * 7 + [D, D] + [P] * 3 + [I] * 6 + \
-        [P, P]
-    lib.merge_tile_occupancy_f32.argtypes = [I, I, I, ctypes.POINTER(I),
-                                             ctypes.POINTER(I)]
-    lib.set_carveout.argtypes = [I]
+    if committed:
+        for sfx in ("f32", "f64"):
+            getattr(lib, f"merge_tile_{sfx}").argtypes = \
+                [P] * 7 + [D, D] + [P] * 3 + [I] * 8 + [P, P]
+    else:
+        lib.merge_tile_f32.argtypes = [P] * 7 + [D, D] + [P] * 3 + \
+            [I] * 6 + [P, P]
+        lib.merge_tile_occupancy_f32.argtypes = [I, I, I, ctypes.POINTER(I),
+                                                 ctypes.POINTER(I)]
+        lib.set_carveout.argtypes = [I]
     if lib.merge_csrmv_init():
         raise RuntimeError(f"merge_csrmv_init failed for {name}")
     return name, lib
@@ -203,18 +284,34 @@ def _kron(dev, scale=20, nnz=50_000_000, seed=16):
 
 
 class _Matrix:
-    def __init__(self, name, n, rows, cols, dev):
+    def __init__(self, name, n, rows, cols, dev, dtype=torch.float32):
         key, _ = torch.sort(rows * n + cols)
+        ends = torch.cumsum(torch.bincount(key // n, minlength=n),
+                            0).to(torch.int32)
+        self._setup(name, n, n, ends, (key % n).to(torch.int32), dev, dtype)
+
+    @classmethod
+    def from_csr(cls, name, csr, dev, dtype=torch.float32):
+        """A host CSR's structure on the card (its values redrawn)."""
+        m = cls.__new__(cls)
+        m._setup(name, csr.num_rows, csr.num_cols,
+                 torch.from_numpy(csr.row_offsets[1:].astype(np.int32)
+                                  ).to(dev),
+                 torch.from_numpy(csr.col_indices.astype(np.int32)).to(dev),
+                 dev, dtype)
+        return m
+
+    def _setup(self, name, n, num_cols, ends, cols, dev, dtype):
         g = torch.Generator(device=dev).manual_seed(1)
-        self.name, self.n, self.nnz, self.dev = name, n, key.numel(), dev
-        self.cols = (key % n).to(torch.int32)
-        self.values = torch.rand(self.nnz, generator=g, device=dev) + 0.5
-        self.ends = torch.cumsum(torch.bincount(key // n, minlength=n),
-                                 0).to(torch.int32)
-        self.x = torch.rand(n, generator=g, device=dev) + 0.5
+        self.name, self.n, self.nnz, self.dev = name, n, cols.numel(), dev
+        self.dtype, self.cols, self.ends = dtype, cols, ends
+        self.values = (torch.rand(self.nnz, generator=g, device=dev)
+                       + 0.5).to(dtype)
+        self.x = (torch.rand(num_cols, generator=g, device=dev)
+                  + 0.5).to(dtype)
         starts = torch.cat([self.ends.new_zeros(1), self.ends])
         self.sp = torch.sparse_csr_tensor(starts, self.cols, self.values,
-                                          size=(n, n))
+                                          size=(n, num_cols))
         self.want = torch.mv(self.sp, self.x)
         self.cusparse_ms = event_ms(lambda: torch.mv(self.sp, self.x))
         self._tiles = {}
@@ -246,28 +343,37 @@ def _launcher(lib, M, T, run, sm_blocks, policy=None):
     tr, tn = M.tiles(T)
     num_tiles = tr.shape[0] - 1
     G = -(-num_tiles // run)
-    y = torch.empty(M.n, device=M.dev)
+    y = torch.empty(M.n, device=M.dev, dtype=M.dtype)
     crow = torch.empty(G, dtype=torch.int32, device=M.dev)
-    cval = torch.empty(G, device=M.dev)
+    cval = torch.empty(G, device=M.dev, dtype=M.dtype)
     tickets = torch.zeros(1, dtype=torch.int32, device=M.dev)
     head = (M.values.data_ptr(), M.cols.data_ptr(), M.ends.data_ptr(),
             M.x.data_ptr(), None, tr.data_ptr(), tn.data_ptr(), 1.0, 0.0,
             y.data_ptr(), crow.data_ptr(), cval.data_ptr(), M.n, num_tiles,
             run)
-    shape = (T // 8, tile_shared_bytes(T, "float32"), 1)
+    shape = (T // 8, tile_shared_bytes(T, M.dtype), 1)
     args = (head + (sm_blocks,) + shape + (POLICIES.index(policy),)
             if policy else head + shape)
+    entry = getattr(lib, "merge_tile_f64" if M.dtype == torch.float64
+                    else "merge_tile_f32")
 
     def launch():
-        rc = lib.merge_tile_f32(*args, tickets.data_ptr(),
-                                torch.cuda.current_stream().cuda_stream)
+        rc = entry(*args, tickets.data_ptr(),
+                   torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"launch failed: {rc}")
     return launch, y, G
 
 
+_OUT = []   # the --out file, if any
+
+
 def _emit(row):
-    print(json.dumps(row), flush=True)
+    line = json.dumps(row)
+    print(line, flush=True)
+    for path in _OUT:
+        with open(path, "a") as f:
+            f.write(line + "\n")
 
 
 def policies(mats, dev):
@@ -349,12 +455,128 @@ def base_variants(mats, dev, src):
                 _emit(row)
 
 
+def _tail_matrices(dev):
+    """The tail study's matrices, one at a time (see the docstring)."""
+    from merge_spmv_tpu_torch.tools.bench_baseline_configs import cant_csr
+    from merge_spmv_tpu_torch.tools.make_corpus_stats import build_gens
+    gens = build_gens()
+    for name in TAIL_CORPUS:
+        yield _Matrix.from_csr(name, CsrMatrix.from_coo(gens[name]()), dev)
+    for label, csr in skew_trio(1 << 20, 8):
+        yield _Matrix.from_csr(f"skew_{label}", csr, dev)
+    yield _Matrix.from_csr("grid3d100",
+                           CsrMatrix.from_coo(CooMatrix.grid3d(100)), dev)
+    yield _Matrix.from_csr("cant_class_f64", cant_csr(np.float64), dev,
+                           torch.float64)
+    yield _Matrix("circuit5M", *_circuit(dev), dev)
+    yield _Matrix("kron", *_kron(dev), dev)
+
+
+def tail_study(dev, ref_src=None):
+    """The tail study (``--tail``): one line per matrix."""
+    t0 = time.perf_counter()
+    vs = tail_variants((BUILD_DIR.parent / "csrc" / "merge_csrmv.cu")
+                       .read_text())
+    if ref_src is not None:
+        vs["REF"] = ref_src
+    with ThreadPoolExecutor(len(vs)) as pool:
+        libs = dict(pool.map(lambda item: _build(item, committed=True),
+                             vs.items()))
+    _emit({"built": sorted(libs), "s": time.perf_counter() - t0})
+    flush = _Flush(dev)
+    for M in _tail_matrices(dev):
+        t1 = time.perf_counter()
+        dt = "float64" if M.dtype == torch.float64 else "float32"
+        row = {"matrix": M.name, "rows": M.n, "nnz": M.nnz, "dtype": dt,
+               "choice": gather_choice(M.n, M.nnz, M.cols, dt),
+               "request_sectors_per_nnz": gather_sectors_per_nonzero(
+                   M.cols, dt),
+               "tile_sectors": {T: tile_sectors(M.n, M.cols, dt, T)
+                                for T in (1024, 2048)},
+               "cusparse_ms": M.cusparse_ms,
+               "cusparse_cold_ms": flush.cold_ms(
+                   lambda: torch.mv(M.sp, M.x))}
+        tickets = K.ticket_counter(dev)
+        for policy in POLICIES:
+            for T in POLICY_TILES[policy]:
+                tr, tn = M.tiles(T)
+                args = (M.values, M.cols, M.ends, M.x, tr, tn, T)
+
+                def fused(args=args, policy=policy):
+                    return K.merge_csrmv(*args, tickets=tickets,
+                                         policy=policy)
+                geo = K.launch_geometry(tr.shape[0] - 1, T, M.dtype, dev,
+                                        True, policy)
+                y = fused()
+                e = {"G": geo.grid, "run": geo.run_tiles,
+                     "blocks_per_sm": geo.blocks_per_sm,
+                     "ms": event_ms(fused, iters=20),
+                     "cold_ms": flush.cold_ms(fused),
+                     "rel_err": M.rel_err(y)}
+                if (policy, T) in CHOICES:
+                    e.update(_tail_parts(M, T, policy, geo, y, libs,
+                                         flush, tickets))
+                row[f"{policy}_{T}"] = e
+        row["s"] = time.perf_counter() - t1
+        _emit(row)
+        del M
+
+
+def _tail_parts(M, T, policy, geo, y, libs, flush, tickets):
+    """At a (policy, tile) of CHOICES: the two kernels at the fused runs,
+    the unfused kernel alone, NOTAIL, TAILSTAMP and REF."""
+    tr, tn = M.tiles(T)
+    args = (M.values, M.cols, M.ends, M.x, tr, tn, T)
+    run = geo.run_tiles
+    two = K.carry_fixup(*K.merge_tile(*args, run_tiles=run, policy=policy))
+    out = {"two_kernels_bitwise": bool(torch.equal(y, two)),
+           "two_kernels_ms": event_ms(lambda: K.carry_fixup(*K.merge_tile(
+               *args, run_tiles=run, policy=policy)), iters=20),
+           "unfused_ms": event_ms(lambda: K.merge_tile(
+               *args, run_tiles=run, policy=policy), iters=20)}
+    sm_blocks = geo.blocks_per_sm if geo.grid % geo.blocks_per_sm == 0 else 1
+    for name, lib in libs.items():
+        launch, yv, _ = _launcher(lib, M, T, run, sm_blocks, policy)
+        launch()
+        out[f"{name}_ms"] = event_ms(launch, iters=20)
+        if name == "TAILSTAMP":
+            launch()
+            torch.cuda.synchronize()
+            buf = (ctypes.c_longlong * 2)()
+            lib.read_tail(buf)
+            out["tail_cycles"], out["tail_ns"] = buf[0], buf[1]
+        elif name == "NOTAIL":
+            out["NOTAIL_cold_ms"] = flush.cold_ms(launch)
+        else:
+            out[f"{name}_cold_ms"] = flush.cold_ms(launch)
+            out[f"{name}_rel_err"] = M.rel_err(yv)
+    # the committed kernel again, after the variants: in turns
+    out["ms_again"] = event_ms(lambda: K.merge_csrmv(
+        *args, tickets=tickets, policy=policy), iters=20)
+    return out
+
+
 def main(argv=None):
-    argv = sys.argv if argv is None else argv
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("base", nargs="?", default=None,
+                    help="the tile kernel before its gather policies "
+                    "(commit bf5e34b), for its variants")
+    ap.add_argument("--tail", action="store_true",
+                    help="the tail study (and nothing else)")
+    ap.add_argument("--ref", default=None,
+                    help="an earlier committed kernel, timed as REF")
+    ap.add_argument("--out", default=None, help="also write the lines here")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    if args.out:
+        _OUT.append(args.out)
     dev = torch.device("cuda")
     peak = peak_hbm_bandwidth(dev)
     _emit({"nvidia_smi": nvidia_smi_name_power(),
            "torch": torch.__version__})
+    if args.tail:
+        tail_study(dev, None if args.ref is None
+                   else Path(args.ref).read_text())
+        return 0
     rates = GR.measure()
     _emit({"gather_rate": rates})
     mats = _matrices(dev)
@@ -370,8 +592,8 @@ def main(argv=None):
                "gather_bound_ms": GR.gather_bound_ms(
                    sectors, streams, probe["sector_rate_gbps"], peak)})
     policies(mats, dev)
-    if len(argv) > 1:
-        base_variants(mats, dev, Path(argv[1]).read_text())
+    if args.base:
+        base_variants(mats, dev, Path(args.base).read_text())
     return 0
 
 

@@ -469,6 +469,94 @@ def test_fused_tail_orders_the_last_writes(card, policy):
     assert int(tickets.item()) == 0
 
 
+def _rows_of(lengths, n_cols=50_000, seed=30):
+    """A CSR with the given row lengths, random columns and values."""
+    rs = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(len(lengths)), lengths)
+    return CsrMatrix.from_coo(CooMatrix(len(lengths), n_cols, rows,
+                                        rs.randint(0, n_cols, rows.size),
+                                        rs.uniform(-1, 1, rows.size)))
+
+
+def _tail_check(card, csr, T, run, policy, dtype):
+    """The fused kernel at runs of ``run`` tiles against the two kernels
+    at the same runs (bit for bit), a second call (bit for bit), the plain
+    version and gold; returns the carry rows."""
+    rs = np.random.RandomState(31)
+    xh = rs.uniform(-1, 1, csr.num_cols)
+    v, re_, ci = csr.to_device(dtype=dtype, device=card)
+    tr, tn = merge_tile_coordinates(re_, csr.num_nonzeros, T)
+    x = torch.from_numpy(xh).to(card, dtype)
+    args = (v, ci, re_, x, tr, tn, T)
+    if run is None:   # the card's own runs
+        run = K.launch_geometry(tr.shape[0] - 1, T, dtype, card, fused=True,
+                                policy=policy).run_tiles
+    got = K.merge_csrmv(*args, run_tiles=run, policy=policy)
+    y, crow, cval = K.merge_tile(*args, run_tiles=run, policy=policy)
+    two = K.carry_fixup(y, crow, cval)
+    again = K.merge_csrmv(*args, run_tiles=run, policy=policy)
+    plain = K.merge_csrmv_plain(*args, run_tiles=run)
+    torch.cuda.synchronize()
+    assert torch.equal(got, two) and torch.equal(got, again)
+    bound = csr.spmv_abs_bound(xh)
+    for other in (plain.cpu().numpy(), csr.astype(np.float64).spmv_gold(xh)):
+        assert compare_results(got.cpu().numpy(), other, verbose=False,
+                               abs_bound=bound) is None
+    return crow
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("policy", ["stream", "l1"])
+@pytest.mark.parametrize("T,run", [(256, 1), (2048, 1), (2048, None)])
+def test_tail_one_row_spans_every_run(card, T, run, policy, dtype):
+    """One row holds every run's carry: G pairs of one row, G larger than
+    the tail block (two chunks at least, and 32-pair groups folded across
+    them), at a block per tile and at the card's own runs."""
+    csr = _rows_of([700 * T])
+    crow = _tail_check(card, csr, T, run, policy, dtype)
+    G = crow.shape[0]
+    assert int((crow == 0).sum()) == G - 1
+    if run == 1:
+        assert G > max(T // 8, 256)
+
+
+@pytest.mark.parametrize("policy", ["stream", "l1"])
+@pytest.mark.parametrize("T", [256, 1024, 2048])
+def test_tail_rows_meet_at_a_chunk_edge(card, T, policy):
+    """Long rows whose carries meet at pair 256 (the edge of a chunk of the
+    256-thread blocks and of the 32-pair groups of any block), at pair 300
+    (inside a group), and at the sentinel; short rows in between.  A block
+    per tile, so the fused tail's chunks (T / 8 threads) and the
+    stand-alone fix-up's (256) differ, and their bits must not."""
+    lengths = [256 * T + 5, 44 * T + 7, 3, 0, 5, 90 * T, 1, 2 * T + 9]
+    csr = _rows_of(lengths)
+    crow = _tail_check(card, csr, T, 1, policy, torch.float32).cpu()
+    assert int((crow == 0).sum()) == 256 and int(crow[256]) == 1
+    assert int(crow[299]) == 1 and int(crow[300]) > 1
+    assert int(crow[-1]) == csr.num_rows   # the sentinel
+
+
+def test_tail_skips_the_sentinel_row(card):
+    """The last row spans runs, so the sentinel pair (row = num_rows)
+    follows its carries: the stand-alone fix-up on a y view with one more
+    element after it leaves that element untouched, and the result is the
+    fused kernel's."""
+    T = 256
+    csr = _rows_of([3, 7, 0, 300 * T + 11])
+    v, re_, ci = csr.to_device(dtype=torch.float32, device=card)
+    tr, tn = merge_tile_coordinates(re_, csr.num_nonzeros, T)
+    x = torch.ones(csr.num_cols, device=card)
+    y, crow, cval = K.merge_tile(v, ci, re_, x, tr, tn, T, run_tiles=1)
+    assert int(crow[-1]) == csr.num_rows and int(crow[-2]) == 3
+    canary = torch.full((csr.num_rows + 1,), 7.0, device=card)
+    canary[:-1] = y
+    K.carry_fixup(canary[:-1], crow, cval)
+    fused = K.merge_csrmv(v, ci, re_, x, tr, tn, T, run_tiles=1)
+    torch.cuda.synchronize()
+    assert float(canary[-1]) == 7.0
+    assert torch.equal(canary[:-1], fused)
+
+
 @pytest.mark.parametrize("rows_a,rows_b", [(2_000, 3_000),
                                            (60_000, 200_000)])
 def test_operators_on_two_streams_at_once(card, rows_a, rows_b):

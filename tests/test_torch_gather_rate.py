@@ -105,6 +105,22 @@ def test_tile_ablation_variants_change_one_thing_each():
     assert v["STAMP"].count("clock64()") == 5   # around four steps
     with pytest.raises(ValueError):
         TA.variants(src.replace(TA.GATHER, ""))
+    # the tail study's variants of the committed kernel: NOTAIL skips the
+    # last block's fix-up, TAILSTAMP times it into a side buffer; each
+    # keeps the fix-up's call and nothing else changes
+    t = TA.tail_variants(src)
+    assert set(t) == {"NOTAIL", "TAILSTAMP"}
+    assert t["NOTAIL"] == src.replace(TA.TAIL, "    if (false)\n")
+    assert t["NOTAIL"].count("fix_up_pairs(") == src.count("fix_up_pairs(")
+    stamp = t["TAILSTAMP"]
+    assert stamp.count("clock64()") == src.count("clock64()") + 2
+    assert stamp.count("global_ns()") == 3   # defined, read twice
+    assert "read_tail" in stamp
+    assert stamp.count("fix_up_pairs(") == src.count("fix_up_pairs(")
+    assert stamp.startswith(src[:src.index("__device__ unsigned int "
+                                           "g_tickets")])
+    with pytest.raises(ValueError):
+        TA.tail_variants(src.replace(TA.TAIL, ""))
 
 
 def test_tail_mutants_break_the_tail_once_each():

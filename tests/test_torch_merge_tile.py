@@ -13,8 +13,10 @@
 * ops/plan.py::tile_geometry: every value type and tile size fits a block's
   227 KB, the 48 KB opt-in is flagged exactly above 48 KB, and the runs
   cover every tile once, in order, in at most one resident wave;
-* the gather policies: the "l1" geometry, the policy each matrix class
-  gets, and the plain version at the "l1" runs against the JAX package.
+* the gather policies: the "l1" geometry, the policy and tile each
+  matrix class gets (ops/plan.py::gather_choice, its tile statistic), the
+  plain version at the "l1" runs and a 1M-row band at its pick against
+  the JAX package.
 
 Inputs are made from a seed with numpy and handed to both packages.
 """
@@ -354,33 +356,105 @@ def _scattered_class(kind):
                                    ).astype(np.float32)
 
 
+# the "l1" tile each class gets at the sizes above: their x of 64-160 KB
+# is read again within a tile (fewer than L1_SCATTER_SECTORS sectors a
+# nonzero), so one 512-thread block; "stream" keeps the default tile
+_L1_TILE = {"circuit": P.L1_WIDE_TILE_ITEMS, "kron": P.L1_WIDE_TILE_ITEMS}
+
+
 @pytest.mark.parametrize("kind,want", [
     ("circuit", "l1"), ("kron", "l1"), ("grid3d", "stream"),
     ("wheel", "stream"), ("leftover", "stream")])
 def test_policy_per_class(kind, want):
-    """The scattered classes gather more sectors than twice their streams'
-    bytes and take "l1"; the stencil, the wheel and a DIA leftover do
-    not.  The statistic is the same on a numpy array and a tensor."""
+    """The scattered classes' tile windows outgrow the L1 that "stream"
+    leaves and their warp requests gather more sectors than their streams'
+    bytes: "l1"; the stencil's, the wheel's and a DIA leftover's windows
+    fit: "stream".  The statistics are the same on a numpy array and a
+    tensor."""
     j = _scattered_class(kind)
     spread = P.gather_sectors_per_nonzero(j.col_indices)
     assert spread == P.gather_sectors_per_nonzero(
         torch.from_numpy(j.col_indices))
     assert 1 / P.WARP <= spread <= 1
+    per_tile = P.tile_sectors(j.num_rows, j.col_indices)
+    assert per_tile == P.tile_sectors(j.num_rows,
+                                      torch.from_numpy(j.col_indices))
+    tile = _L1_TILE.get(kind, P.DEFAULT_TILE_ITEMS)
     assert P.gather_policy(j.num_rows, j.num_nonzeros, j.col_indices) == want
+    assert P.gather_choice(j.num_rows, j.num_nonzeros,
+                           j.col_indices) == (want, tile)
     t = CsrMatrix.from_arrays(j.num_rows, j.num_cols, j.row_offsets,
                               j.col_indices, j.values)
     op = build_operator(t, device="cpu")
     assert op.plan.policy == want and f"gather={want}" in op.describe()
+    assert op.plan.tile_items == tile
+
+
+def _row_local(kind, n=1 << 17):
+    """Members of the row-local classes of the stats corpus
+    (tools/make_corpus_stats.py: the bands and the local power law) and
+    of the circuit class at a size whose tile statistic is the full
+    size's, as a port CSR."""
+    from merge_spmv_tpu_torch.bench.matrices import make_circuit_like
+    from merge_spmv_tpu_torch.tools.make_corpus_stats import (banded,
+                                                              powerlaw_local)
+    if kind == "band128_d5":
+        coo = banded(n, 128, 5, 101)
+    elif kind == "band1024_d9":
+        coo = banded(n, 1024, 9, 102)
+    elif kind == "plaw_a1p5":
+        coo = powerlaw_local(n, 1.5, 8, 2048, 103)
+    else:
+        rows, cols, vals = make_circuit_like(200_000, 2_000_000, seed=2)
+        coo = CooMatrix(200_000, 200_000, rows, cols, vals)
+    return CsrMatrix.from_coo(coo)
+
+
+@pytest.mark.parametrize("kind,want", [
+    ("band128_d5", ("stream", P.DEFAULT_TILE_ITEMS)),
+    ("band1024_d9", ("l1", P.L1_WIDE_TILE_ITEMS)),
+    ("plaw_a1p5", ("l1", P.L1_WIDE_TILE_ITEMS)),
+    ("circuit_200k", ("l1", P.L1_TILE_ITEMS))])
+def test_choice_sees_reuse_across_requests(kind, want):
+    """A ±128 band with 5 nonzeros a row reads ~20 sectors a warp request
+    (more than its streams' bytes, "l1" by that count alone), but a tile's
+    requests share one window of ~75 sectors, and four blocks' windows fit
+    the 28 KB that "stream" leaves: "stream", as measured (PERF.md §5).
+    The ±1024 band's and the ±2048 power law's windows do not fit,
+    and a tile reads each sector several times: "l1" at 4096 items; the
+    circuit class reads nearly a sector a nonzero: "l1" at 1024."""
+    c = _row_local(kind)
+    per_tile = P.tile_sectors(c.num_rows, c.col_indices)
+    blocks = P.tile_geometry(1, P.DEFAULT_TILE_ITEMS).blocks_per_sm
+    fits = blocks * per_tile * P.SECTOR_BYTES <= P.stream_l1_bytes()
+    assert fits == (want[0] == "stream")
+    assert P.gather_choice(c.num_rows, c.num_nonzeros, c.col_indices) == want
+    if kind == "band128_d5":
+        assert P.gather_sectors_per_nonzero(c.col_indices) * P.SECTOR_BYTES \
+            > 4 + 4 + 8 / 5
+        assert 60 < per_tile < 90
 
 
 def test_gather_statistic_counts_distinct_sectors():
     """One request of 32 consecutive columns reads 4 float32 sectors (8
-    floats each); 32 columns 8 apart read 32; float64 sectors hold 4."""
+    floats each); 32 columns 8 apart read 32; float64 sectors hold 4.  A
+    tile's count is over its share of nonzeros (2048 with no rows, 1024
+    when rows are half the merge items), whatever its requests repeat."""
     dense = np.arange(32, dtype=np.int32)
     assert P.gather_sectors_per_nonzero(dense) == 4 / 32
     assert P.gather_sectors_per_nonzero(dense * 8) == 1.0
     assert P.gather_sectors_per_nonzero(dense, "float64") == 8 / 32
     assert P.gather_sectors_per_nonzero(np.zeros(0, np.int32)) == 0.0
+    wide = np.arange(4096, dtype=np.int32)
+    assert P.tile_sectors(0, wide) == 2048 / 8
+    assert P.tile_sectors(0, wide * 8) == 2048.0
+    assert P.tile_sectors(0, wide, "float64") == 2048 / 4
+    assert P.tile_sectors(4096, wide) == 1024 / 8
+    assert P.tile_sectors(0, wide % 64) == 64 / 8        # requests repeat
+    assert P.tile_sectors(0, wide, samples=None) == 2048 / 8
+    assert P.tile_sectors(5, np.zeros(0, np.int32)) == 0.0
+    assert P.stream_l1_bytes("float32") == 28 * 1024
+    assert P.stream_l1_bytes("float64") == 60 * 1024
 
 
 @pytest.mark.parametrize("tile_items", [256, 1024, 2048, 4096])
@@ -412,6 +486,31 @@ def test_l1_geometry_fits_the_l1_carveout(dtype, tile_items):
         assert g.blocks_per_sm == 2
     with pytest.raises(ValueError, match="policy"):
         P.tile_geometry(10, tile_items, dtype, policy="wide")
+
+
+def test_million_row_band_at_its_pick_vs_jax_and_gold():
+    """banded_n1024k_bw128_d5 of the stats corpus at full size (1M rows,
+    5M nonzeros): the plan picks "stream" at the default tile, and the CPU
+    operator (the plain version at that plan's runs) agrees with the JAX
+    package's csrmv_xla and gold within the spmv_abs_bound bound."""
+    from merge_spmv_tpu_torch.tools.make_corpus_stats import build_gens
+    coo = build_gens()["banded_n1024k_bw128_d5"]()
+    t = CsrMatrix.from_coo(coo).astype(np.float32)
+    op = build_operator(t, device="cpu")
+    assert (op.plan.policy, op.plan.tile_items) == ("stream",
+                                                    P.DEFAULT_TILE_ITEMS)
+    rs = np.random.RandomState(13)
+    x = rs.uniform(-1, 1, t.num_cols).astype(np.float32)
+    got = op(torch.from_numpy(x)).numpy()
+    j = jcsr.CsrMatrix.from_coo(jcoo.CooMatrix(
+        coo.num_rows, coo.num_cols, coo.rows, coo.cols,
+        coo.vals)).astype(np.float32)
+    assert np.array_equal(j.col_indices, t.col_indices)
+    v, re_, ci = j.to_device(dtype=np.float32)
+    want = np.asarray(jx.csrmv_xla(v, re_, ci, jnp.asarray(x)))
+    bound = t.spmv_abs_bound(x)
+    _assert_close(got, want, bound, "band vs jax")
+    _assert_close(got, t.spmv_gold(x), bound, "band vs gold")
 
 
 @pytest.mark.parametrize("kind", ["circuit", "kron"])
