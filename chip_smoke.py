@@ -126,10 +126,15 @@ Phases, one line of output each (any failure exits non-zero and prints no
              (geometric (8, 32) edges) full-row and compact, verified and
              timed; build_suggested on the matrix.
    distributed — two ranks of parallel/mp_worker.py on this card over
-             gloo: grid3d(100) (halo mode) and the circuit5M class
-             (replicate mode), made once here and handed over as .npy
-             files; every window verified against gold, both ranks PASS;
-             each rank's K1 time (CUDA graph) and whole call (eager).
+             gloo: grid3d(100) (halo mode, the split path: the interior K1
+             launched before the halo exchange, the boundary items through
+             K1 after it) and the circuit5M class (replicate mode), made
+             once here and handed over as .npy files; every window
+             verified against gold and against the unsplit call, two calls
+             bitwise equal, both ranks PASS; per rank on grid3d(100) its
+             boundary items, 2 K1 launches a call, the split and unsplit
+             calls' times and ``overlap_scheduled`` from its timeline;
+             each rank's K1 times (CUDA graph) and whole call (eager).
 10. hotcold main — the kron class (R-MAT scale 20, 50M generated nonzeros,
              float32): suggest_backend's record; merge op(x) reported as on
              the circuit class; build_hotcold_operator with
@@ -1878,12 +1883,14 @@ def main() -> int:
 
     # ------------------------------------------------------------ distributed
     # two ranks of parallel/mp_worker.py on this one card over gloo
-    # (NCCL refuses two ranks on one GPU): grid3d(100) in halo mode and
-    # the circuit5M class with the halo turned off (its +-64K columns would
-    # take halo mode at S = 2), so both x modes run.  The matrices are
-    # made here once and handed over as .npy files; each rank verifies its
-    # windows against gold and times its K1 and its whole call.  The ranks
-    # share the card, so no multi-GPU number is claimed.
+    # (NCCL refuses two ranks on one GPU): grid3d(100) in halo mode on
+    # the split path, with its timeline (``evidence``), and the circuit5M
+    # class with the halo turned off (its +-64K columns would take halo
+    # mode at S = 2), so both x modes run.  The matrices are made here
+    # once and handed over as .npy files; each rank verifies its windows
+    # against gold and the unsplit call, and times its K1 launches, its
+    # split call and the unsplit one.  The ranks share the card, so no
+    # multi-GPU number is claimed.
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as cases_dir:
         g3 = CsrMatrix.from_coo(CooMatrix.grid3d(100)).astype(np.float32)
@@ -1891,31 +1898,64 @@ def main() -> int:
         g3.values = rd.uniform(0.5, 1.5, g3.num_nonzeros).astype(np.float32)
         MPW.save_case(cases_dir, "grid3d100", g3,
                       rd.uniform(0.1, 1.0, g3.num_cols).astype(np.float32),
-                      {"prepared": True})
+                      {"prepared": True, "evidence": True, "calls": 10})
         MPW.save_case(cases_dir, "circuit5M", circ, xc,
-                      {"prepared": True, "allow_halo_x": False})
+                      {"prepared": True, "allow_halo_x": False,
+                       "calls": 5})
         del g3
         write_s = time.perf_counter() - t_phase
         dist_reps = MPW.spawn(2, cases_dir, "cuda")   # raises on a failure
+    dist_ok = True
     for name, mode in (("grid3d100", "halo"), ("circuit5M", "replicate")):
         for r, rep_ in enumerate(dist_reps):
             c = rep_[name]
             print(f"distributed {name} rank {r}/2: {c['x_mode']} x (halo "
                   f"{c['halo']}, cpad {c['cpad']}), {c['local_nnz']} local "
-                  f"nnz, {c['rows_checked']} rows verified against gold, "
-                  f"gather {c['gather']}, K1 launches {c['k1_launches']}; "
-                  f"K1 {c['k1_ms']:.4f} ms (CUDA graph), whole call "
-                  f"{c['call_ms']:.4f} ms eager (exchanges through the "
-                  f"host); alone: the local SpMV {c['local_ms']:.4f} ms "
-                  f"eager, the carries' reduce-scatter {c['carry_ms']:.4f} "
-                  f"ms; partitioned in {c['partition_s']:.1f} s")
-            if c["x_mode"] != mode or c["k1_launches"] < 1:
-                return 1
+                  f"nnz, {c['rows_checked']} rows verified against gold "
+                  f"and the unsplit call, gather {c['gather']}, K1 "
+                  f"launches {c['k1_launches']} ({c['k1_per_call']} a "
+                  f"call), collectives a call {c['collectives_per_call']}; "
+                  f"split call {c['call_ms']:.4f} ms eager, unsplit "
+                  f"{c['unsplit_ms']:.4f} (exchanges through the host); "
+                  f"K1 {c['k1_ms']:.4f} ms (unsplit window, CUDA graph), "
+                  f"interior {c['interior_k1_ms']:.4f}; alone: the local "
+                  f"SpMV {c['local_ms']:.4f} ms eager, the carries "
+                  f"{c['carry_ms']:.4f} ms; partitioned in "
+                  f"{c['partition_s']:.1f} s, timed in "
+                  f"{c['timings_s']:.1f} s, timeline "
+                  f"{c.get('evidence_s', 0.0):.1f} s")
+            dist_ok &= c["x_mode"] == mode and c["k1_launches"] >= 1
+            if mode != "halo":
+                continue
+            ev = c["evidence"]
+            t = ev["calls"][-1]
+            cupti = ev["cupti"]
+            print(f"distributed {name} rank {r}/2 split: {c['boundary_items']}"
+                  f" boundary items on {c['boundary_rows']} rows (K1 "
+                  f"{c['boundary_k1_ms']:.4f} ms, gather "
+                  f"{c['boundary_gather']} at {c['boundary_tile_items']}; "
+                  f"compact form {c['boundary_compact_ms']:.4f} ms), "
+                  f"{c['interior_nnz']} interior; exchange alone "
+                  f"{c['exchange_ms']:.4f} ms; overlap_scheduled "
+                  f"{ev['overlap_scheduled']} (CUPTI: "
+                  f"{cupti.get('overlap_scheduled')}, {cupti['kernels_seen']}"
+                  f" K1 kernels seen); last timeline, ms from the interior "
+                  f"K1's start: interior end {t['interior_end']:.4f}, "
+                  f"exchange {t['exchange_post']:.4f}-"
+                  f"{t['exchange_done']:.4f}, halo landed "
+                  f"{t['halo_landed']:.4f}, boundary "
+                  f"{t['boundary_start']:.4f}-{t['boundary_end']:.4f}, "
+                  f"carries done {t['carry_done']:.4f}")
+            dist_ok &= (c["k1_per_call"] == 2 and c["boundary_items"] > 0
+                        and c["collectives_per_call"] == 2
+                        and ev["overlap_scheduled"] is True)
     paths["distributed"] = sum(c["k1_launches"] for rep_ in dist_reps
                                for c in rep_.values())
-    print(f"distributed phase: both ranks PASS on both matrices; cases "
-          f"written in {write_s:.1f} s; {time.perf_counter() - t_phase:.1f} "
-          "s")
+    print(f"distributed phase: both ranks PASS on both matrices, split "
+          f"path checks {dist_ok}; cases written in {write_s:.1f} s; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not dist_ok:
+        return 1
 
     # ------------------------------------------------------------ 10 hotcold
     # kron class: R-MAT scale 20, 50M generated nonzeros
@@ -2450,7 +2490,9 @@ def main() -> int:
         f = weak_b["fixed_total_work"][S]
         print(f"baseline weak scaling S={S} (ranks share the card): "
               f"{e['rows']} rows {e['nnz']} nnz {e['x_mode']}, verified "
-              f"{e['verified']}; call {e['avg_ms']:.3f} ms, local-only "
+              f"{e['verified']}; call {e['avg_ms']:.3f} ms (unsplit "
+              f"{e['unsplit_ms']:.3f}, {e['collectives_per_call']} "
+              f"collectives a call), local-only "
               f"{e['local_only_ms']:.3f}, per-rank K1 "
               f"{[round(r['k1_ms'], 4) for r in e['ranks']]}; fixed-total "
               f"{f['avg_ms']:.3f} ms verified {f['verified']}")

@@ -10,7 +10,9 @@ cross ranks are resolved by one reduce-scatter of S scalars.
 from merge_spmv_tpu_torch.parallel.partition import (MergePartition,
                                                      partition_csr)
 from merge_spmv_tpu_torch.parallel.distributed import (
-    PreparedDistributedCsrmv, distributed_csrmv, materialize_y)
+    PreparedDistributedCsrmv, ShareSplit, distributed_csrmv,
+    distributed_csrmv_fn, materialize_y, prepare_distributed_csrmv)
 
 __all__ = ["MergePartition", "partition_csr", "distributed_csrmv",
-           "PreparedDistributedCsrmv", "materialize_y"]
+           "distributed_csrmv_fn", "prepare_distributed_csrmv",
+           "PreparedDistributedCsrmv", "ShareSplit", "materialize_y"]

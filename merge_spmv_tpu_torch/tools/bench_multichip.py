@@ -12,13 +12,17 @@ fixed-total-work matrix (the S = 8 size), whichever S run.
 
 For each S, S processes of ``parallel/mp_worker.py --cases --time`` join
 one gloo group; each partitions both matrices, runs its share through the
-prepared SPMD operator (halo exchange, K1 on its share, carry
-reduce-scatter), verifies its window, and reports by the host clock over
-calls that all ranks make together:
+prepared SPMD operator on the split path (interior K1, the halo exchange
+behind it, the boundary items through K1, the carry reduce-scatter; at
+S = 1 one K1 and no collective), verifies its window, and reports by the
+host clock over calls that all ranks make together:
 
-* the whole call from its placed input (``avg_ms``: the slowest rank's);
-* the local-only control (``local_only_ms``): the same K1 on the same
-  share, with no halo exchange and no reduce-scatter (the JAX tool's
+* the whole call from its placed input (``avg_ms``: the slowest rank's),
+  and in the same run the unsplit call (``unsplit_ms``: the exchange,
+  one K1 over the window, the carries) and the exchange alone
+  (``exchange_ms``);
+* the local-only control (``local_only_ms``): the same K1 launches on the
+  same share, with no halo exchange and no reduce-scatter (the JAX tool's
   ``body_local``);
 * on the fixed-total-work matrix, the same call (``fixed_total_work``) and
   the call from the global host x, its block copied in per call
@@ -116,11 +120,16 @@ def run(rows_per_shard: int = ROWS_PER_SHARD, shards=WEAK_SHARDS,
                 "rows": csr.num_rows, "nnz": csr.num_nonzeros,
                 "x_mode": part.x_mode, "halo": part.halo, "verified": ok,
                 "avg_ms": ms,
+                "unsplit_ms": max(r["unsplit_ms"] for r in w),
+                "exchange_ms": max((r.get("exchange_ms", 0.0) for r in w)),
+                "collectives_per_call": max(r["collectives_per_call"]
+                                            for r in w),
                 "local_only_ms": max(r["local_ms"] for r in w),
                 "nnz_per_s_per_shard": csr.num_nonzeros / (ms / 1e3) / S
                 / 1e6,
                 "ranks": w}
             fixed[S] = {"avg_ms": max(r["call_ms"] for r in f),
+                        "unsplit_ms": max(r["unsplit_ms"] for r in f),
                         "verified": ok_f, "x_mode": part_f.x_mode,
                         "ranks": f}
             if S >= 2:
@@ -129,7 +138,8 @@ def run(rows_per_shard: int = ROWS_PER_SHARD, shards=WEAK_SHARDS,
                     "unprepared_call_ms": max(r["unprepared_ms"] for r in f),
                     "prepare_setup_s": max(r["prepare_s"] for r in f),
                     "verified": ok_f}
-            print(f"S={S}: {ms:8.3f} ms (local-only "
+            print(f"S={S}: {ms:8.3f} ms (unsplit "
+                  f"{results[S]['unsplit_ms']:8.3f}, local-only "
                   f"{results[S]['local_only_ms']:8.3f})  "
                   f"{results[S]['nnz_per_s_per_shard']:7.1f} Mnnz/s/shard "
                   f"x_mode={part.x_mode} verified={ok}; fixed-total "

@@ -513,7 +513,8 @@ def test_package_imports_no_jax():
             "merge_spmv_tpu_torch.tools.bench_multichip, "
             "merge_spmv_tpu_torch.tools.bench_large, "
             "merge_spmv_tpu_torch.tools.bench_hotcold, "
-            "merge_spmv_tpu_torch.tools.split_compact_bench; "
+            "merge_spmv_tpu_torch.tools.split_compact_bench, "
+            "merge_spmv_tpu_torch.tools.halo_overlap_evidence; "
             "from merge_spmv_tpu_torch.utils.cuda_build import _LOADED; "
             "assert not _LOADED, _LOADED; "
             "from merge_spmv_tpu_torch.utils.host_build import BUILT; "

@@ -1105,6 +1105,38 @@ def test_two_process_gloo_worker_on_the_card(card):
         assert f"PASS rank={r} world=2 device=cuda" in out, out
 
 
+def test_split_path_two_ranks_on_the_card(card, tmp_path):
+    """The distributed split path on cuda:0, two gloo ranks: a banded
+    halo-mode matrix with alpha, prepared.  Each rank verifies its window
+    against gold and the unsplit call and its two calls bitwise equal
+    (the worker raises otherwise); here each shows two K1 launches and two
+    collectives a call, and a timeline whose interior K1 starts before
+    the exchange completes, while the unsplit call's K1 starts after it.
+    """
+    from merge_spmv_tpu_torch.formats.coo import CooMatrix
+    from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+    from merge_spmv_tpu_torch.parallel import mp_worker as W
+
+    r = np.random.RandomState(7)
+    n = 1 << 16
+    rows = np.repeat(np.arange(n, dtype=np.int64), 6)
+    cols = np.clip(rows + r.randint(-3000, 3001, rows.size), 0, n - 1)
+    csr = CsrMatrix.from_coo(CooMatrix(n, n, rows, cols,
+                                       r.uniform(0.1, 1, rows.size)))
+    x = r.uniform(0.1, 1, n).astype(np.float32)
+    W.save_case(str(tmp_path), "banded", csr, x,
+                {"prepared": True, "evidence": True, "alpha": 1.5,
+                 "calls": 3})
+    for rep in W.spawn(2, str(tmp_path), "cuda"):
+        c = rep["banded"]
+        assert c["x_mode"] == "halo" and c["boundary_items"] > 0
+        assert c["k1_per_call"] == 2 and c["collectives_per_call"] == 2
+        ev = c["evidence"]
+        assert ev["overlap_scheduled"] is True
+        assert ev["unsplit"]["overlap_scheduled"] is False
+        assert ev["cupti"]["kernels_seen"] == 2 * len(ev["calls"])
+
+
 # ------------------------------------------------------------ north-star configs
 
 def test_cant_class_float64_against_gold_and_cusparse(card):

@@ -10,7 +10,7 @@ bench_multichip.py) held against the TPU package's.
   gold, the fixed-total-work and prepared calls included; every key of
   the TPU package's WEAKSCALING.json present; each S's x_mode and halo
   those of ``merge_spmv_tpu.parallel.partition.partition_csr`` on the
-  same matrix.
+  same matrix; at S = 1 no rank's call makes a collective.
 """
 
 import json
@@ -119,6 +119,22 @@ def test_every_shard_count_verified(cpu_run, S):
     assert len(r["ranks"]) == S
     assert all(rank["k1_launches"] == 0 for rank in r["ranks"])   # plain
     assert r["rows"] == ROWS_PER_SHARD * S and r["nnz"] == 8 * r["rows"]
+
+
+@pytest.mark.parametrize("S", SHARDS)
+def test_collectives_per_call(cpu_run, S):
+    """One rank exchanges nothing, as the JAX package's ``halo_x`` and
+    one-device ``psum_scatter`` do not: no halo exchange and no carries'
+    reduce-scatter in its call.  S > 1 in halo mode makes both."""
+    r = cpu_run["results"][S]
+    for res in (r, cpu_run["fixed_total_work"][S]):
+        want = 0 if S == 1 else 1 + (res["x_mode"] == "halo")
+        assert all(rank["collectives_per_call"] == want
+                   for rank in res["ranks"])
+    assert r["collectives_per_call"] == (0 if S == 1 else
+                                         1 + (r["x_mode"] == "halo"))
+    if S == 1:
+        assert "exchange_ms" not in r["ranks"][0]
 
 
 @pytest.mark.parametrize("S", SHARDS)
