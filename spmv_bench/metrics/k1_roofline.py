@@ -1,0 +1,15 @@
+"""K1's share of its roofline: the least time of y = alpha A x + beta
+y_in (y = A p inside CG) over K1's mean device time a launch
+(`csrc/merge_csrmv.cu::merge_tile_kernel`), from the traced window.
+One reader for every cell's entry (`k1_roofline.<mix>`)."""
+
+from spmv_bench.roofline import kernel_share_pct
+
+LAYER = "tile kernel K1"
+UNIT = "%"
+SOURCE = "device_trace"
+KERNEL = "merge_tile_kernel"
+
+
+def read(run):
+    return kernel_share_pct(run, KERNEL)
