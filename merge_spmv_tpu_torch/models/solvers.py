@@ -32,15 +32,30 @@ All solvers return (solution, info); ``info.iterations`` and
 flag reads and ``info.step_ms`` is the device time per masked iteration
 over the graph replays (CUDA events around each replay; None when no block
 was replayed).
+
+Each phase of a solve is a named span (utils/tracing.py): the solve, its
+prologue, each eager block, the capture (its entry, recording and exit),
+each replay, each flag read and the graph's release.  An operator sees
+them by running the solve under ``torch.profiler`` (host events on the
+clock of the card's kernels) or under
+``torch.autograd.profiler.emit_nvtx`` for Nsight Systems; with no
+profiler a span costs one flag check.
 """
 
 from __future__ import annotations
 
+import functools
+import sys
 from typing import NamedTuple, Optional
 
 import torch
 
 from merge_spmv_tpu_torch.utils.device import torch_dtype
+from merge_spmv_tpu_torch.utils.tracing import (CAPTURE, CAPTURE_ENTER,
+                                                CAPTURE_EXIT, CAPTURE_RECORD,
+                                                EAGER_BLOCK, FLAG_READ,
+                                                PROLOGUE, RELEASE, REPLAY,
+                                                SOLVE, span)
 
 __all__ = ["conjugate_gradient", "bicgstab", "jacobi", "power_iteration",
            "pagerank", "SolveInfo"]
@@ -67,6 +82,35 @@ def _commit(active, *pairs):
         state.copy_(torch.where(active, new, state))
 
 
+def _solver(solve):
+    """``solve`` inside the solve span."""
+    @functools.wraps(solve)
+    def spanned(*args, **kwargs):
+        with span(SOLVE):
+            return solve(*args, **kwargs)
+    return spanned
+
+
+def _capture(block):
+    """One CUDA graph of ``block()``.  torch.cuda.graph's own entry and
+    exit, called in spans of their own around the recording."""
+    captured = torch.cuda.CUDAGraph()
+    capture = torch.cuda.graph(captured)
+    with span(CAPTURE):
+        with span(CAPTURE_ENTER):
+            capture.__enter__()
+        try:
+            with span(CAPTURE_RECORD):
+                block()
+        except BaseException:
+            with span(CAPTURE_EXIT):
+                capture.__exit__(*sys.exc_info())
+            raise
+        with span(CAPTURE_EXIT):
+            capture.__exit__(None, None, None)
+    return captured
+
+
 def _iterate(step, active, device, maxiter: int, check_every: int,
              graph: Optional[bool]):
     """Run ``step()`` (one masked iteration, in place) in blocks of
@@ -91,28 +135,35 @@ def _iterate(step, active, device, maxiter: int, check_every: int,
     captured, events, reads = None, [], 0
     for b in range(max_blocks):
         if b == 0 or not graph:
-            block()
+            with span(EAGER_BLOCK):
+                block()
         else:
             if captured is None:
-                captured = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(captured):
-                    block()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            captured.replay()
-            end.record()
+                captured = _capture(block)
+            with span(REPLAY):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                captured.replay()
+                end.record()
             events.append((start, end))
         reads += 1
-        if not bool(active()):
+        with span(FLAG_READ):
+            done = not bool(active())
+        if done:
             break
-    step_ms = None
-    if events:
-        step_ms = (sum(s.elapsed_time(e) for s, e in events)
-                   / (len(events) * check_every))
+    with span(RELEASE):
+        step_ms = None
+        if events:
+            step_ms = (sum(s.elapsed_time(e) for s, e in events)
+                       / (len(events) * check_every))
+        # the graph's destructor (its exec and private pool, ~1 ms on the
+        # card) runs here, inside the span, not at the return
+        del captured, events
     return reads, step_ms
 
 
+@_solver
 def conjugate_gradient(op, b, x0=None, tol: float = 1e-6,
                        maxiter: int = 1000, check_every: int = 16,
                        graph: Optional[bool] = None):
@@ -120,14 +171,15 @@ def conjugate_gradient(op, b, x0=None, tol: float = 1e-6,
 
     Standard Hestenes-Stiefel recurrence; one op(x) per iteration.
     """
-    b = _vector(op, b)
-    x = torch.zeros_like(b) if x0 is None else _vector(op, x0).clone()
-    r = b - op(x)
-    p = r.clone()
-    rs = torch.sum(r * r)
-    tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
-        * torch.sum(b * b)
-    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    with span(PROLOGUE):
+        b = _vector(op, b)
+        x = torch.zeros_like(b) if x0 is None else _vector(op, x0).clone()
+        r = b - op(x)
+        p = r.clone()
+        rs = torch.sum(r * r)
+        tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
+            * torch.sum(b * b)
+        k = torch.zeros((), dtype=torch.int32, device=b.device)
 
     def active():
         return (rs > tol2) & (k < maxiter)
@@ -148,19 +200,21 @@ def conjugate_gradient(op, b, x0=None, tol: float = 1e-6,
     return x, SolveInfo(k, torch.sqrt(rs), reads, step_ms)
 
 
+@_solver
 def bicgstab(op, b, x0=None, tol: float = 1e-6, maxiter: int = 1000,
              check_every: int = 16, graph: Optional[bool] = None):
     """BiCGSTAB for general (nonsymmetric) A: two op(x) per iteration."""
-    b = _vector(op, b)
-    x = torch.zeros_like(b) if x0 is None else _vector(op, x0).clone()
-    r = b - op(x)
-    r_hat = r.clone()
-    one = torch.ones((), dtype=b.dtype, device=b.device)
-    rho, alpha, omega = one.clone(), one.clone(), one.clone()
-    v, p = torch.zeros_like(b), torch.zeros_like(b)
-    tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
-        * torch.sum(b * b)
-    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    with span(PROLOGUE):
+        b = _vector(op, b)
+        x = torch.zeros_like(b) if x0 is None else _vector(op, x0).clone()
+        r = b - op(x)
+        r_hat = r.clone()
+        one = torch.ones((), dtype=b.dtype, device=b.device)
+        rho, alpha, omega = one.clone(), one.clone(), one.clone()
+        v, p = torch.zeros_like(b), torch.zeros_like(b)
+        tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
+            * torch.sum(b * b)
+        k = torch.zeros((), dtype=torch.int32, device=b.device)
 
     def active():
         return (torch.sum(r * r) > tol2) & (k < maxiter)
@@ -186,16 +240,18 @@ def bicgstab(op, b, x0=None, tol: float = 1e-6, maxiter: int = 1000,
     return x, SolveInfo(k, _norm(r), reads, step_ms)
 
 
+@_solver
 def jacobi(op, diag, b, x0=None, tol: float = 1e-6, maxiter: int = 1000,
            check_every: int = 16, graph: Optional[bool] = None):
     """Jacobi iteration x <- x + D^-1 (b - A x); ``diag`` is A's diagonal."""
-    b = _vector(op, b)
-    inv_d = 1.0 / _vector(op, diag)
-    x = torch.zeros_like(b) if x0 is None else _vector(op, x0).clone()
-    tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
-        * torch.sum(b * b)
-    rs = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
-    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    with span(PROLOGUE):
+        b = _vector(op, b)
+        inv_d = 1.0 / _vector(op, diag)
+        x = torch.zeros_like(b) if x0 is None else _vector(op, x0).clone()
+        tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
+            * torch.sum(b * b)
+        rs = torch.full((), float("inf"), dtype=b.dtype, device=b.device)
+        k = torch.zeros((), dtype=torch.int32, device=b.device)
 
     def active():
         return (rs > tol2) & (k < maxiter)
@@ -212,6 +268,7 @@ def jacobi(op, diag, b, x0=None, tol: float = 1e-6, maxiter: int = 1000,
     return x, SolveInfo(k, torch.sqrt(rs), reads, step_ms)
 
 
+@_solver
 def power_iteration(op, v0=None, tol: float = 1e-6, maxiter: int = 1000,
                     seed: int = 0, check_every: int = 16,
                     graph: Optional[bool] = None):
@@ -221,18 +278,19 @@ def power_iteration(op, v0=None, tol: float = 1e-6, maxiter: int = 1000,
     standard normal from a ``torch.Generator`` seeded with ``seed`` (not
     the JAX package's PRNGKey stream).
     """
-    n = op.shape[1]
-    dtype = torch_dtype(op.dtype)
-    if v0 is None:
-        gen = torch.Generator(device="cpu").manual_seed(seed)
-        v = torch.randn(n, generator=gen, dtype=torch.float32).to(
-            device=op.device, dtype=dtype)
-    else:
-        v = _vector(op, v0)
-    v = v / _norm(v)
-    lam = torch.zeros((), dtype=dtype, device=v.device)
-    diff = torch.full((), float("inf"), dtype=dtype, device=v.device)
-    k = torch.zeros((), dtype=torch.int32, device=v.device)
+    with span(PROLOGUE):
+        n = op.shape[1]
+        dtype = torch_dtype(op.dtype)
+        if v0 is None:
+            gen = torch.Generator(device="cpu").manual_seed(seed)
+            v = torch.randn(n, generator=gen, dtype=torch.float32).to(
+                device=op.device, dtype=dtype)
+        else:
+            v = _vector(op, v0)
+        v = v / _norm(v)
+        lam = torch.zeros((), dtype=dtype, device=v.device)
+        diff = torch.full((), float("inf"), dtype=dtype, device=v.device)
+        k = torch.zeros((), dtype=torch.int32, device=v.device)
 
     def active():
         return (diff > tol) & (k < maxiter)
@@ -252,6 +310,7 @@ def power_iteration(op, v0=None, tol: float = 1e-6, maxiter: int = 1000,
     return lam, v, SolveInfo(k, diff, reads, step_ms)
 
 
+@_solver
 def pagerank(op, damping: float = 0.85, tol: float = 1e-8,
              maxiter: int = 200, check_every: int = 16,
              graph: Optional[bool] = None):
@@ -261,13 +320,14 @@ def pagerank(op, damping: float = 0.85, tol: float = 1e-8,
     pr <- damping * P pr + (1 - damping)/n.  Dangling mass is redistributed
     uniformly so the total stays 1.
     """
-    n = op.shape[0]
-    dtype = torch_dtype(op.dtype)
-    pr = torch.full((n,), 1.0 / n, dtype=dtype, device=op.device)
-    teleport = torch.tensor((1.0 - damping) / n, dtype=dtype,
-                            device=op.device)
-    diff = torch.full((), float("inf"), dtype=dtype, device=op.device)
-    k = torch.zeros((), dtype=torch.int32, device=op.device)
+    with span(PROLOGUE):
+        n = op.shape[0]
+        dtype = torch_dtype(op.dtype)
+        pr = torch.full((n,), 1.0 / n, dtype=dtype, device=op.device)
+        teleport = torch.tensor((1.0 - damping) / n, dtype=dtype,
+                                device=op.device)
+        diff = torch.full((), float("inf"), dtype=dtype, device=op.device)
+        k = torch.zeros((), dtype=torch.int32, device=op.device)
 
     def active():
         return (diff > tol) & (k < maxiter)

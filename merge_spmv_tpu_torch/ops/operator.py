@@ -18,7 +18,6 @@ a matrix on the card, their plain PyTorch versions for a matrix on the CPU
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
@@ -31,6 +30,8 @@ from merge_spmv_tpu_torch.ops.csrmv_torch import row_ids_from_offsets
 from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.utils.device import resolve_device, torch_dtype
+from merge_spmv_tpu_torch.utils.tracing import (BUILD_PLAN, BUILD_PREPARE,
+                                                OP_CALL, OP_MM, span)
 
 __all__ = ["SpmvOperator", "build_operator", "assemble_operator",
            "row_abs_sums"]
@@ -87,10 +88,12 @@ class SpmvOperator:
         """y = alpha * A @ x + beta * y_in, one launch.  ``interpret``
         (the TPU package's Pallas interpret mode) is accepted and
         ignored."""
-        return _csrmv_merge(self.plan, self.values, self.row_end_offsets,
-                            self.col_indices, self._vec(x), self._vec(y_in),
-                            alpha, beta, (self.tile_rows, self.tile_nnz),
-                            self.tickets)
+        with span(OP_CALL):
+            return _csrmv_merge(self.plan, self.values,
+                                self.row_end_offsets, self.col_indices,
+                                self._vec(x), self._vec(y_in), alpha, beta,
+                                (self.tile_rows, self.tile_nnz),
+                                self.tickets)
 
     def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, interpret: bool = False,
            method: str = "auto"):
@@ -106,6 +109,10 @@ class SpmvOperator:
         (the JAX package's retired multi-RHS Pallas kernel) raises, as
         there; ``interpret`` is accepted and ignored, in the JAX package's
         position."""
+        with span(OP_MM):
+            return self._mm(X, Y_in, alpha, beta, method)
+
+    def _mm(self, X, Y_in, alpha, beta, method: str):
         if method == "wide":
             raise ValueError(
                 "method='wide' is retired: the multi-RHS kernel measured "
@@ -172,19 +179,20 @@ def build_operator(csr, dtype="float32", backend: str = "auto",
     if autotune and tile_items is None:
         from merge_spmv_tpu_torch.ops.autotune import autotune_tile_items
         tile_items = autotune_tile_items(csr, dtype=dtype, device=dev)
-    t0 = time.perf_counter()
-    plan = make_plan(csr.num_rows, csr.num_cols, csr.num_nonzeros,
-                     dtype=dtype, tile_items=tile_items, backend=backend,
-                     col_indices=csr.col_indices, device=dev)
-    t1 = time.perf_counter()
-    values, rowends, cols = csr.to_device(dtype=torch_dtype(plan.dtype),
-                                          device=dev)
-    ignored = {"runtime_skip": runtime_skip, "gather_group": gather_group,
-               "gather_cluster": gather_cluster}
-    op = assemble_operator(plan, values, rowends, cols, ignored=ignored)
-    t2 = time.perf_counter()
     # setup-cost attribution (gpu_spmv.cu:114-134 reports conversion setup
     # apart from run time): plan = policy; prepare = copy to the device +
     # the tile search + the row norm
-    op.setup_s = {"plan": round(t1 - t0, 3), "prepare": round(t2 - t1, 3)}
+    setup_s = {}
+    with span(BUILD_PLAN, into=setup_s, key="plan"):
+        plan = make_plan(csr.num_rows, csr.num_cols, csr.num_nonzeros,
+                         dtype=dtype, tile_items=tile_items, backend=backend,
+                         col_indices=csr.col_indices, device=dev)
+    with span(BUILD_PREPARE, into=setup_s, key="prepare"):
+        values, rowends, cols = csr.to_device(
+            dtype=torch_dtype(plan.dtype), device=dev)
+        ignored = {"runtime_skip": runtime_skip,
+                   "gather_group": gather_group,
+                   "gather_cluster": gather_cluster}
+        op = assemble_operator(plan, values, rowends, cols, ignored=ignored)
+    op.setup_s = {k: round(v, 3) for k, v in setup_s.items()}
     return op

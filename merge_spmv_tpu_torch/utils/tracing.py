@@ -1,0 +1,109 @@
+"""Named spans around the port's phases, for a profiler to place.
+
+``span(name)`` marks a phase.  While a profiler records (``torch.profiler``,
+or ``torch.autograd.profiler.emit_nvtx`` under Nsight Systems) it is
+``torch.profiler.record_function(name)``, so the phase is a host event on
+the profiler's clock, beside the device's kernels.  Otherwise it is one
+shared no-op context, after a single check of the profiler's flag: no
+dispatcher call and no allocation.  ``span(name, into=d, key=k)`` also
+stores the phase's host seconds in ``d[k]``, profiler or not.
+
+    with span(SOLVE):
+        ...
+
+The names, each with what it covers (``SPANS``).  A solve's phases are
+found inside its ``SOLVE`` span by time containment on its thread.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+__all__ = ["span", "SPANS", "SOLVE", "PROLOGUE", "EAGER_BLOCK", "CAPTURE",
+           "CAPTURE_ENTER", "CAPTURE_RECORD", "CAPTURE_EXIT", "REPLAY",
+           "FLAG_READ", "RELEASE", "OP_CALL", "OP_MM", "BUILD_PLAN",
+           "BUILD_PREPARE"]
+
+SOLVE = "merge_spmv.solve"
+PROLOGUE = "merge_spmv.solve.prologue"
+EAGER_BLOCK = "merge_spmv.solve.eager_block"
+CAPTURE = "merge_spmv.solve.capture"
+CAPTURE_ENTER = "merge_spmv.solve.capture.enter"
+CAPTURE_RECORD = "merge_spmv.solve.capture.record"
+CAPTURE_EXIT = "merge_spmv.solve.capture.exit"
+REPLAY = "merge_spmv.solve.replay"
+FLAG_READ = "merge_spmv.solve.flag_read"
+RELEASE = "merge_spmv.solve.release"
+OP_CALL = "merge_spmv.op.call"
+OP_MM = "merge_spmv.op.mm"
+BUILD_PLAN = "merge_spmv.build.plan"
+BUILD_PREPARE = "merge_spmv.build.prepare"
+
+SPANS = {
+    SOLVE: "a solver call (models/solvers.py), entry to return",
+    PROLOGUE: "the solver's set-up before its loop: the first residual, "
+              "the tolerance, the state",
+    EAGER_BLOCK: "one block of check_every masked steps run eagerly",
+    CAPTURE: "the one CUDA graph capture of a block, its three parts below",
+    CAPTURE_ENTER: "torch.cuda.graph's entry: synchronise, empty the "
+                   "device and host caches, capture_begin",
+    CAPTURE_RECORD: "the host enqueueing one block under capture",
+    CAPTURE_EXIT: "capture_end and the graph's instantiation",
+    REPLAY: "one replay of the captured block, with its two timing events",
+    FLAG_READ: "one host read of the solver's active flag: the host waits "
+               "for the card",
+    RELEASE: "after the last flag read: the replays' timing events read and "
+             "the captured graph destroyed with its memory pool",
+    OP_CALL: "SpmvOperator.__call__: y = alpha A x + beta y_in, one launch",
+    OP_MM: "SpmvOperator.mm: Y = alpha A X + beta Y_in",
+    BUILD_PLAN: "build_operator's make_plan (op.setup_s['plan'])",
+    BUILD_PREPARE: "build_operator's copy to the device, tile search and "
+                   "row norm (op.setup_s['prepare'])",
+}
+
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class _Off:
+    """The context of a span while no profiler records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Timed:
+    """A span that also stores its host seconds in ``into[key]``."""
+
+    __slots__ = ("name", "into", "key", "mark", "t0")
+
+    def __init__(self, name: str, into: dict, key):
+        self.name, self.into, self.key = name, into, key
+
+    def __enter__(self):
+        self.mark = span(self.name)
+        self.mark.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self.into[self.key] = time.perf_counter() - self.t0
+        return self.mark.__exit__(*exc)
+
+
+def span(name: str, into: dict | None = None, key=None):
+    """A context manager marking the phase ``name`` (one of ``SPANS``);
+    with ``into``, it stores the phase's host seconds in ``into[key]``."""
+    if into is not None:
+        return _Timed(name, into, key)
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

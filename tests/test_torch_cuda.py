@@ -1069,6 +1069,58 @@ def test_solver_launches_and_reads(card):
     assert K.LAUNCHES["merge_tile_fused"] == 1 + 5 * info.host_reads
 
 
+def test_graphed_cg_spans_under_the_profiler(card):
+    """A graphed CG under torch.profiler (CUPTI): one capture holding its
+    entry, recording and exit, a replay for each host read after the
+    first, a flag read for each, one release; the spans reach the device
+    timeline only as user annotations; x keeps the bits of the same solve
+    untraced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from merge_spmv_tpu_torch.models.solvers import conjugate_gradient
+    from merge_spmv_tpu_torch.utils import tracing as T
+    lap = _laplacian(30)
+    op = build_operator(lap)
+    b = np.random.RandomState(0).uniform(-1, 1, lap.num_rows).astype(
+        np.float32)
+
+    def solve():
+        return conjugate_gradient(op, b, tol=0.0, maxiter=50,
+                                  check_every=16, graph=True)
+
+    x0, i0 = solve()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        x1, i1 = solve()
+        torch.cuda.synchronize()
+    assert torch.equal(x0, x1) and torch.equal(i0.residual, i1.residual)
+    assert int(i1.iterations) == 50 and i1.host_reads == 4
+    host, device = [], []
+    for e in prof.profiler.kineto_results.events():
+        if not e.name().startswith("merge_spmv."):
+            continue
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            start, length = ((e.start_ns(), e.duration_ns())
+                             if hasattr(e, "start_ns") else
+                             (e.start_us(), e.duration_us()))
+            host.append((e.name(), start, start + length))
+        else:
+            device.append(e.is_user_annotation())
+    assert all(device)
+    count = {n: sum(h[0] == n for h in host) for n in T.SPANS}
+    assert count[T.SOLVE] == count[T.PROLOGUE] == count[T.EAGER_BLOCK] == 1
+    assert count[T.CAPTURE] == count[T.CAPTURE_ENTER] == \
+        count[T.CAPTURE_RECORD] == count[T.CAPTURE_EXIT] == 1
+    assert count[T.REPLAY] == i1.host_reads - 1
+    assert count[T.FLAG_READ] == i1.host_reads
+    assert count[T.RELEASE] == 1
+    assert count[T.OP_CALL] == 1 + 2 * 16      # prologue, eager, record
+    (capture,) = [h for h in host if h[0] == T.CAPTURE]
+    for part in (T.CAPTURE_ENTER, T.CAPTURE_RECORD, T.CAPTURE_EXIT):
+        (h,) = [h for h in host if h[0] == part]
+        assert capture[1] <= h[1] and h[2] <= capture[2]
+
+
 # ------------------------------------------------------------ multi-process
 
 def test_two_process_gloo_worker_on_the_card(card):
