@@ -95,13 +95,22 @@ Phases, one line of output each (any failure exits non-zero and prints no
    solvers — the regularised grid3d(100) Laplacian L = D - A + I (7
              diagonals): CG through merge and through DIA, Jacobi, power
              iteration, and BiCGSTAB on L with its lower off-diagonals
-             halved, each run with its blocks replayed as a CUDA graph and
+             halved (CG's vector work through csrc/cg_step.cu's three
+             fused kernels, one launch each an iteration), each run with
+             its blocks replayed as a CUDA graph and
              again eagerly (bitwise equal; the launch counters per
              iteration from the eager run), checked in float64 with SciPy
              (relative residual, or the eigenvalue against L's analytic
              largest and its vector's Rayleigh quotient); iterations,
              device time per iteration beside op(x), launches per
-             iteration and host reads per solve.
+             iteration and host reads per solve.  Then CG's fused step on
+             HPCG's 27-point matrix at 104^3 in float64 (the hpcg_104
+             cell's): steps against the torch step from one state (8 ulps
+             of each norm, k exact), a fused and a torch solve with the
+             same iterations, and each fused kernel's device time in the
+             solve's own sequence (the profiler over replayed blocks)
+             beside its HBM bytes bound and the torch step's vector work;
+             they join the kernels line.
 8. driver  — merge_spmv_tpu_torch.bench.driver.run_benchmark on grid2d(1000)
              with the scipy, xla (cuSPARSE), merge, dia, split and hotcold
              backends; every backend must verify.
@@ -240,6 +249,21 @@ SOLVER_TOL, RESIDUAL_MAX = 1e-6, 1e-5
 # the loop only where it stagnates, late enough for the 1e-3
 EIG_REL_MAX, RAYLEIGH_REL_MAX = 1e-3, 1e-5
 POWER_TOL, POWER_MAXITER = 1e-7, 5000
+# CG's fused step (csrc/cg_step.cu) on HPCG's 27-point matrix at 104^3
+# (1,124,864 rows, 29,791,000 nonzeros, float64): steps against the torch
+# step from one state, each within 8 ulps of its value's norm (the card
+# tests' bound); a fused and a torch solve to 1e-10 take the same
+# iterations, their solutions within 1e-9 of each other (the benchmark's
+# limit)
+HPCG_WIDTH, HPCG_NNZ = 104, 29_791_000
+FUSED_STEPS, FUSED_ULPS = 4, 8
+FUSED_TOL, FUSED_SOLUTION_REL_MAX = 1e-10, 1e-9
+# a fused kernel's vector passes of n values from HBM in CG's own sequence
+# (p, ap; x and r read and written; p written), and those the step's earlier
+# kernel leaves in the 50 MB L2 (cg_update's p and ap after cg_pap read
+# them; cg_direction's r and p after cg_update)
+FUSED_PASSES = {"cg_pap": (2, 0), "cg_update": (4, 2),
+                "cg_direction": (1, 2)}
 # PageRank on the kron class: stopped at an L1 step of 1e-6, which float32
 # reaches (its rounding floor over 1M ranks is ~1e-7); the L1 distance from
 # a float64 run of the same iterations at most 1e-4 of the total mass 1
@@ -534,6 +558,167 @@ def solver_line(rep, op_ms, check):
             f"{check}")
 
 
+def stencil27(width):
+    """HPCG's matrix (GenerateProblem): the 27-point stencil on the width^3
+    grid, 26 on the diagonal and -1 to every neighbour inside the grid,
+    columns in increasing order, float64 (the hpcg_104 cell's matrix)."""
+    import itertools
+
+    import numpy as np
+
+    from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+    n = width ** 3
+    idx = np.arange(n, dtype=np.int64)
+    at = (idx % width, idx // width % width, idx // (width * width))
+    offsets = list(itertools.product((-1, 0, 1), repeat=3))   # (dz, dy, dx)
+    cols = np.empty((n, len(offsets)), np.int64)
+    valid = np.ones((n, len(offsets)), bool)
+    for j, off in enumerate(offsets):
+        cols[:, j] = idx + (off[0] * width + off[1]) * width + off[2]
+        for a, d in zip(at, off[::-1]):
+            valid[:, j] &= (a + d >= 0) & (a + d < width)
+    vals = np.where([off == (0, 0, 0) for off in offsets], 26.0, -1.0)
+    return CsrMatrix(n, n, np.r_[0, np.cumsum(valid.sum(1))], cols[valid],
+                     np.broadcast_to(vals, valid.shape)[valid])
+
+
+def kernel_device_ms(prof, names):
+    """Each named kernel's device times (ms) in a ``torch.profiler`` run,
+    by a part of its name."""
+    times = {name: [] for name in names}
+    for e in prof.profiler.kineto_results.events():
+        for name in names:
+            if name in e.name():
+                times[name].append(e.duration_ns() * 1e-6
+                                   if hasattr(e, "duration_ns")
+                                   else e.duration_us() * 1e-3)
+    return times
+
+
+def fused_cg_report(SV, CG, peak_gbps):
+    """CG's fused step (models/cg_cuda.py) on the hpcg_104 cell's matrix in
+    float64.  FUSED_STEPS steps from x = 0, r = p = b, each fused step
+    beside ``cg_torch_step`` from the same state (the torch state is copied
+    into the fused one after each): alpha (cg_pap), x, r and rs
+    (cg_update) and p (cg_direction) within FUSED_ULPS of their norms, k
+    exact.  A fused and a torch solve to FUSED_TOL: the same iterations.
+    Then a solve of 64 active steps each way under ``torch.profiler`` (the
+    cell's sequence: blocks of 16, replayed after the first, K1 between
+    steps, one more K1 in the prologue): each fused kernel's device ms a
+    launch, its HBM bytes bound (FUSED_PASSES), and the torch step's vector
+    work (its step less K1).
+    Returns (ok, line, report)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from merge_spmv_tpu_torch.ops.operator import build_operator
+    csr = stencil27(HPCG_WIDTH)
+    op = build_operator(csr, dtype="float64")
+    n, dev, f64 = csr.num_rows, torch.device("cuda"), torch.float64
+    b = torch.from_numpy(np.random.RandomState(104).uniform(-1, 1, n)).to(
+        dev)
+    fused_state = [torch.zeros_like(b), b.clone(), b.clone(),
+                   torch.sum(b * b), torch.zeros((), dtype=f64, device=dev),
+                   torch.zeros((), dtype=torch.int32, device=dev)]
+    torch_state = [t.clone() for t in fused_state]
+    step = CG.FusedCgStep(*fused_state, maxiter=FUSED_STEPS)
+    eps = torch.finfo(f64).eps
+
+    def err(got, want):
+        d = float((got - want).abs().max())
+        return d, d / (eps * float(torch.linalg.vector_norm(want)))
+
+    errs = {name: [0.0, 0.0] for name in FUSED_PASSES}   # abs, ulps of norm
+    k_exact = True
+    for i in range(FUSED_STEPS):
+        p, rs = torch_state[2], torch_state[3]
+        alpha = rs / torch.sum(p * op(p))       # the torch step's alpha
+        step.step(op(fused_state[2]))
+        SV.cg_torch_step(op, *torch_state, maxiter=FUSED_STEPS)
+        got = {"cg_pap": [(step.work[0], alpha)],
+               "cg_update": [(fused_state[j], torch_state[j])
+                             for j in (0, 1, 3)],       # x, r, rs
+               "cg_direction": [(fused_state[2], torch_state[2])]}
+        for name, pairs in got.items():
+            for g, w in pairs:
+                a, u = err(g, w)
+                errs[name] = [max(errs[name][0], a), max(errs[name][1], u)]
+        k_exact &= int(fused_state[5]) == int(torch_state[5]) == i + 1
+        for f, t in zip(fused_state, torch_state):
+            f.copy_(t)
+    del step, fused_state, torch_state
+
+    def solve(tol, maxiter):
+        out = SV.conjugate_gradient(op, b, tol=tol, maxiter=maxiter,
+                                    check_every=16)
+        torch.cuda.synchronize()
+        return out
+
+    def torch_step():
+        return mock.patch.object(CG, "takes", lambda device, dtype: False)
+
+    x_f, info_f = solve(FUSED_TOL, 1000)
+    with torch_step():
+        x_t, info_t = solve(FUSED_TOL, 1000)
+    iters = (int(info_f.iterations), int(info_t.iterations))
+    sol_rel = float((x_f - x_t).abs().max() / x_t.abs().max())
+    del x_f, x_t
+
+    names = ("merge_tile_kernel", *FUSED_PASSES)
+    steps, timed = 64, {}
+    for side in ("fused", "torch"):
+        with torch_step() if side == "torch" else contextlib.nullcontext():
+            solve(0.0, steps)                   # warm: capture, first use
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, info = solve(0.0, steps)
+        times = kernel_device_ms(prof, names)
+        timed[side] = {"step_ms": info.step_ms,
+                       "k1_ms": float(np.mean(times["merge_tile_kernel"])),
+                       "counts": {k: len(v) for k, v in times.items()},
+                       "kernel_ms": {k: float(np.mean(v)) if v else None
+                                     for k, v in times.items()}}
+        timed[side]["vector_ms"] = (timed[side]["step_ms"]
+                                    - timed[side]["k1_ms"])
+    fused_t, torch_t = timed["fused"], timed["torch"]
+    nbytes = n * b.element_size()
+    kernels = {name: {"ms": fused_t["kernel_ms"][name],
+                      "launches": fused_t["counts"][name],
+                      "max_abs_err": errs[name][0],
+                      "ulps_of_norm": errs[name][1],
+                      "hbm_passes": hbm, "l2_passes": l2,
+                      "bound_ms": hbm * nbytes / peak_gbps / 1e6}
+               for name, (hbm, l2) in FUSED_PASSES.items()}
+    ok = (csr.num_nonzeros == HPCG_NNZ and k_exact
+          and all(e[1] <= FUSED_ULPS for e in errs.values())
+          and iters[0] == iters[1] < 1000
+          and sol_rel <= FUSED_SOLUTION_REL_MAX
+          and fused_t["counts"] == {**{k: steps for k in FUSED_PASSES},
+                                    "merge_tile_kernel": steps + 1}
+          and torch_t["counts"] == {**{k: 0 for k in FUSED_PASSES},
+                                    "merge_tile_kernel": steps + 1})
+    per_kernel = "; ".join(
+        f"{k} {v['ms']:.5f} ms ({v['hbm_passes']} HBM passes: bound "
+        f"{v['bound_ms']:.5f} ms, {100 * v['bound_ms'] / v['ms']:.1f}%; "
+        f"{v['l2_passes']} from L2), {v['ulps_of_norm']:.2f} ulps of the "
+        f"norm, max|err| {v['max_abs_err']:.3e}"
+        for k, v in kernels.items())
+    line = (f"cg fused step, HPCG-104 float64 ({n} rows, "
+            f"{csr.num_nonzeros} nnz): {FUSED_STEPS} steps against the torch "
+            f"step, k exact {k_exact}; to {FUSED_TOL}: {iters[0]} iterations "
+            f"fused, {iters[1]} torch, solutions {sol_rel:.2e} apart (at "
+            f"most {FUSED_SOLUTION_REL_MAX}); {steps} active steps replayed "
+            f"under the profiler: step {fused_t['step_ms']:.4f} ms fused, "
+            f"{torch_t['step_ms']:.4f} torch, K1 {fused_t['k1_ms']:.4f} / "
+            f"{torch_t['k1_ms']:.4f}; vector work {fused_t['vector_ms']:.4f} "
+            f"ms fused, {torch_t['vector_ms']:.4f} torch; {per_kernel}; "
+            f"ok={ok}")
+    return ok, line, {"kernels": kernels, "plain_ms": torch_t["vector_ms"],
+                      "fused_vector_ms": fused_t["vector_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -551,6 +736,7 @@ def main() -> int:
     from merge_spmv_tpu_torch.bench.matrices import make_circuit_like, rmat
     from merge_spmv_tpu_torch.formats.coo import CooMatrix
     from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+    from merge_spmv_tpu_torch.models import cg_cuda as CG
     from merge_spmv_tpu_torch.models import solvers as SV
     from merge_spmv_tpu_torch.ops import csrmv_cuda as K
     from merge_spmv_tpu_torch.ops import autotune as A
@@ -596,12 +782,12 @@ def main() -> int:
 
     # ------------------------------------------------------------ 1 build
     t0 = time.perf_counter()
-    sources = (K.KERNEL_SOURCE, DK.KERNEL_SOURCE, P.KERNEL_SOURCE,
-               GR.KERNEL_SOURCE, K.MM_SOURCE)
+    sources = (K.KERNEL_SOURCE, DK.KERNEL_SOURCE, CG.KERNEL_SOURCE,
+               P.KERNEL_SOURCE, GR.KERNEL_SOURCE, K.MM_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = list(pool.map(build_library, sources))
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for log in logs[:2] for ln in log.splitlines()
+    ptxas = [ln.strip() for log in logs[:3] for ln in log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     info = device_info()
     tile_kernel = []
@@ -634,7 +820,7 @@ def main() -> int:
                  if "bytes spill" in ln and any(
                      int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
     # K1m's instantiations by -Xptxas=-v: registers and spilled bytes
-    mm_ptxas = MMA.ptxas_report(logs[4])
+    mm_ptxas = MMA.ptxas_report(logs[5])
     mm_spills = sorted(n for n, (_, s) in mm_ptxas.items() if s)
     mm_named = "; ".join(
         f"<{n}>: {mm_ptxas[n][0]} registers, {mm_ptxas[n][1]} B spilled"
@@ -643,9 +829,9 @@ def main() -> int:
           f"{' | '.join(ptxas) or 'cached'}; merge_tile at "
           f"{DEFAULT_TILE_ITEMS} items: {'; '.join(tile_kernel)}; "
           f"sm_ceiling: "
-          f"{sum('Compiling entry' in ln for ln in logs[2].splitlines())} "
+          f"{sum('Compiling entry' in ln for ln in logs[3].splitlines())} "
           f"instantiations; merge_tile_mm: "
-          f"{sum('Compiling entry' in ln for ln in logs[4].splitlines())} "
+          f"{sum('Compiling entry' in ln for ln in logs[5].splitlines())} "
           f"instantiations, spills {mm_spills or 'none'}, {mm_named}; "
           f"{'; '.join(mm_kernel)}; merge_csrmv spills "
           f"{k1_spills or 'none'}")
@@ -1641,6 +1827,7 @@ def main() -> int:
                     f"{RAYLEIGH_REL_MAX}) {ok}")
 
     k1, k3 = {"merge_tile_fused": 1}, {"dia_matvec": 1}
+    fused_cg = {"cg_pap": 1, "cg_update": 1, "cg_direction": 1}
     # (path, name, solve(graph, check_every), operator, launches before
     # the loop and per iteration, check_every, check)
     specs = [
@@ -1648,12 +1835,12 @@ def main() -> int:
          lambda g, c: SV.conjugate_gradient(op_lm, bd, tol=SOLVER_TOL,
                                             maxiter=1000, check_every=c,
                                             graph=g),
-         op_lm, k1, k1, 16, residual(lap64)),
+         op_lm, k1, {**k1, **fused_cg}, 16, residual(lap64)),
         ("cg_dia", "cg over dia",
          lambda g, c: SV.conjugate_gradient(op_ld, bd, tol=SOLVER_TOL,
                                             maxiter=1000, check_every=c,
                                             graph=g),
-         op_ld, k3, k3, 16, residual(lap64)),
+         op_ld, k3, {**k3, **fused_cg}, 16, residual(lap64)),
         ("jacobi", "jacobi over merge",
          lambda g, c: SV.jacobi(op_lm, diag_l, bd, tol=SOLVER_TOL,
                                 maxiter=1000, check_every=c, graph=g),
@@ -1674,8 +1861,8 @@ def main() -> int:
     print(f"solvers: L = D - A + I on grid3d(100), {lap.num_nonzeros} nnz; "
           f"{op_ld.describe()}")
     for path, name, solve, op_s, init, per_iter, every, check in specs:
-        out, rep_ = run_solver(name, lambda g: solve(g, every), (K, DK),
-                               init, every)
+        out, rep_ = run_solver(name, lambda g: solve(g, every),
+                               (K, DK, CG), init, every)
         ok, text = check(out)
         ok = (ok and rep_["graph_equals_eager"]
               and rep_["launches_per_iteration"] == per_iter)
@@ -1683,6 +1870,9 @@ def main() -> int:
         paths_sv[path] = rep_["launches"]
         solvers_ok &= ok
         del out
+    ok, text, cg_fused = fused_cg_report(SV, CG, info["peak_hbm_gbps"])
+    print(text)
+    solvers_ok &= ok
     print(f"solvers phase: {time.perf_counter() - t_phase:.1f} s")
     if not solvers_ok:
         return 1
@@ -2627,6 +2817,22 @@ def main() -> int:
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": None,
              "main_path": True})
+    # CG's fused step at HPCG-104 in float64: times in the solve's own
+    # sequence; plain_ms is the torch step's vector work, the three
+    # kernels' plain version together
+    for name, e in cg_fused["kernels"].items():
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "merge_spmv_tpu_torch/csrc/cg_step.cu",
+             "replaces": "merge_spmv_tpu/models/solvers.py:56",
+             "launches": e["launches"], "max_abs_err": e["max_abs_err"],
+             "ulps_of_norm": e["ulps_of_norm"], "ms": e["ms"],
+             "plain_ms": cg_fused["plain_ms"], "plain_of": "all three",
+             "bound_ms": e["bound_ms"], "bound_by": "bytes",
+             "hbm_passes": e["hbm_passes"], "l2_passes": e["l2_passes"],
+             "library_ms": None, "main_path": True,
+             "launches_by_path": {path: paths_sv[path][name]
+                                  for path in ("cg_merge", "cg_dia")}})
     print(json.dumps({"kernels": kernels}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

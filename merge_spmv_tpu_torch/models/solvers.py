@@ -25,7 +25,9 @@ The iteration count and the result are therefore those of an
 iteration-by-iteration loop, whatever ``check_every`` is.  Vector updates
 and dot products are plain torch ops in the operand dtype, as they are XLA
 ops outside the Pallas kernel in the JAX package; the SpMVs are the
-operator's kernels.
+operator's kernels.  CG's step on the card in float32 or float64 is the
+operator's product and three fused kernels (models/cg_cuda.py): four
+launches a step in place of ~25.
 
 All solvers return (solution, info); ``info.iterations`` and
 ``info.residual`` are the JAX package's, ``info.host_reads`` counts the
@@ -50,6 +52,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from merge_spmv_tpu_torch.models import cg_cuda
 from merge_spmv_tpu_torch.utils.device import torch_dtype
 from merge_spmv_tpu_torch.utils.tracing import (CAPTURE, CAPTURE_ENTER,
                                                 CAPTURE_EXIT, CAPTURE_RECORD,
@@ -169,7 +172,9 @@ def conjugate_gradient(op, b, x0=None, tol: float = 1e-6,
                        graph: Optional[bool] = None):
     """CG for symmetric positive-definite A (e.g. grid Laplacians).
 
-    Standard Hestenes-Stiefel recurrence; one op(x) per iteration.
+    Standard Hestenes-Stiefel recurrence; one op(x) per iteration.  On a
+    CUDA device in float32 or float64 the step's vector work is the fused
+    kernels of models/cg_cuda.py; elsewhere torch ops.
     """
     with span(PROLOGUE):
         b = _vector(op, b)
@@ -180,24 +185,35 @@ def conjugate_gradient(op, b, x0=None, tol: float = 1e-6,
         tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
             * torch.sum(b * b)
         k = torch.zeros((), dtype=torch.int32, device=b.device)
+        fused = (cg_cuda.FusedCgStep(x, r, p, rs, tol2, k, maxiter)
+                 if cg_cuda.takes(b.device, b.dtype) else None)
 
     def active():
         return (rs > tol2) & (k < maxiter)
 
     def step():
-        act = active()
-        ap = op(p)
-        alpha = rs / torch.sum(p * ap)
-        x_n = x + alpha * p
-        r_n = r - alpha * ap
-        rs_n = torch.sum(r_n * r_n)
-        p_n = r_n + (rs_n / rs) * p
-        _commit(act, (x, x_n), (r, r_n), (p, p_n), (rs, rs_n))
-        k.add_(act.to(k.dtype))
+        if fused is None:
+            cg_torch_step(op, x, r, p, rs, tol2, k, maxiter)
+        else:
+            fused.step(op(p))
 
     reads, step_ms = _iterate(step, active, b.device, maxiter, check_every,
                               graph)
     return x, SolveInfo(k, torch.sqrt(rs), reads, step_ms)
+
+
+def cg_torch_step(op, x, r, p, rs, tol2, k, maxiter: int):
+    """One masked CG step in torch ops, in place: the step everywhere the
+    fused one is not taken, and its plain version."""
+    act = (rs > tol2) & (k < maxiter)
+    ap = op(p)
+    alpha = rs / torch.sum(p * ap)
+    x_n = x + alpha * p
+    r_n = r - alpha * ap
+    rs_n = torch.sum(r_n * r_n)
+    p_n = r_n + (rs_n / rs) * p
+    _commit(act, (x, x_n), (r, r_n), (p, p_n), (rs, rs_n))
+    k.add_(act.to(k.dtype))
 
 
 @_solver

@@ -21,6 +21,7 @@ import torch
 
 from merge_spmv_tpu_torch.formats.coo import CooMatrix
 from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+from merge_spmv_tpu_torch.models import cg_cuda as CG
 from merge_spmv_tpu_torch.ops import csrmv_cuda as K
 from merge_spmv_tpu_torch.ops import dia_cuda as D
 from merge_spmv_tpu_torch.ops.csrmv import csrmv
@@ -1061,12 +1062,139 @@ def test_solver_launches_and_reads(card):
     op = build_operator(lap)
     b = np.ones(lap.num_rows, np.float32)
     K.reset_launches()
+    CG.reset_launches()
     _, info = conjugate_gradient(op, b, tol=1e-6, maxiter=500, check_every=5,
                                  graph=False)
     torch.cuda.synchronize()
     it = int(info.iterations)
     assert info.host_reads == -(-it // 5)
     assert K.LAUNCHES["merge_tile_fused"] == 1 + 5 * info.host_reads
+    steps = 5 * info.host_reads
+    assert CG.LAUNCHES == {"cg_pap": steps, "cg_update": steps,
+                           "cg_direction": steps}
+
+
+def _cg_state(op, n, dtype, dev, seed, maxiter=100):
+    """A mid-solve CG state (x, r, p random; rs = r . r; tol2 = 0; k = 3)
+    and a copy of it."""
+    rs_ = np.random.RandomState(seed)
+    x, r, p = (torch.from_numpy(rs_.uniform(-1, 1, n)).to(dev, dtype)
+               for _ in range(3))
+    state = [x, r, p, torch.sum(r * r), torch.zeros((), dtype=dtype,
+                                                    device=dev),
+             torch.full((), 3, dtype=torch.int32, device=dev)]
+    return state, [t.clone() for t in state]
+
+
+def _ulps_of_norm(got, want, ulps):
+    """Each entry of ``got`` within ``ulps`` of the dtype's epsilon times
+    the 2-norm of ``want``."""
+    eps = torch.finfo(want.dtype).eps
+    bound = ulps * eps * float(torch.linalg.vector_norm(want.double()))
+    return float((got.double() - want.double()).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("kind", ["merge", "dia"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("width", [30, 600])
+def test_fused_cg_step_vs_the_torch_step(card, kind, dtype, width):
+    """One fused step (K1 or K3, then cg_pap, cg_update, cg_direction) on
+    the state of the torch step, on an SPD stencil: x, r, p and rs within
+    a few ulps of their norms, k exact.  Width 600 (360,000 rows) fills
+    the 1,024-block grid with several values a thread."""
+    from merge_spmv_tpu_torch.models.solvers import cg_torch_step
+    lap = _laplacian(width)
+    name = str(dtype)[6:]
+    build = build_operator if kind == "merge" else build_dia_operator
+    op = build(lap.astype(np.dtype(name)), dtype=name)
+    n = lap.num_rows
+    fused_state, torch_state = _cg_state(op, n, dtype, card, width)
+    fused = CG.FusedCgStep(*fused_state, maxiter=100)
+    fused.step(op(fused_state[2]))
+    cg_torch_step(op, *torch_state, maxiter=100)
+    torch.cuda.synchronize()
+    for name_, got, want in zip(("x", "r", "p"), fused_state, torch_state):
+        assert _ulps_of_norm(got, want, 8), name_
+    assert _ulps_of_norm(fused_state[3], torch_state[3], 8)
+    assert int(fused_state[5]) == int(torch_state[5]) == 4
+    assert int(fused.flags[1]) == 0       # the ticket wrapped back
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("why", ["converged", "at maxiter", "nan"])
+def test_masked_fused_step_leaves_the_state_bit_identical(card, dtype, why):
+    lap = _laplacian(40)
+    name = str(dtype)[6:]
+    op = build_operator(lap.astype(np.dtype(name)), dtype=name)
+    state, before = _cg_state(op, lap.num_rows, dtype, card, 7)
+    maxiter = 100
+    if why == "converged":
+        state[4].fill_(float(state[3]))       # rs == tol2: not above it
+    elif why == "at maxiter":
+        maxiter = 3
+    else:
+        state[3].fill_(float("nan"))
+    before = [t.clone() for t in state]
+    fused = CG.FusedCgStep(*state, maxiter=maxiter)
+    CG.reset_launches()
+    for _ in range(3):
+        fused.step(op(state[2]))
+    torch.cuda.synchronize()
+    assert CG.LAUNCHES == {"cg_pap": 3, "cg_update": 3, "cg_direction": 3}
+    for got, want in zip(state, before):
+        assert torch.equal(got.view(-1).view(torch.uint8),
+                           want.view(-1).view(torch.uint8))
+    assert fused.flags.tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_two_fused_solves_give_the_same_bits(card, dtype):
+    from merge_spmv_tpu_torch.models.solvers import conjugate_gradient
+    lap = _laplacian(100)
+    name = str(dtype)[6:]
+    op = build_operator(lap.astype(np.dtype(name)), dtype=name)
+    b = np.random.RandomState(5).uniform(-1, 1, lap.num_rows).astype(name)
+    runs = [conjugate_gradient(op, b, tol=0.0, maxiter=50) for _ in range(2)]
+    (x0, i0), (x1, i1) = runs
+    assert int(i0.iterations) == int(i1.iterations) == 50
+    assert torch.equal(x0, x1) and torch.equal(i0.residual, i1.residual)
+
+
+def test_fused_step_refuses_a_wrong_product(card):
+    lap = _laplacian(10)
+    op = build_operator(lap)
+    state, _ = _cg_state(op, lap.num_rows, torch.float32, card, 1)
+    fused = CG.FusedCgStep(*state, maxiter=10)
+    ap = op(state[2])
+    with pytest.raises(TypeError):
+        fused.step(ap.double())
+    with pytest.raises(ValueError):
+        fused.step(ap[:-1])
+    with pytest.raises(ValueError):
+        fused.step(torch.stack([ap, ap], 1)[:, 0])
+    with pytest.raises(ValueError):
+        fused.step(ap.cpu())
+
+
+def test_other_solvers_never_reach_the_fused_step(card, monkeypatch):
+    """With the fused wrapper made to raise, BiCGSTAB and PageRank run on
+    the card as before."""
+    from merge_spmv_tpu_torch.models.solvers import bicgstab, pagerank
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the fused CG step was reached")
+
+    monkeypatch.setattr(CG, "FusedCgStep", refuse)
+    monkeypatch.setattr(CG, "_lib", refuse)
+    lap = _laplacian(30)
+    b = np.random.RandomState(2).uniform(-1, 1, lap.num_rows).astype(
+        np.float32)
+    _, info = bicgstab(build_operator(lap), b, tol=1e-6, maxiter=200)
+    assert 0 < int(info.iterations) < 200
+    pr, info = pagerank(build_operator(_ring_pagerank(3000)), tol=1e-7,
+                        maxiter=300)
+    assert int(info.iterations) > 0
+    assert abs(float(pr.double().sum()) - 1.0) < 1e-4
 
 
 def test_graphed_cg_spans_under_the_profiler(card):
