@@ -1,6 +1,7 @@
 """The control: the plain reference put in the program's place and
-computed in float32, the precision below the configurations' float64.
-A sound comparison has to call it not correct.
+computed in the next precision below the configuration's ``dtype``
+(``LOWER``: float32 under float64, bfloat16 under float32).  A sound
+comparison has to call it not correct.
 
     python3 spmv_bench/control.py --workload <cell> --seeds 1,2,... \\
         --control-seeds 7,8,9 --seconds 2
@@ -29,11 +30,13 @@ if __package__ in (None, ""):
 
 from spmv_bench import reference  # noqa: E402
 
-LOWER = torch.float32
+# the configuration's dtype -> the control's
+LOWER = {"float64": torch.float32, "float32": torch.bfloat16}
 
 
 class ControlOperator:
-    """alpha A x + beta y_in by the reference, in float32."""
+    """alpha A x + beta y_in by the reference, in ``LOWER`` of the
+    configuration's dtype."""
 
     def __init__(self, host_csr: dict, config: dict, device):
         dev = torch.device(device)
@@ -46,14 +49,15 @@ class ControlOperator:
             "values": torch.as_tensor(host_csr["values"]).to(dev)}
         self.shape = (host_csr["num_rows"], host_csr["num_cols"])
         self.dtype = config["dtype"]
+        self.lower = LOWER[self.dtype]
         self.device = dev
         self.setup_s = {}
 
     def __call__(self, x, y_in=None, alpha=1.0, beta=0.0):
-        return reference.affine(self.csr, x, y_in, alpha, beta, LOWER)
+        return reference.affine(self.csr, x, y_in, alpha, beta, self.lower)
 
     def mm(self, X, Y_in=None, alpha=1.0, beta=0.0):
-        return reference.affine(self.csr, X, Y_in, alpha, beta, LOWER)
+        return reference.affine(self.csr, X, Y_in, alpha, beta, self.lower)
 
 
 class Control:
@@ -63,7 +67,7 @@ class Control:
         return ControlOperator(host_csr, config, device)
 
     def solve(self, solver: str, op, b, tol=0.0, maxiter=50, **_):
-        x, _ = getattr(reference, solver)(op.csr, b, maxiter, LOWER)
+        x, _ = getattr(reference, solver)(op.csr, b, maxiter, op.lower)
         return x, int(maxiter), 0, None
 
     @staticmethod

@@ -6,10 +6,12 @@ read of its flag on the host.  Set s solves for b = pool[s mod
 the same work.
 
 Each set's host-clock time, the solver's host reads and its ``step_ms``
-are kept.  Sets at positions drawn from the seed (``samples`` of them
-below ``sample_below``), set 0 and the window's last set keep their
-solution; the reference's function of the same name runs the same
-iterations from the same b.
+are kept.  A traced set asks for 1 + reads x ``check_every`` products:
+the prologue's r = b - op(x) and one a step, masked steps included, as
+CG makes them (``traced_products``).  Sets at positions drawn from the
+seed (``samples`` of them below ``sample_below``), set 0 and the
+window's last set keep their solution; the reference's function of the
+same name runs the same iterations from the same b.
 
 traffic keys: ``solver``, ``solver_args``, ``rhs_pool``, ``warm_sets``,
 ``samples``, ``sample_below``, ``trace_after_s``, ``trace_sets``.
@@ -89,6 +91,11 @@ class Loop:
     @property
     def attempted(self) -> int:
         return len(self.sets)
+
+    @property
+    def traced_products(self) -> int:
+        every = int(self.cell.traffic["solver_args"]["check_every"])
+        return sum(1 + s["reads"] * every for s in self.sets if s["traced"])
 
     def end_to_end(self) -> dict:
         """The median host-clock time of every set in the window."""

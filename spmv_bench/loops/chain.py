@@ -4,11 +4,13 @@ by one closed-loop caller that never waits for a call.
 
 alpha = ``alpha_scale`` / max_r sum_j |a_rj|, worked out by the benchmark
 from its own arrays, so that with beta = 1 the chain is PageRank's affine
-iteration and x stays O(1).  x0 and b are uniform(-1, 1) from the seed.
+iteration and x stays O(1).  x0 and b are uniform(-1, 1) from the seed,
+in the configuration's dtype.
 The host runs at most ``lag_batches`` batches of ``batch_calls`` calls
 ahead of the device (an event a batch), so the window's end finds a short
 queue.  The window ends in a synchronise; the rate is every call's
-operations over the whole window.
+operations over the whole window.  The traced sub-window asks for
+``trace_calls`` products (``traced_products``).
 
 Calls at positions drawn from the seed (``samples`` of them below
 ``sample_below``), call 0 and the window's last call keep their input and
@@ -32,6 +34,15 @@ from spmv_bench.generators import generator, uniform
 from spmv_bench.loops import TracedOnce, sample_positions, synchronize
 
 
+def vectors(cell, shape):
+    """(b, x0), drawn from the seed in float64 and handed over in the
+    configuration's dtype."""
+    gen = generator(cell.seed, "chain.vectors", cell.device)
+    dtype = getattr(torch, cell.problem["dtype"])
+    return [uniform(shape, -1.0, 1.0, gen, cell.device).to(dtype)
+            for _ in range(2)]
+
+
 class Loop:
     def __init__(self, system, op, cell):
         t = cell.traffic
@@ -39,9 +50,7 @@ class Loop:
         self.k = int(t["k"])
         shape = (cell.problem["num_rows"],) if self.k == 1 else \
             (cell.problem["num_rows"], self.k)
-        gen = generator(cell.seed, "chain.vectors", cell.device)
-        self.b = uniform(shape, -1.0, 1.0, gen, cell.device)
-        self.x0 = uniform(shape, -1.0, 1.0, gen, cell.device)
+        self.b, self.x0 = vectors(cell, shape)
         self.alpha = float(t["alpha_scale"]) / cell.problem["max_row_abs_sum"]
         self.beta = float(t["beta"])
         self.sample_at = sample_positions(cell.seed, "chain.samples",
@@ -49,6 +58,7 @@ class Loop:
                                           int(t["sample_below"]))
         self.samples = []           # (position, x_in, y)
         self.calls = 0
+        self.traced_products = 0
         self.wall_s = 0.0
         self.trace = None
 
@@ -88,6 +98,7 @@ class Loop:
                 def body():
                     box[0] = self._launch(box[0], int(t["trace_calls"]))
                 traced.take(body, self.device)
+                self.traced_products = int(t["trace_calls"])
                 x = box[0]
                 continue
             x = self._launch(x, batch)
@@ -121,16 +132,16 @@ class Loop:
         """({"product_err": the worst over the samples}, samples past the
         limit).  The reference works out alpha and b again from the
         seed."""
-        t, dev = self.cell.traffic, self.device
+        t = self.cell.traffic
         shape = (csr["num_rows"],) if self.k == 1 else \
             (csr["num_rows"], self.k)
-        b = uniform(shape, -1.0, 1.0,
-                    generator(self.cell.seed, "chain.vectors", dev), dev)
+        b, _ = vectors(self.cell, shape)
         alpha = float(t["alpha_scale"]) / reference.max_row_abs_sum(csr)
         limit = self.cell.limits["product_err"]
+        unit = reference.unit_roundoff(self.cell.problem["dtype"])
         errs = [reference.product_error(
                     csr, y, x_in, b, alpha, self.beta,
-                    reference.affine(csr, x_in, b, alpha, self.beta))
+                    reference.affine(csr, x_in, b, alpha, self.beta), unit)
                 for _, x_in, y in self.samples]
         worst = max(errs, default=float("inf"))
         return {"product_err": worst}, sum(not e <= limit for e in errs)

@@ -1,7 +1,9 @@
-"""K1's share of its roofline: the least time of y = alpha A x + beta
-y_in (y = A p inside CG) over K1's mean device time a launch
-(`csrc/merge_csrmv.cu::merge_tile_kernel`), from the traced window.
-One reader for every cell's entry (`k1_roofline.<mix>`)."""
+"""K1's share of its roofline: the least time of the products y = alpha
+A x + beta y_in (y = A p inside CG) that the traced window asked for,
+over K1's device seconds there
+(`csrc/merge_csrmv.cu::merge_tile_kernel`; `roofline.kernel_share_pct`).
+At k = 1 a product is one launch.  One reader for every cell's entry
+(`k1_roofline.<mix>`)."""
 
 from spmv_bench.roofline import kernel_share_pct
 

@@ -2,22 +2,23 @@
 
 Plain PyTorch over the CSR that the benchmark's own generator makes
 (``generators/``): no kernel, no operator, nothing of the package under
-test.  Products run in blocks of nonzeros (``BLOCK`` at a time), so the
+test.  Products run in blocks of nonzeros, each gathering at most
+``BLOCK`` elements of x (2^24 nonzeros at k = 1, 2^16 at k = 256), so the
 reference fits beside what is left on the card after a run.
 
-``dtype`` is the precision the reference computes in: the
-configuration's for the reference, the next one below it for the control
-(``control.py``).
+``dtype`` is the precision the reference computes in: float64 for the
+reference, the next precision below the configuration's for the control
+(``control.py``: float32 under a float64 configuration, bfloat16 under a
+float32 one).  ``product_error`` measures in the unit roundoff of the
+configuration's dtype (``unit_roundoff``).
 """
 
 from __future__ import annotations
 
 import torch
 
+# the most elements of x (nonzeros x columns) one block gathers
 BLOCK = 1 << 24
-
-# float64's unit roundoff
-UNIT_ROUNDOFF = 2.0 ** -53
 
 
 def row_lengths(csr: dict) -> torch.Tensor:
@@ -33,10 +34,23 @@ def max_row_abs_sum(csr: dict) -> float:
     return float(sums.max())
 
 
+def unit_roundoff(dtype: str) -> float:
+    """The unit roundoff of the dtype named ``dtype``: 2^-53 for
+    float64, 2^-24 for float32."""
+    return torch.finfo(getattr(torch, dtype)).eps / 2
+
+
+def block_nonzeros(columns: int) -> int:
+    """The nonzeros a block of ``product`` takes for x of ``columns``
+    columns: BLOCK gathered elements, at least one nonzero."""
+    return max(BLOCK // columns, 1)
+
+
 def product(csr: dict, x: torch.Tensor, dtype=torch.float64,
             absolute: bool = False) -> torch.Tensor:
     """A @ x (or |A| @ |x| with ``absolute``) for x [cols] or [cols, k],
-    summed in ``dtype`` by rows, BLOCK nonzeros at a time."""
+    summed in ``dtype`` by rows, ``block_nonzeros(k)`` nonzeros at a
+    time."""
     offsets = csr["row_offsets"]
     nnz = int(offsets[-1])
     xs = x.to(dtype)
@@ -44,8 +58,9 @@ def product(csr: dict, x: torch.Tensor, dtype=torch.float64,
         xs = xs.abs()
     out = torch.zeros((csr["num_rows"],) + tuple(x.shape[1:]), dtype=dtype,
                       device=x.device)
-    for start in range(0, nnz, BLOCK):
-        stop = min(start + BLOCK, nnz)
+    block = block_nonzeros(x.shape[1] if x.dim() == 2 else 1)
+    for start in range(0, nnz, block):
+        stop = min(start + block, nnz)
         pos = torch.arange(start, stop, device=x.device)
         rows = torch.searchsorted(offsets, pos, right=True) - 1
         vals = csr["values"][start:stop].to(dtype)
@@ -88,18 +103,20 @@ def conjugate_gradient(csr: dict, b: torch.Tensor, maxiter: int,
 
 
 def product_error(csr: dict, y, x, y_in, alpha: float, beta: float,
-                  y_ref) -> float:
+                  y_ref, unit: float) -> float:
     """The worst |y - y_ref| over all rows (and right-hand sides), in
-    units of u ((n + 2) |alpha| (|A| |x|) + |beta y_in|) of its row, u
-    float64's unit roundoff and n the row's length: two float64 sums of
-    a row, in any orders, lie within about 2 of it of each other."""
+    units of u ((n + 2) |alpha| (|A| |x|) + |beta y_in|) of its row, u =
+    ``unit`` the unit roundoff of the configuration's dtype
+    (``unit_roundoff``) and n the row's length: a sum of a row in that
+    dtype, in any order, lies within about 1 of it of the exact sum, and
+    so within about 2 of the float64 reference's."""
     n = row_lengths(csr).to(torch.float64)
     if y.dim() == 2:
         n = n[:, None]
     scale = (n + 2) * abs(alpha) * product(csr, x, absolute=True)
     if beta != 0.0:
         scale = scale + abs(beta) * y_in.double().abs()
-    scale = scale * UNIT_ROUNDOFF
+    scale = scale * unit
     err = (y.double() - y_ref).abs()
     ratio = torch.where(scale > 0, err / scale,
                         torch.where(err > 0, torch.inf, 0.0))

@@ -65,19 +65,23 @@ def least_seconds(rows: int, cols: int, nnz: int, k: int, dtype: str,
 
 
 def kernel_share_pct(run, name_part: str):
-    """A kernel's roofline share in the traced window: the least time of
-    one launch over its mean time by the device trace, in percent.  None
-    without a trace, a launch of it, or the card's peaks.  Every launch
-    of the kernel in the cell is one product of the cell's matrix with
-    the traffic's ``k`` right-hand sides, with y_in where its ``beta`` is
-    not 0."""
+    """A kernel's roofline share in the traced window, in percent: the
+    least time of the products the window asked for over the kernel's
+    device seconds there.  A product is one of the cell's matrix with the
+    traffic's whole ``k`` right-hand sides, y_in where its ``beta`` is not
+    0; the loop counts them (``traced_products``).  So the share reads
+    the same work however many launches make up a product (K1m takes k
+    above 64 as a launch a block of 64 columns), and a kernel as slow as
+    its bound reads at most 100.  None without a trace, a launch of the
+    kernel, a product, or the card's peaks."""
     if run.trace is None:
         return None
     launches, seconds = run.trace.kernel(name_part)
+    products = run.loop.traced_products
     p, t = run.cell.problem, run.cell.traffic
     least = least_seconds(p["num_rows"], p["num_cols"], p["nnz"],
                           int(t.get("k", 1)), p["dtype"],
                           float(t.get("beta", 0.0)) != 0.0, run.device_name)
-    if not launches or least is None:
+    if not launches or not products or least is None:
         return None
-    return 100.0 * least[0] / (seconds / launches)
+    return 100.0 * least[0] * products / seconds

@@ -137,14 +137,14 @@ def host_csr(csr: dict) -> dict:
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              device: str, system, t_start: float, bench=None,
-             config=None, traffic=None) -> dict:
+             config=None, traffic=None, limits=None) -> dict:
     """One run of ``workload``; returns the result (see ``main``).
-    ``config`` and ``traffic`` replace what the files give (the tests'
-    sizes)."""
+    ``config``, ``traffic`` and ``limits`` replace what the files give
+    (the tests' sizes)."""
     bench = bench or load_benchmark()
-    entry, conf_f, traffic_f, limits = find_cell(bench, workload)
-    cell = Cell(workload, config or conf_f, traffic or traffic_f, limits,
-                int(seed), device)
+    entry, conf_f, traffic_f, limits_f = find_cell(bench, workload)
+    cell = Cell(workload, config or conf_f, traffic or traffic_f,
+                limits or limits_f, int(seed), device)
     generate = importlib.import_module(
         f"spmv_bench.generators.{cell.config['generator']}").generate
     cuda = torch.device(device).type == "cuda"

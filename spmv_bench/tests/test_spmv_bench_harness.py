@@ -25,24 +25,31 @@ STENCIL = {"generator": "stencil27", "dtype": "float64",
 RMAT = {"generator": "rmat", "dtype": "float64", "entry": "build_operator",
         "params": {"scale": 9, "nnz": 6000, "a": 0.57, "b": 0.19,
                    "c": 0.19, "values": [-1.0, 1.0]}}
-# case -> (cell, configuration, changes to the cell's traffic); "spmv_k8"
-# drives the chain's k right-hand sides (op.mm), which no committed mix
-# uses yet
+RMAT32 = dict(RMAT, dtype="float32")
+# case -> (cell, configuration, changes to the cell's traffic, limits or
+# None for the cell's own); "spmv_k8" drives the chain's k right-hand
+# sides (op.mm), which no committed mix uses yet; "spmv_k130_f32" drives
+# op.mm in float32 past K1m's 64 columns a launch.  Its product_err,
+# in float32's unit roundoff, read 0.98-1.53 under the program and
+# 1.21e5-1.26e5 under the bfloat16 control on three seeds on the CPU.
 TINY = {
-    "spmv": ("kron_g500_logn21.spmv", RMAT, {}),
-    "spmv_k8": ("kron_g500_logn21.spmv", RMAT, {"k": 8}),
-    "cg": ("hpcg_104.cg", STENCIL, {}),
+    "spmv": ("kron_g500_logn21.spmv", RMAT, {}, None),
+    "spmv_k8": ("kron_g500_logn21.spmv", RMAT, {"k": 8}, None),
+    "spmv_k130_f32": ("kron_g500_logn21.spmv", RMAT32, {"k": 130},
+                      {"product_err": 1024.0}),
+    "cg": ("hpcg_104.cg", STENCIL, {}, None),
 }
 
 
 def tiny_run(case, sut, trace=False, seconds=0.3):
-    cell, config, change = TINY[case]
+    cell, config, change, limits = TINY[case]
     traffic = run.find_cell(run.load_benchmark(), cell)[2]
     traffic.update(change)
     if trace:
         traffic.update(trace_after_s=0.0, trace_calls=4, trace_sets=1)
     return run.run_cell(cell, SEED, seconds, trace, "cpu", sut,
-                        time.perf_counter(), config=config, traffic=traffic)
+                        time.perf_counter(), config=config, traffic=traffic,
+                        limits=limits)
 
 
 @pytest.mark.parametrize("case", sorted(TINY))
@@ -68,6 +75,27 @@ def test_traced_run_is_correct_and_reads_the_program_spans(case):
 def test_control_is_not_correct(case):
     result = tiny_run(case, control.Control())
     assert not result["correct"]
+
+
+@pytest.mark.parametrize("dtype,lower", [("float64", torch.float32),
+                                         ("float32", torch.bfloat16)])
+def test_control_runs_one_precision_below_the_configuration(dtype, lower):
+    assert control.LOWER[dtype] == lower
+    host = {"num_rows": 2, "num_cols": 2, "row_offsets": [0, 1, 2],
+            "col_indices": [0, 1], "values": [1.0, 3.0]}
+    op = control.Control().build(host, {"dtype": dtype}, "cpu")
+    assert op.lower == lower
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -12], dtype=torch.float64)
+    # 3 (1 + 2^-12) is exact in float32 and rounds in bfloat16
+    exact = float(op(x)[1]) == 3.0 * (1.0 + 2.0 ** -12)
+    assert exact == (lower == torch.float32)
+
+
+def test_control_refuses_a_dtype_it_has_no_precision_below():
+    with pytest.raises(KeyError):
+        control.Control().build({"num_rows": 0, "num_cols": 0,
+                                 "row_offsets": [0], "col_indices": [],
+                                 "values": []}, {"dtype": "bfloat16"}, "cpu")
 
 
 class FaultyOperator:

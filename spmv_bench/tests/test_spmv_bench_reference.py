@@ -74,13 +74,81 @@ def test_product_error_scale(kron):
     x = torch.rand(kron["num_cols"], dtype=torch.float64)
     b = torch.rand(kron["num_rows"], dtype=torch.float64)
     y = reference.affine(kron, x, b, 0.3, 1.0)
-    assert reference.product_error(kron, y, x, b, 0.3, 1.0, y) == 0.0
+    u = reference.unit_roundoff("float64")
+    assert reference.product_error(kron, y, x, b, 0.3, 1.0, y, u) == 0.0
     worse = y.clone()
     worse[0] += 1e-9
-    assert reference.product_error(kron, worse, x, b, 0.3, 1.0, y) > 100
+    assert reference.product_error(kron, worse, x, b, 0.3, 1.0, y, u) > 100
     worse[1] = float("nan")
-    assert reference.product_error(kron, worse, x, b, 0.3, 1.0, y) == \
+    assert reference.product_error(kron, worse, x, b, 0.3, 1.0, y, u) == \
         float("inf")
+
+
+def test_unit_roundoff_follows_the_dtype():
+    assert reference.unit_roundoff("float64") == 2.0 ** -53
+    assert reference.unit_roundoff("float32") == 2.0 ** -24
+
+
+@pytest.mark.parametrize("k,block", [(1, 2 ** 24), (64, 2 ** 18),
+                                     (256, 2 ** 16), (2 ** 25, 1)])
+def test_blocks_gather_at_most_block_elements(k, block):
+    assert reference.block_nonzeros(k) == block
+
+
+@pytest.mark.parametrize("k", [1, 64, 256])
+def test_blocked_product_equals_one_unblocked_index_add(kron, monkeypatch,
+                                                        k):
+    """Bit for bit, with BLOCK cut so that every k takes several blocks
+    of BLOCK // k nonzeros."""
+    monkeypatch.setattr(reference, "BLOCK", 1 << 10)
+    nnz = kron["values"].numel()
+    x = torch.rand((kron["num_cols"],) if k == 1 else (kron["num_cols"], k),
+                   dtype=torch.float64, generator=torch.Generator()
+                   .manual_seed(k))
+    sizes, index_add = [], torch.Tensor.index_add_
+
+    def counting(self, dim, index, source):
+        sizes.append(index.numel())
+        return index_add(self, dim, index, source)
+
+    monkeypatch.setattr(torch.Tensor, "index_add_", counting)
+    y = reference.product(kron, x)
+    monkeypatch.undo()
+    per = (1 << 10) // k
+    assert sizes == [min(per, nnz - s) for s in range(0, nnz, per)]
+    assert len(sizes) > 1
+    rows = torch.repeat_interleave(torch.arange(kron["num_rows"]),
+                                   reference.row_lengths(kron))
+    vals = kron["values"] if k == 1 else kron["values"][:, None]
+    want = torch.zeros_like(y).index_add_(
+        0, rows, vals * x[kron["col_indices"].long()])
+    assert torch.equal(y, want)
+
+
+def test_float32_product_reads_order_one_and_bfloat16_about_2_16_more():
+    """The same float32 product, then rounded through bfloat16, against
+    the float64 reference in float32's unit roundoff: rows of 1 to 3
+    positive terms, so the error is one rounding of y either way."""
+    n = 4000
+    gen = torch.Generator().manual_seed(5)
+    lengths = torch.randint(1, 4, (n,), generator=gen)
+    offsets = torch.zeros(n + 1, dtype=torch.int64)
+    torch.cumsum(lengths, 0, out=offsets[1:])
+    nnz = int(offsets[-1])
+    csr = {"num_rows": n, "num_cols": n, "row_offsets": offsets,
+           "col_indices": torch.randint(0, n, (nnz,), generator=gen,
+                                        dtype=torch.int32),
+           "values": torch.rand(nnz, dtype=torch.float64, generator=gen)
+           .float().double()}
+    x = torch.rand(n, dtype=torch.float64, generator=gen).float().double()
+    y_ref = reference.affine(csr, x, None, 1.0, 0.0)
+    u = reference.unit_roundoff("float32")
+    y32 = reference.affine(csr, x, None, 1.0, 0.0, torch.float32).float()
+    f32 = reference.product_error(csr, y32, x, None, 1.0, 0.0, y_ref, u)
+    bf16 = reference.product_error(csr, y32.bfloat16(), x, None, 1.0, 0.0,
+                                   y_ref, u)
+    assert 0.05 < f32 <= 1.0
+    assert 2 ** 16 / 4 < bf16 / f32 < 2 ** 16 * 4
 
 
 def test_relative_error():
@@ -88,3 +156,25 @@ def test_relative_error():
     assert reference.relative_error(x, x) == 0.0
     assert reference.relative_error(x + 1e-3, x) == pytest.approx(2.5e-4)
     assert reference.relative_error(x * float("nan"), x) == float("inf")
+
+
+@pytest.mark.parametrize("device", ["cpu",
+                                    pytest.param("cuda",
+                                                 marks=pytest.mark.cuda)])
+def test_bfloat16_product_runs_where_the_control_runs(kron, device):
+    """The control of a float32 configuration sums in bfloat16 by
+    ``index_add_``: it runs, and lands within bfloat16's rounding."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    csr = {k: v.to(device) if torch.is_tensor(v) else v
+           for k, v in kron.items()}
+    x = torch.rand(kron["num_cols"], 8, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(3)).to(device)
+    y = reference.product(csr, x, torch.bfloat16)
+    assert y.dtype == torch.bfloat16
+    want = reference.product(csr, x)
+    scale = reference.product(csr, x, absolute=True)
+    lengths = reference.row_lengths(csr)[:, None].double()
+    assert bool(((y.double() - want).abs()
+                 <= (lengths + 2) * 2.0 ** -8 * scale).all())
+    assert not torch.equal(y.double(), want)

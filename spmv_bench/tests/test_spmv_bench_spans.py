@@ -94,9 +94,45 @@ def test_union_and_overlap():
     assert spans.overlap(a, []) == 0
 
 
+def stand_together(names, run_):
+    """Whether ``run_`` stands in ``names`` as one stretch, in order."""
+    return any(names[i:i + len(run_)] == run_
+               for i in range(len(names) - len(run_) + 1))
+
+
 def test_each_new_entry_is_in_the_benchmark():
     names = [m["name"] for m in run.load_benchmark()["per_layer"]]
-    assert names[-len(NEW):] == NEW
+    assert stand_together(names, NEW)
+
+
+@pytest.mark.parametrize("case,holds", [
+    ("as_committed", True),
+    ("one_appended_after", True),
+    ("one_put_before", True),
+    ("first_dropped", False),
+    ("middle_dropped", False),
+    ("last_dropped", False),
+    ("one_renamed", False),
+    ("two_swapped", False),
+    ("one_put_between", False),
+])
+def test_the_new_entries_must_stand_together_in_order(case, holds):
+    names = ["setup_plan_s", "k1_roofline.cg"] + NEW
+    lead = len(names) - len(NEW)
+    if case == "one_appended_after":
+        names.append("cg_launches_per_step")
+    elif case == "one_put_before":
+        names.insert(lead, "cg_launches_per_step")
+    elif case.endswith("_dropped"):
+        del names[{"first": lead, "middle": lead + 3,
+                   "last": len(names) - 1}[case.split("_")[0]]]
+    elif case == "one_renamed":
+        names[lead + 2] = "cg_flag_reads_ms"
+    elif case == "two_swapped":
+        names[lead + 1], names[lead + 2] = names[lead + 2], names[lead + 1]
+    elif case == "one_put_between":
+        names.insert(lead + 4, "cg_launches_per_step")
+    assert stand_together(names, NEW) == holds
 
 
 def test_traced_cg_run_reads_the_program_spans_and_counters():
@@ -119,6 +155,43 @@ def test_traced_cg_run_reads_the_program_spans_and_counters():
     assert m["call_host_us.cg"] > 0
     assert m["cg_masked_step_pct"] == pytest.approx(100 * 14 / 64)
     assert 0 <= m["cg_idle_unspanned_pct"] < 100
+    # the CPU's trace holds no device activity: read on the card
+    assert m.get("cg_launches_per_step") in (None, 0)
+
+
+def cg_loop(sets, check_every=16):
+    from spmv_bench.loops import cg_sets
+
+    loop = object.__new__(cg_sets.Loop)
+    loop.sets = list(sets)
+    loop.cell = SimpleNamespace(
+        traffic={"solver_args": {"check_every": check_every}})
+    return loop
+
+
+def test_cg_counts_the_traced_products():
+    """The prologue's product and every step of the traced sets, masked
+    steps included; the untraced sets are not counted."""
+    assert cg_loop(SETS).traced_products == 1 + 1 * 16
+    traced = [{"iterations": 50, "reads": 4, "traced": True}] * 30
+    assert cg_loop(SETS[:2] + traced).traced_products == 30 * 65
+    assert cg_loop(SETS[:2]).traced_products == 0
+
+
+def test_cg_launches_per_step_reads_activities_over_products():
+    traced = [{"iterations": 50, "reads": 4, "traced": True},
+              {"iterations": 3, "reads": 1, "traced": True}]
+    trace = window()
+    # one activity past the window's end is not counted
+    trace.device.append(("merge_tile_kernel", 0.2, 0.3))
+    rec = SimpleNamespace(trace=trace, loop=cg_loop(SETS[:2] + traced))
+    reader = run.reader("cg_launches_per_step")
+    assert reader.read(rec) == pytest.approx(3 / (65 + 17), rel=1e-12)
+    assert reader.read(SimpleNamespace(trace=None, loop=rec.loop)) is None
+    assert reader.read(SimpleNamespace(trace=trace,
+                                       loop=cg_loop(SETS[:2]))) is None
+    trace.device = []
+    assert reader.read(rec) is None
 
 
 def test_span_split_takes_each_set_apart():
