@@ -12,11 +12,11 @@ Phases, one line of output each (any failure exits non-zero and prints no
              dynamic shared memory and resident blocks per SM at the
              default tile size, in float32 and float64, for each gather
              policy (ops/plan.py::POLICIES); the same for the multi-RHS
-             tile kernel K1m (csrc/merge_csrmm.cu) at k = 4, 8 and 32,
-             with its rows in flight a walker and its carveout, and the
-             registers and spills of its <float, 4, true, 2> and <float,
-             4, true, 8> instantiations (k = 8 and 32); fails if any K1
-             or K1m instantiation spills.
+             tile kernel K1m (csrc/merge_csrmm.cu) at k = 4, 8, 32 and
+             64, with its rows in flight a walker and its carveout, and the
+             registers and spills of its <float, 4, true, 2>, <float, 4,
+             true, 8> and <float, 4, true, 16> instantiations (k = 8, 32
+             and 64); fails if any K1 or K1m instantiation spills.
    stream  — utils/device.py::measure_stream_bandwidth (the STREAM triad
              over 256 MB arrays, CUDA-graph replays) beside the published
              3,350 GB/s.
@@ -214,6 +214,14 @@ Phases, one line of output each (any failure exits non-zero and prints no
              around the phase (the ranks' from their reports), around
              cant_class's own run for its kernels-line entry, and around
              the SpMM runs for K1m's and K3m's.
+   fastrp k1m — K1m at the FastRP cell's width (fastrp_k1m_report): the
+             kron_g500_logn21_sym graph (182,082,942 nonzeros) through
+             transition_operator in float32 and op.mm on X [2^21, 256],
+             four K1m launches and nothing else counted from 0 around the
+             call; against merge_csrmm_plain within 2 gamma_n |P| |X| per
+             entry, its largest difference in float32 ulps of |P| |X|;
+             op.mm and K1m alone timed beside cuSPARSE SpMM, the plain
+             version's time and the bytes bound.
 14. the kernels line, nvidia-smi's name and power limit, and the last line.
 """
 
@@ -269,6 +277,13 @@ FUSED_PASSES = {"cg_pap": (2, 0), "cg_update": (4, 2),
 # a float64 run of the same iterations at most 1e-4 of the total mass 1
 PAGERANK_TOL, PAGERANK_L1_MAX = 1e-6, 1e-4
 LONG_ROW_NNZ = 4_000_000  # tests/test_fp64_audit.py:70
+# K1m at the FastRP cell's shape (spmv_bench's kron_g500_logn21_sym.fastrp):
+# its configuration, d = 256 columns (four 64-column launches a product),
+# a seed of the cell's kind (above 2^31), and the columns a block of the
+# plain version holds (its gathered products, 182M x 8 float32, ~6 GB)
+FASTRP_CONFIG = os.path.join(REPO_DIR, "spmv_bench", "configs",
+                             "kron_g500_logn21_sym.json")
+FASTRP_K, FASTRP_SEED, FASTRP_PLAIN_COLS = 256, 2 ** 31 + 22, 8
 # the corpus phase: one full-size matrix per generator family of the stats
 # corpus (tools/make_corpus_stats.py), CoV 0 to the wheel, banded to global
 # scatter, beside the 25 files of the mini corpus (tools/make_corpus.py)
@@ -719,6 +734,143 @@ def fused_cg_report(SV, CG, peak_gbps):
                       "fused_vector_ms": fused_t["vector_ms"]}
 
 
+def fastrp_k1m_report(peak_gbps):
+    """K1m at the kron_g500_logn21_sym.fastrp cell's shape: the cell's graph
+    (spmv_bench/generators/rmat_sym.py at its configuration's parameters:
+    2^21 vertices, 182,082,942 nonzeros, FASTRP_SEED) through
+    transition_operator in float32, and op.mm on X [2^21, FASTRP_K] float32
+    with the launch counters reset just before the call: FASTRP_K / 64 K1m
+    launches and no other kernel of the package.  The result against
+    merge_csrmm_plain on the same inputs, each 64-column block at its
+    launch's runs, FASTRP_PLAIN_COLS columns at a time: each entry within
+    2 gamma_n of |P| |X| (float64; n the row's nonzeros), the bound on any
+    two orders of summing n float32 products, and its largest difference
+    in float32 ulps (2^-24) of |P| |X|, with its row's degree.  Then op.mm
+    (CUDA graph) and K1m alone in turns with cuSPARSE SpMM on the same X
+    (K1m, cuSPARSE, cuSPARSE, K1m; best of each), the plain version's time
+    and the bytes bound (P, X and Y once).  Returns (ok, line, entry)."""
+    import numpy as np
+    import torch
+
+    from merge_spmv_tpu_torch.bench import measure as M
+    from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+    from merge_spmv_tpu_torch.ops import csrmv_cuda as K
+    from merge_spmv_tpu_torch.ops.operator import transition_operator
+    from merge_spmv_tpu_torch.utils.cuda_build import alignment
+    from merge_spmv_tpu_torch.utils.timers import event_ms
+    from spmv_bench.generators import rmat_sym
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    with open(FASTRP_CONFIG) as f:
+        config = json.load(f)
+    g = rmat_sym.generate(config["params"], FASTRP_SEED, dev)
+    csr = CsrMatrix.from_arrays(
+        g["num_rows"], g["num_cols"],
+        g["row_offsets"].to(torch.int32).cpu().numpy(),
+        g["col_indices"].cpu().numpy(), g["values"].cpu().numpy())
+    del g
+    op = transition_operator(csr, dtype="float32")
+    plan, n, nnz, k = op.plan, csr.num_rows, csr.num_nonzeros, FASTRP_K
+    degree = torch.from_numpy(np.diff(csr.row_offsets)).to(dev)
+    del csr
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(FASTRP_SEED)
+    X = torch.rand(n, k, generator=gen, device=dev) * 2 - 1
+    K.reset_launches()
+    Y = op.mm(X)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    finite = bool(torch.isfinite(Y).all())
+
+    # 2 gamma_n per row: n u / (1 - n u), n at most 10^5 here, u 2^-24
+    u = 2.0 ** -24
+    gamma = (degree.double() * u / (1 - degree.double() * u))[:, None]
+    tiny = torch.finfo(torch.float64).tiny
+    worst = {"err": 0.0, "ulps": 0.0, "degree": 0, "of_bound": 0.0}
+    outside, plain_s, geos = 0, 0.0, []
+    for c0 in range(0, k, K.MM_MAX_K):
+        kw = min(K.MM_MAX_K, k - c0)
+        geo = K.mm_launch_geometry(
+            plan.num_tiles, plan.tile_items, op.values.dtype, dev, kw,
+            alignment(op.values.element_size(), X[:, c0:c0 + kw],
+                      Y[:, c0:c0 + kw]))
+        geos.append(geo)
+        for c in range(c0, c0 + kw, FASTRP_PLAIN_COLS):
+            cols = slice(c, min(c + FASTRP_PLAIN_COLS, c0 + kw))
+            xs = X[:, cols].contiguous()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plain = K.merge_csrmm_plain(
+                op.values, op.col_indices, op.row_end_offsets, xs,
+                op.tile_rows, op.tile_nnz, plan.tile_items,
+                run_tiles=geo.run_tiles)
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t
+            err = (Y[:, cols].double() - plain.double()).abs()
+            del plain
+            scale = M.abs_product(op, xs)
+            outside += int((err > 2 * gamma * scale).sum())
+            ulps = err / (u * scale).clamp_min(tiny)
+            at = int(ulps.argmax())
+            if float(ulps.view(-1)[at]) > worst["ulps"]:
+                worst.update(ulps=float(ulps.view(-1)[at]),
+                             degree=int(degree[at // ulps.shape[1]]))
+            worst["err"] = max(worst["err"], float(err.max()))
+            worst["of_bound"] = max(worst["of_bound"], float(
+                (err / (2 * gamma * scale).clamp_min(tiny)).max()))
+            del err, scale, ulps
+    del Y
+
+    def k1m():
+        return K.merge_csrmm(op.values, op.col_indices, op.row_end_offsets,
+                             X, op.tile_rows, op.tile_nnz, plan.tile_items,
+                             tickets=op.tickets)
+    lib = M.library_csr(op)
+    times = {"k1m": [], "cusparse": []}
+    for name in ("k1m", "cusparse", "cusparse", "k1m"):
+        fn = k1m if name == "k1m" else (lambda: torch.sparse.mm(lib, X))
+        times[name].append(event_ms(fn, iters=3, reps=2, warmup=1))
+    mm_ms = M.fn_ms(lambda: op.mm(X), dev, iters=3)
+    k1m_ms, lib_ms = min(times["k1m"]), min(times["cusparse"])
+    bound_ms = M.spmm_bytes(n, n, nnz, k, 4) / peak_gbps / 1e6
+    geo = geos[0]
+    want = {"merge_tile_mm": -(-k // K.MM_MAX_K), "merge_tile_fused": 0,
+            "merge_tile": 0, "carry_fixup": 0}
+    ok = (nnz == config["num_nonzeros"] and n == config["num_rows"]
+          and launches == want and finite and outside == 0)
+    line = (f"fastrp k1m: {config['name']} {n} rows {nnz} nnz float32 "
+            f"through transition_operator ({plan.describe()}), built in "
+            f"{build_s:.1f} s; op.mm on X [{n}, {k}]: launches {launches} "
+            f"(want {want}); against merge_csrmm_plain at each launch's runs "
+            f"({[g.run_tiles for g in geos]}): max|err| "
+            f"{worst['err']:.3e}, at most {worst['ulps']:.2f} float32 ulps "
+            f"of |P| |X| (row of degree {worst['degree']}), "
+            f"{100 * worst['of_bound']:.4f}% of 2 gamma_n, {outside} entries "
+            f"past it, finite {finite}; op.mm {mm_ms:.3f} ms (CUDA graph), "
+            f"K1m alone {k1m_ms:.3f} ms ({[round(t, 3) for t in times['k1m']]}"
+            f"), cuSPARSE SpMM {lib_ms:.3f} ms "
+            f"({[round(t, 3) for t in times['cusparse']]}), plain "
+            f"{1e3 * plain_s:.0f} ms; bytes bound {bound_ms:.4f} ms at "
+            f"{peak_gbps:.0f} GB/s: K1m at {100 * bound_ms / k1m_ms:.2f}%; "
+            f"ok={ok}")
+    lay = geo.layout
+    entry = {"launches": want["merge_tile_mm"], "max_abs_err": worst["err"],
+             "ulps_of_row_sums": worst["ulps"],
+             "ulps_row_degree": worst["degree"], "ms": k1m_ms,
+             "op_mm_ms": mm_ms, "plain_ms": 1e3 * plain_s,
+             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+             "main_path": True, "k": k,
+             "launch": {"grid": geo.grid, "run_tiles": geo.run_tiles,
+                        "chunk_items": geo.chunk_items,
+                        "threads": geo.threads,
+                        "shared_bytes": geo.shared_bytes,
+                        "layout": [lay.per, lay.vector, lay.lanes],
+                        "batch_rows": geo.batch_rows,
+                        "carveout": geo.carveout}}
+    return ok, line, entry
+
+
 def main() -> int:
     import torch
 
@@ -805,7 +957,7 @@ def main() -> int:
                     f"{g.blocks_per_sm})")
     mm_kernel = []
     for dt in (torch.float32, torch.float64):
-        for k in (4, 8, 32):
+        for k in (4, 8, 32, 64):
             blocks, regs = K.mm_kernel_occupancy(dt, DEFAULT_TILE_ITEMS, k,
                                                  dev)
             g = K.mm_launch_geometry(1, DEFAULT_TILE_ITEMS, dt, dev, k)
@@ -824,7 +976,8 @@ def main() -> int:
     mm_spills = sorted(n for n, (_, s) in mm_ptxas.items() if s)
     mm_named = "; ".join(
         f"<{n}>: {mm_ptxas[n][0]} registers, {mm_ptxas[n][1]} B spilled"
-        for n in ("float,4,1,2", "float,4,1,8") if n in mm_ptxas)
+        for n in ("float,4,1,2", "float,4,1,8", "float,4,1,16")
+        if n in mm_ptxas)
     print(f"build: {len(sources)} sources in {build_s:.2f} s; "
           f"{' | '.join(ptxas) or 'cached'}; merge_tile at "
           f"{DEFAULT_TILE_ITEMS} items: {'; '.join(tile_kernel)}; "
@@ -2727,6 +2880,16 @@ def main() -> int:
             "library_ms": cb["cusparse_ms"], "main_path": True,
             "policy": cb["policy"], "cold_ms": cb["k1_cold_ms"][cb["policy"]]}
 
+    # ------------------------------------------------------------ fastrp k1m
+    # K1m at the FastRP cell's width, on its graph (fastrp_k1m_report)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fastrp_ok, fastrp_line, fastrp_k1m = fastrp_k1m_report(peak_gbps)
+    torch.cuda.empty_cache()
+    print(f"{fastrp_line}; {time.perf_counter() - t_phase:.1f} s")
+    if not fastrp_ok:
+        return 1
+
     # ------------------------------------------------------------ 14 report
     # main_path: false marks the unfused instantiation and the separate
     # fix-up, which op(x) no longer launches (their launches are 0 there)
@@ -2788,6 +2951,10 @@ def main() -> int:
     kernels += [k1m_entry(f"merge_tile_mm@{name}", e, e["k1m_launches"])
                 for name, e in entries.items() if name.startswith("spmm")
                 and name != "spmm_cant_k32"]
+    # the FastRP cell's width: four 64-column launches a product
+    kernels.append({"name": "merge_tile_mm@kron_g500_logn21_sym_k256",
+                    "route": "cuda", "source": mm_src,
+                    "replaces": mm_replaces, **fastrp_k1m})
     kernels.append(
         {"name": "dia_matmat", "route": "cuda",
          "source": "merge_spmv_tpu_torch/csrc/dia_matvec.cu",

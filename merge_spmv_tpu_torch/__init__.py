@@ -10,7 +10,8 @@ The port of merge_spmv_tpu (JAX / Pallas on a TPU), module for module:
 * ops/ — the merge-path search, the plan, the segment-sum oracle
   (csrmv_torch), the CUDA merge kernels and their plain versions
   (csrmv_cuda, csrc/merge_csrmv.cu), the public csrmv/csrmm API and the
-  SpmvOperator; the DIA split operator (dia) with its CUDA kernel
+  SpmvOperator and the transition operator D^-1 A of a graph
+  (operator); the DIA split operator (dia) with its CUDA kernel
   (dia_cuda, csrc/dia_matvec.cu); the banded and hot/cold split operators
   (split), the structure router (suggest) and the tile autotuner
   (autotune),
@@ -33,7 +34,8 @@ from merge_spmv_tpu_torch.formats.csr import CsrMatrix
 from merge_spmv_tpu_torch.formats.stats import GraphStats
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.ops.csrmv import csrmv, csrmm
-from merge_spmv_tpu_torch.ops.operator import SpmvOperator, build_operator
+from merge_spmv_tpu_torch.ops.operator import (SpmvOperator, build_operator,
+                                               transition_operator)
 from merge_spmv_tpu_torch.ops.dia import DiaSpmvOperator, build_dia_operator
 from merge_spmv_tpu_torch.ops.split import (build_hotcold_operator,
                                             build_split_operator,
@@ -51,6 +53,7 @@ __all__ = [
     "SpmvPlan",
     "SpmvOperator",
     "build_operator",
+    "transition_operator",
     "DiaSpmvOperator",
     "build_dia_operator",
     "build_hotcold_operator",

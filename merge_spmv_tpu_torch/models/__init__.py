@@ -2,8 +2,9 @@
 (models/solvers.py)."""
 
 from merge_spmv_tpu_torch.models.solvers import (SolveInfo, bicgstab,
-                                                 conjugate_gradient, jacobi,
-                                                 pagerank, power_iteration)
+                                                 conjugate_gradient, fastrp,
+                                                 jacobi, pagerank,
+                                                 power_iteration)
 
 __all__ = ["conjugate_gradient", "bicgstab", "jacobi", "power_iteration",
-           "pagerank", "SolveInfo"]
+           "pagerank", "fastrp", "SolveInfo"]

@@ -9,6 +9,7 @@ operator, DIA, the split and hot/cold operators.
     x, info = conjugate_gradient(op, b, tol=1e-6)
     lam, v, info = power_iteration(op, v0)
     pr, info = pagerank(build_operator(csr_transposed_stochastic))
+    emb, info = fastrp(transition_operator(adjacency_csr), r)
 
 The JAX package runs each loop as ``lax.while_loop`` on the device.
 PyTorch has no loop that stays on the device, so here:
@@ -57,11 +58,11 @@ from merge_spmv_tpu_torch.utils.device import torch_dtype
 from merge_spmv_tpu_torch.utils.tracing import (CAPTURE, CAPTURE_ENTER,
                                                 CAPTURE_EXIT, CAPTURE_RECORD,
                                                 EAGER_BLOCK, FLAG_READ,
-                                                PROLOGUE, RELEASE, REPLAY,
-                                                SOLVE, span)
+                                                NORMALIZE, PROLOGUE, RELEASE,
+                                                REPLAY, SOLVE, span)
 
 __all__ = ["conjugate_gradient", "bicgstab", "jacobi", "power_iteration",
-           "pagerank", "SolveInfo"]
+           "pagerank", "fastrp", "SolveInfo"]
 
 
 class SolveInfo(NamedTuple):
@@ -359,3 +360,55 @@ def pagerank(op, damping: float = 0.85, tol: float = 1e-8,
     reads, step_ms = _iterate(step, active, pr.device, maxiter, check_every,
                               graph)
     return pr, SolveInfo(k, diff, reads, step_ms)
+
+
+def _normalize_rows(n):
+    """Each row of ``n`` divided by its L2 norm, in place; a row of norm 0
+    stays 0 (no NaN)."""
+    norms = torch.linalg.vector_norm(n, dim=1, keepdim=True)
+    return n.div_(torch.where(norms > 0, norms, 1.0))
+
+
+@_solver
+def fastrp(op, r, iteration_weights=(0.0, 1.0, 1.0)):
+    """FastRP node embeddings (Chen et al., "Fast and Accurate Network
+    Embeddings via Very Sparse Random Projection", CIKM 2019, Algorithm
+    1), as Neo4j Graph Data Science's ``gds.fastRP`` computes them:
+
+        N_1 = P R,  N_i = P n(N_{i-1}),  E = sum_i w_i n(N_i)
+
+    ``op`` applies the transition matrix P = D^-1 A
+    (ops/operator.py::transition_operator), ``r`` [num_cols, d] is the
+    random projection, ``w`` the ``iteration_weights`` (one product
+    each) and n the L2 normalisation of each row (a row of norm 0 stays
+    0).  The normalisation strength is 0, so R is not scaled by degree.
+    Since n takes out any positive scale of a row, n(P X) = n(A X): the
+    D^-1 only keeps each product's rows at the size of a mean.
+
+    Each product is ``op.mm`` (K1m on the card, in blocks of 64 columns);
+    each normalise-and-accumulate runs in place in a span of its own, so
+    a call holds about three [num_rows, d] blocks: the normalised input,
+    the product and E.  Nothing waits for the card: ``info.iterations``
+    is the count of products on the host, ``info.residual`` is 0 (FastRP
+    has none), ``host_reads`` 0 and ``step_ms`` None.
+    """
+    with span(PROLOGUE):
+        weights = [float(w) for w in iteration_weights]
+        if not weights:
+            raise ValueError("iteration_weights must not be empty")
+        x = _vector(op, r)
+        emb = None
+    for w in weights:
+        n = op.mm(x)
+        with span(NORMALIZE):
+            _normalize_rows(n)
+            if w != 0.0:
+                if emb is None:
+                    emb = n * w
+                else:
+                    emb.add_(n, alpha=w)
+        x = n
+    if emb is None:
+        emb = torch.zeros_like(x)
+    return emb, SolveInfo(torch.tensor(len(weights), dtype=torch.int32),
+                          torch.zeros(()), 0, None)

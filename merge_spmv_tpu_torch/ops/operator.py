@@ -10,6 +10,7 @@ kernel directly, once per call (ops/csrmv_cuda.py).
     y = op(x)                                      # y = A @ x
     y = op(x, y_in=y0, alpha=2.0, beta=1.0)
     Y = op.mm(X)                                   # SpMM, one K1m launch
+    P = transition_operator(adjacency_csr)         # D^-1 A, rows by degree
 
 The operator always runs the merge-path decomposition: the CUDA kernels for
 a matrix on the card, their plain PyTorch versions for a matrix on the CPU
@@ -31,10 +32,11 @@ from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.utils.device import resolve_device, torch_dtype
 from merge_spmv_tpu_torch.utils.tracing import (BUILD_PLAN, BUILD_PREPARE,
-                                                OP_CALL, OP_MM, span)
+                                                BUILD_TRANSITION, OP_CALL,
+                                                OP_MM, span)
 
-__all__ = ["SpmvOperator", "build_operator", "assemble_operator",
-           "row_abs_sums"]
+__all__ = ["SpmvOperator", "build_operator", "transition_operator",
+           "assemble_operator", "row_abs_sums", "row_stochastic"]
 
 
 def row_abs_sums(values, row_end_offsets, num_rows: int):
@@ -42,6 +44,21 @@ def row_abs_sums(values, row_end_offsets, num_rows: int):
     rows = row_ids_from_offsets(row_end_offsets, values.shape[0])
     sums = torch.zeros(num_rows, dtype=torch.float64, device=values.device)
     return sums.index_add_(0, rows, values.abs().double())
+
+
+def row_stochastic(values, row_end_offsets, num_rows: int):
+    """The values of D^-1 A in float64: each divided by its row's sum of
+    values, summed in float64.  An empty row stays empty; a row whose
+    values sum to 0 has no D^-1 and raises."""
+    rows = row_ids_from_offsets(row_end_offsets, values.shape[0])
+    values = values.double()
+    sums = torch.zeros(num_rows, dtype=torch.float64, device=values.device)
+    sums.index_add_(0, rows, values)
+    per_nonzero = sums[rows]
+    if bool((per_nonzero == 0).any()):
+        raise ValueError("a row with stored values sums to 0: D^-1 A is "
+                         "undefined there")
+    return values / per_nonzero
 
 
 class SpmvOperator:
@@ -179,9 +196,31 @@ def build_operator(csr, dtype="float32", backend: str = "auto",
     if autotune and tile_items is None:
         from merge_spmv_tpu_torch.ops.autotune import autotune_tile_items
         tile_items = autotune_tile_items(csr, dtype=dtype, device=dev)
+    ignored = {"runtime_skip": runtime_skip, "gather_group": gather_group,
+               "gather_cluster": gather_cluster}
+    return _build(csr, dtype, backend, tile_items, dev, ignored)
+
+
+def transition_operator(csr, dtype="float32", backend: str = "auto",
+                        tile_items: Optional[int] = None,
+                        device=None) -> SpmvOperator:
+    """The operator of the transition matrix P = D^-1 A of the adjacency
+    CSR ``csr``: each stored value divided by its row's sum of values
+    (``row_stochastic``; in float64, then rounded to ``dtype``), so that
+    P @ X is the mean of X over each row's neighbours, weighted by the
+    values.  An empty row (an isolated vertex) stays empty.  Then the
+    plan and prepare of ``build_operator``, with the scaling timed into
+    ``op.setup_s["transition"]`` (inside ``"prepare"``).  ``device`` as
+    in ``build_operator``."""
+    return _build(csr, dtype, backend, tile_items, resolve_device(device),
+                  {}, transition=True)
+
+
+def _build(csr, dtype, backend, tile_items, dev, ignored,
+           transition: bool = False) -> SpmvOperator:
     # setup-cost attribution (gpu_spmv.cu:114-134 reports conversion setup
     # apart from run time): plan = policy; prepare = copy to the device +
-    # the tile search + the row norm
+    # the tile search + the row norm (+ the transition's scaling)
     setup_s = {}
     with span(BUILD_PLAN, into=setup_s, key="plan"):
         plan = make_plan(csr.num_rows, csr.num_cols, csr.num_nonzeros,
@@ -189,10 +228,12 @@ def build_operator(csr, dtype="float32", backend: str = "auto",
                          col_indices=csr.col_indices, device=dev)
     with span(BUILD_PREPARE, into=setup_s, key="prepare"):
         values, rowends, cols = csr.to_device(
-            dtype=torch_dtype(plan.dtype), device=dev)
-        ignored = {"runtime_skip": runtime_skip,
-                   "gather_group": gather_group,
-                   "gather_cluster": gather_cluster}
+            dtype=torch.float64 if transition else torch_dtype(plan.dtype),
+            device=dev)
+        if transition:
+            with span(BUILD_TRANSITION, into=setup_s, key="transition"):
+                values = row_stochastic(values, rowends, plan.num_rows).to(
+                    torch_dtype(plan.dtype))
         op = assemble_operator(plan, values, rowends, cols, ignored=ignored)
     op.setup_s = {k: round(v, 3) for k, v in setup_s.items()}
     return op

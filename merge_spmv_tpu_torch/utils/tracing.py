@@ -23,8 +23,8 @@ import torch
 
 __all__ = ["span", "SPANS", "SOLVE", "PROLOGUE", "EAGER_BLOCK", "CAPTURE",
            "CAPTURE_ENTER", "CAPTURE_RECORD", "CAPTURE_EXIT", "REPLAY",
-           "FLAG_READ", "RELEASE", "OP_CALL", "OP_MM", "BUILD_PLAN",
-           "BUILD_PREPARE"]
+           "FLAG_READ", "RELEASE", "NORMALIZE", "OP_CALL", "OP_MM",
+           "BUILD_PLAN", "BUILD_PREPARE", "BUILD_TRANSITION"]
 
 SOLVE = "merge_spmv.solve"
 PROLOGUE = "merge_spmv.solve.prologue"
@@ -36,10 +36,12 @@ CAPTURE_EXIT = "merge_spmv.solve.capture.exit"
 REPLAY = "merge_spmv.solve.replay"
 FLAG_READ = "merge_spmv.solve.flag_read"
 RELEASE = "merge_spmv.solve.release"
+NORMALIZE = "merge_spmv.solve.normalize"
 OP_CALL = "merge_spmv.op.call"
 OP_MM = "merge_spmv.op.mm"
 BUILD_PLAN = "merge_spmv.build.plan"
 BUILD_PREPARE = "merge_spmv.build.prepare"
+BUILD_TRANSITION = "merge_spmv.build.transition"
 
 SPANS = {
     SOLVE: "a solver call (models/solvers.py), entry to return",
@@ -56,11 +58,17 @@ SPANS = {
                "for the card",
     RELEASE: "after the last flag read: the replays' timing events read and "
              "the captured graph destroyed with its memory pool",
+    NORMALIZE: "FastRP's dense work after a product: the rows of N_i "
+               "L2-normalised in place and added, weighted, into the "
+               "embedding",
     OP_CALL: "SpmvOperator.__call__: y = alpha A x + beta y_in, one launch",
     OP_MM: "SpmvOperator.mm: Y = alpha A X + beta Y_in",
     BUILD_PLAN: "build_operator's make_plan (op.setup_s['plan'])",
     BUILD_PREPARE: "build_operator's copy to the device, tile search and "
                    "row norm (op.setup_s['prepare'])",
+    BUILD_TRANSITION: "transition_operator's row sums and scaling of the "
+                      "values to D^-1 A, inside BUILD_PREPARE "
+                      "(op.setup_s['transition'])",
 }
 
 _profiler_enabled = torch.autograd._profiler_enabled
