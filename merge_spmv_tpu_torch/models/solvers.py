@@ -19,8 +19,9 @@ PyTorch has no loop that stays on the device, so here:
   is false the state stops changing, bit for bit;
 * the host reads that flag once per block of ``check_every`` iterations;
 * on the card the first block runs eagerly (it warms the kernels'
-  libraries and the allocator), the second is captured as one CUDA graph,
-  and every later block replays it.  No iteration waits on the host.
+  libraries and the allocator); while the card runs it, the host records
+  one block as a CUDA graph, and every later block replays it.  No
+  iteration waits on the host.
 
 The iteration count and the result are therefore those of an
 iteration-by-iteration loop, whatever ``check_every`` is.  Vector updates
@@ -49,6 +50,8 @@ from __future__ import annotations
 
 import functools
 import sys
+import threading
+import warnings
 from typing import NamedTuple, Optional
 
 import torch
@@ -62,7 +65,13 @@ from merge_spmv_tpu_torch.utils.tracing import (CAPTURE, CAPTURE_ENTER,
                                                 REPLAY, SOLVE, span)
 
 __all__ = ["conjugate_gradient", "bicgstab", "jacobi", "power_iteration",
-           "pagerank", "fastrp", "SolveInfo"]
+           "pagerank", "fastrp", "SolveInfo", "CAPTURES"]
+
+# captures of a block as a CUDA graph: drawn from the device's kept pool
+# ("pooled") or through torch.cuda.graph's flush ("fresh", the pool being
+# held by another solve); "hidden": ended while the card still ran the
+# work before them
+CAPTURES = {"pooled": 0, "fresh": 0, "hidden": 0}
 
 
 class SolveInfo(NamedTuple):
@@ -95,24 +104,107 @@ def _solver(solve):
     return spanned
 
 
-def _capture(block):
-    """One CUDA graph of ``block()``.  torch.cuda.graph's own entry and
-    exit, called in spans of their own around the recording."""
-    captured = torch.cuda.CUDAGraph()
-    capture = torch.cuda.graph(captured)
-    with span(CAPTURE):
-        with span(CAPTURE_ENTER):
-            capture.__enter__()
+class _Pool:
+    """One device's kept capture pool: a side stream, a graph pool id, an
+    empty graph that holds the id's device and pinned-host pools open
+    between the solves' graphs (destroying the last graph of a pool
+    closes it, and torch refuses to capture into a closed pool again),
+    and a lock that one solve holds from its capture to its graph's
+    release, so no two live graphs share the pool's blocks."""
+
+    def __init__(self, device: torch.device):
+        with torch.cuda.device(device):
+            self.stream = torch.cuda.Stream()
+            self.id = torch.cuda.graph_pool_handle()
+            self.keeper = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self.stream), warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                self.keeper.capture_begin(pool=self.id,
+                                          capture_error_mode="thread_local")
+                self.keeper.capture_end()
+        self.lock = threading.Lock()
+
+
+_POOLS: dict = {}
+# one capture at a time in the process (a pool's keeper included):
+# torch.cuda.graph's entry synchronises the card and flushes the caches,
+# which a capture under way on another thread must not meet
+_CAPTURING = threading.Lock()
+
+
+def _pool(device: torch.device) -> _Pool:
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    with _CAPTURING:
+        if index not in _POOLS:
+            _POOLS[index] = _Pool(torch.device("cuda", index))
+        return _POOLS[index]
+
+
+class _Pooled:
+    """torch.cuda.graph's entry and exit without its synchronise and
+    cache flush: the pool's side stream, then ``capture_begin`` into the
+    kept pool."""
+
+    def __init__(self, graph, pool: _Pool):
+        self.graph, self.pool = graph, pool
+
+    def __enter__(self):
+        self.stream = torch.cuda.stream(self.pool.stream)
+        self.stream.__enter__()
         try:
-            with span(CAPTURE_RECORD):
-                block()
+            self.graph.capture_begin(pool=self.pool.id,
+                                     capture_error_mode="thread_local")
         except BaseException:
-            with span(CAPTURE_EXIT):
-                capture.__exit__(*sys.exc_info())
+            self.stream.__exit__(*sys.exc_info())
             raise
-        with span(CAPTURE_EXIT):
-            capture.__exit__(None, None, None)
-    return captured
+
+    def __exit__(self, *exc):
+        try:
+            self.graph.capture_end()
+        finally:
+            self.stream.__exit__(*exc)
+
+
+def _capture(block, device: torch.device):
+    """One CUDA graph of ``block()``, its entry, recording and exit in
+    spans of their own.  Returns (graph, pool): the device's kept pool
+    when the graph drew from it, which the caller holds until the graph
+    is destroyed and then unlocks; None when another solve held the pool
+    and the capture took torch.cuda.graph's own entry (a synchronise and
+    the allocator's flush) and a fresh pool.  Counts the capture in
+    ``CAPTURES``: pooled or fresh, and hidden when the card was still
+    running the work enqueued before the capture as it ended."""
+    captured = torch.cuda.CUDAGraph()
+    pool = _pool(device)
+    if not pool.lock.acquire(blocking=False):
+        pool = None
+    try:
+        with span(CAPTURE), _CAPTURING:
+            with span(CAPTURE_ENTER):
+                before = torch.cuda.Event()
+                before.record()
+                capture = (torch.cuda.graph(captured,
+                                            capture_error_mode="thread_local")
+                           if pool is None else _Pooled(captured, pool))
+                capture.__enter__()
+            try:
+                with span(CAPTURE_RECORD):
+                    block()
+            except BaseException:
+                with span(CAPTURE_EXIT):
+                    capture.__exit__(*sys.exc_info())
+                raise
+            with span(CAPTURE_EXIT):
+                capture.__exit__(None, None, None)
+            CAPTURES["fresh" if pool is None else "pooled"] += 1
+            if not before.query():
+                CAPTURES["hidden"] += 1
+    except BaseException:
+        if pool is not None:
+            pool.lock.release()
+        raise
+    return captured, pool
 
 
 def _iterate(step, active, device, maxiter: int, check_every: int,
@@ -120,8 +212,8 @@ def _iterate(step, active, device, maxiter: int, check_every: int,
     """Run ``step()`` (one masked iteration, in place) in blocks of
     ``check_every`` until ``active()`` reads false on the host, once per
     block.  ``graph`` (default: on the card) replays the blocks after the
-    first as one captured CUDA graph.  Returns (host reads, device ms per
-    replayed iteration or None)."""
+    first as one CUDA graph, recorded while the card runs the first.
+    Returns (host reads, device ms per replayed iteration or None)."""
     if check_every < 1:
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     if graph is None:
@@ -136,34 +228,39 @@ def _iterate(step, active, device, maxiter: int, check_every: int,
     # the step masks itself once k reaches maxiter, so this many blocks
     # always end inactive
     max_blocks = -(-max(int(maxiter), 0) // check_every)
-    captured, events, reads = None, [], 0
-    for b in range(max_blocks):
-        if b == 0 or not graph:
-            with span(EAGER_BLOCK):
-                block()
-        else:
-            if captured is None:
-                captured = _capture(block)
-            with span(REPLAY):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                captured.replay()
-                end.record()
-            events.append((start, end))
-        reads += 1
-        with span(FLAG_READ):
-            done = not bool(active())
-        if done:
-            break
-    with span(RELEASE):
-        step_ms = None
-        if events:
-            step_ms = (sum(s.elapsed_time(e) for s, e in events)
-                       / (len(events) * check_every))
-        # the graph's destructor (its exec and private pool, ~1 ms on the
-        # card) runs here, inside the span, not at the return
-        del captured, events
+    captured, pool, events, reads = None, None, [], 0
+    try:
+        for b in range(max_blocks):
+            if b == 0 or not graph:
+                with span(EAGER_BLOCK):
+                    block()
+                if graph and b == 0 and max_blocks >= 2:
+                    captured, pool = _capture(block, device)
+            else:
+                with span(REPLAY):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    captured.replay()
+                    end.record()
+                events.append((start, end))
+            reads += 1
+            with span(FLAG_READ):
+                done = not bool(active())
+            if done:
+                break
+        with span(RELEASE):
+            step_ms = None
+            if events:
+                step_ms = (sum(s.elapsed_time(e) for s, e in events)
+                           / (len(events) * check_every))
+            # the graph's destructor (its exec) runs here, inside the span
+            captured = events = None
+    finally:
+        # on an error too, the graph goes before its pool serves another
+        captured = None
+        if pool is not None:
+            pool.lock.release()
     return reads, step_ms
 
 

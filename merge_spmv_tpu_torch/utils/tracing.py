@@ -48,16 +48,20 @@ SPANS = {
     PROLOGUE: "the solver's set-up before its loop: the first residual, "
               "the tolerance, the state",
     EAGER_BLOCK: "one block of check_every masked steps run eagerly",
-    CAPTURE: "the one CUDA graph capture of a block, its three parts below",
-    CAPTURE_ENTER: "torch.cuda.graph's entry: synchronise, empty the "
-                   "device and host caches, capture_begin",
+    CAPTURE: "the one CUDA graph capture of a block, after the first "
+             "block's enqueue and before its flag read; its three parts "
+             "below",
+    CAPTURE_ENTER: "an event after the first block, the side stream and "
+                   "capture_begin into the device's kept pool (when another "
+                   "solve holds it, torch.cuda.graph's entry: synchronise, "
+                   "empty the device and host caches, capture_begin)",
     CAPTURE_RECORD: "the host enqueueing one block under capture",
     CAPTURE_EXIT: "capture_end and the graph's instantiation",
     REPLAY: "one replay of the captured block, with its two timing events",
     FLAG_READ: "one host read of the solver's active flag: the host waits "
                "for the card",
     RELEASE: "after the last flag read: the replays' timing events read and "
-             "the captured graph destroyed with its memory pool",
+             "the captured graph destroyed, its blocks left in the pool",
     NORMALIZE: "FastRP's dense work after a product: the rows of N_i "
                "L2-normalised in place and added, weighted, into the "
                "embedding",

@@ -1249,6 +1249,185 @@ def test_graphed_cg_spans_under_the_profiler(card):
         assert capture[1] <= h[1] and h[2] <= capture[2]
 
 
+def _lap_case(width, name, seed=0):
+    """(operator, b) of the width x width Laplacian in dtype ``name``."""
+    lap = _laplacian(width).astype(np.dtype(name))
+    b = np.random.RandomState(seed).uniform(-1, 1, lap.num_rows).astype(name)
+    return build_operator(lap, dtype=name), b
+
+
+def _same_bits(runs):
+    (x0, i0), rest = runs[0], runs[1:]
+    for x, info in rest:
+        assert int(info.iterations) == int(i0.iterations)
+        assert torch.equal(x, x0) and torch.equal(info.residual, i0.residual)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("width", [30, 1061])
+def test_pooled_capture_keeps_the_bits(card, width, dtype):
+    """CG with its graph drawn from the kept pool and recorded while
+    block 0 runs: x and the residual bit-equal to the eager loop and to
+    the previous call on the same b, at a small stencil and at HPCG-104's
+    1.12M rows; every capture pooled, and the pool free after each
+    call."""
+    from merge_spmv_tpu_torch.models import solvers as S
+    op, b = _lap_case(width, dtype)
+    before = dict(S.CAPTURES)
+    runs = [S.conjugate_gradient(op, b, tol=0.0, maxiter=50, check_every=c,
+                                 graph=g)
+            for c, g in ((16, False), (16, True), (16, True), (7, True))]
+    _same_bits(runs)
+    assert int(runs[0][1].iterations) == 50
+    assert [r[1].host_reads for r in runs] == [4, 4, 4, 8]
+    assert S.CAPTURES["pooled"] - before["pooled"] == 3
+    assert S.CAPTURES["fresh"] == before["fresh"]
+    assert not S._pool(card).lock.locked()
+
+
+def test_pooled_capture_keeps_reserved_memory_flat(card):
+    """Warm solves reserve no more device memory: the graphs' blocks go
+    back to the kept pool, and nothing flushes the caches."""
+    from merge_spmv_tpu_torch.models.solvers import conjugate_gradient
+    op, b = _lap_case(200, "float64")
+
+    def solves(n):
+        for _ in range(n):
+            conjugate_gradient(op, b, tol=0.0, maxiter=50, check_every=16)
+        torch.cuda.synchronize()
+        return torch.cuda.memory_reserved(card)
+
+    after_10 = solves(10)
+    assert solves(190) == after_10
+
+
+def test_warm_pooled_solve_calls_no_allocator(card):
+    """A profiled warm CG solve holds no cudaMalloc, cudaFree or
+    cudaFreeHost: the capture no longer flushes the device and host
+    caches, so nothing is released or allocated again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from merge_spmv_tpu_torch.models.solvers import conjugate_gradient
+    op, b = _lap_case(200, "float64")
+    for _ in range(3):
+        conjugate_gradient(op, b, tol=0.0, maxiter=50, check_every=16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, info = conjugate_gradient(op, b, tol=0.0, maxiter=50,
+                                     check_every=16)
+        torch.cuda.synchronize()
+    assert info.host_reads == 4
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "cudaGraphLaunch" in names
+    assert not names & {"cudaMalloc", "cudaFree", "cudaFreeHost"}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_solve_ending_in_block_0_reads_once(card, dtype):
+    """A solve that converges inside block 0 reads its flag once and
+    returns the eager loop's bits; the graph it recorded is never
+    replayed and is released with the pool."""
+    from merge_spmv_tpu_torch.models import solvers as S
+    op, b = _lap_case(30, dtype)
+    before = dict(S.CAPTURES)
+    runs = [S.conjugate_gradient(op, b, tol=0.5, maxiter=500,
+                                 check_every=16, graph=g)
+            for g in (False, True)]
+    _same_bits(runs)
+    assert 0 < int(runs[0][1].iterations) < 16
+    assert [r[1].host_reads for r in runs] == [1, 1]
+    assert runs[1][1].step_ms is None
+    assert S.CAPTURES["pooled"] - before["pooled"] == 1
+    assert not S._pool(card).lock.locked()
+
+
+def test_capture_falls_back_while_another_solve_holds_the_pool(card):
+    """With the pool held, a solve captures through torch.cuda.graph's
+    flush (fresh) and keeps the bits; two threads solving at once on
+    their own operators both keep the bits of solving alone."""
+    import threading
+
+    from merge_spmv_tpu_torch.models import solvers as S
+    cases = [_lap_case(w, "float64", seed=w) for w in (60, 90)]
+
+    def solve(case):
+        op, b = case
+        return S.conjugate_gradient(op, b, tol=0.0, maxiter=50,
+                                    check_every=16)
+
+    alone = [solve(c) for c in cases]
+    pool = S._pool(card)
+    before = dict(S.CAPTURES)
+    with pool.lock:
+        held = solve(cases[0])
+    assert S.CAPTURES["fresh"] - before["fresh"] == 1
+    _same_bits([alone[0], held])
+
+    rounds, got, errors = 20, [[], []], []
+    start = threading.Barrier(2)
+
+    def worker(i):
+        try:
+            start.wait(timeout=60)
+            for _ in range(rounds):
+                got[i].append(solve(cases[i]))
+        except BaseException as e:   # raised again in the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    before = dict(S.CAPTURES)
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+    for i in (0, 1):
+        assert len(got[i]) == rounds
+        _same_bits([alone[i]] + got[i])
+    counted = {k: S.CAPTURES[k] - before[k] for k in before}
+    assert counted["pooled"] + counted["fresh"] == 2 * rounds
+    assert not pool.lock.locked()
+
+
+@pytest.mark.parametrize("kind", ["bicgstab", "jacobi", "power", "pagerank"])
+def test_other_solvers_keep_the_eager_bits(card, kind):
+    """BiCGSTAB, Jacobi, power iteration and PageRank with the pooled
+    capture give the bits of their eager loops."""
+    from merge_spmv_tpu_torch.models import solvers as S
+    lap = _laplacian(40)
+    op = build_operator(lap)
+    b = np.random.RandomState(4).uniform(-1, 1, lap.num_rows).astype(
+        np.float32)
+    diag = np.zeros(lap.num_rows, np.float32)
+    rows = lap.row_ids()
+    on = rows == lap.col_indices
+    diag[rows[on]] = lap.values[on]
+    solve = {
+        "bicgstab": lambda g: S.bicgstab(op, b, tol=1e-6, maxiter=300,
+                                         check_every=8, graph=g),
+        "jacobi": lambda g: S.jacobi(op, diag, b, tol=1e-6, maxiter=300,
+                                     check_every=8, graph=g),
+        "power": lambda g: S.power_iteration(op, tol=1e-7, maxiter=300,
+                                             check_every=8, graph=g),
+        "pagerank": lambda g: S.pagerank(
+            build_operator(_ring_pagerank(3000)), tol=1e-7, maxiter=300,
+            check_every=8, graph=g),
+    }[kind]
+    before = dict(S.CAPTURES)
+    eager, graphed = solve(False), solve(True)
+    assert S.CAPTURES["pooled"] - before["pooled"] == 1
+    assert len(eager) == len(graphed)
+    for a, g in zip(eager[:-1], graphed[:-1]):
+        assert torch.equal(a, g)
+    (ie, ig) = eager[-1], graphed[-1]
+    assert int(ie.iterations) == int(ig.iterations) > 8
+    assert torch.equal(ie.residual, ig.residual)
+    assert ie.host_reads == ig.host_reads > 1
+
+
 # ------------------------------------------------------------ multi-process
 
 def test_two_process_gloo_worker_on_the_card(card):

@@ -5,9 +5,14 @@ holding one prologue, an eager block and a flag read per host read, one
 release, and no capture when ``graph=False``; ``SpmvOperator`` marks each call.  With
 no profiler the spans make no call into the profiler (its
 ``record_function`` patched to raise) and the results keep their bits.
-The capture's spans are held here over a stand-in for torch.cuda's graph
-classes; on the card, tests/test_torch_cuda.py holds the real capture.
+The capture's spans, its kept pool and its fallback to torch.cuda.graph's
+flush, and its place between block 0 and the first flag read, are held
+here over stand-ins for torch.cuda's graph and event classes; on the
+card, tests/test_torch_cuda.py holds the real capture.
 """
+
+import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -184,39 +189,93 @@ def test_operator_mm_span_holds_its_column_calls(method, calls):
     assert torch.equal(Y, op.mm(X, method=method))
 
 
-class _Graphs:
-    """A stand-in for torch.cuda.CUDAGraph and torch.cuda.graph that logs
-    what the capture calls."""
+CUDA = torch.device("cuda")
+POOL_ID = (0, 7)
+SIDE = object()         # the pool's side stream
+BEGIN = ["side stream", ("begin", POOL_ID, "thread_local")]
+END = ["end", "back"]
 
-    def __init__(self):
+
+class _Graphs:
+    """Stand-ins for torch.cuda's CUDAGraph, graph (the flushing entry)
+    and Event, and for the solvers' kept pool, that log what the capture
+    calls.  ``busy``: whether an event's query finds the card still
+    running the work before it."""
+
+    def __init__(self, monkeypatch, busy=False, refuse_begin=False):
         self.log = []
         log = self.log
 
         class Graph:
+            def capture_begin(self, pool=None, capture_error_mode="global"):
+                if refuse_begin:
+                    raise RuntimeError("capture_begin refused")
+                log.append(("begin", pool, capture_error_mode))
+
+            def capture_end(self):
+                log.append("end")
+
             def replay(self):
                 log.append("replay")
 
         class Capture:
-            def __init__(self, graph):
+            def __init__(self, graph, capture_error_mode="global"):
                 self.graph = graph
+                self.mode = capture_error_mode
 
             def __enter__(self):
-                log.append("enter")
+                log.append(("flush and begin", self.mode))
 
             def __exit__(self, *exc):
                 log.append(("exit", exc[0]))
 
-        self.Graph, self.Capture = Graph, Capture
+        class Event:
+            def __init__(self, enable_timing=False):
+                pass
+
+            def record(self):
+                pass
+
+            def query(self):
+                return not busy
+
+            def elapsed_time(self, end):
+                return 1.0
+
+        class Stream:
+            def __init__(self, stream):
+                assert stream is SIDE
+
+            def __enter__(self):
+                log.append("side stream")
+
+            def __exit__(self, *exc):
+                log.append("back")
+
+        self.pool = SimpleNamespace(stream=SIDE, id=POOL_ID,
+                                    lock=threading.Lock())
+        monkeypatch.setattr(torch.cuda, "stream", Stream)
+        monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+        monkeypatch.setattr(torch.cuda, "graph", Capture)
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(S, "_pool", lambda device: self.pool)
+        self.Graph = Graph
+
+
+def _counted(before):
+    return {k: S.CAPTURES[k] - before[k] for k in before}
 
 
 def test_capture_spans_its_entry_recording_and_exit(monkeypatch):
-    fake = _Graphs()
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", fake.Graph)
-    monkeypatch.setattr(torch.cuda, "graph", fake.Capture)
+    fake = _Graphs(monkeypatch)
+    before = dict(S.CAPTURES)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        graph = S._capture(lambda: fake.log.append("block"))
-    assert isinstance(graph, fake.Graph)
-    assert fake.log == ["enter", "block", ("exit", None)]
+        graph, pool = S._capture(lambda: fake.log.append("block"), CUDA)
+    assert isinstance(graph, fake.Graph) and pool is fake.pool
+    assert pool.lock.locked()          # held until the graph's release
+    pool.lock.release()
+    assert fake.log == BEGIN + ["block"] + END
+    assert _counted(before) == {"pooled": 1, "fresh": 0, "hidden": 0}
     spans = _spans(prof)
     (capture,) = _named(spans, T.CAPTURE)
     parts = [_named(spans, n) for n in (T.CAPTURE_ENTER, T.CAPTURE_RECORD,
@@ -226,14 +285,98 @@ def test_capture_spans_its_entry_recording_and_exit(monkeypatch):
         parts[1][0][2] <= parts[2][0][1]
 
 
-def test_capture_exits_with_the_error_and_raises_it(monkeypatch):
-    fake = _Graphs()
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", fake.Graph)
-    monkeypatch.setattr(torch.cuda, "graph", fake.Capture)
+@pytest.mark.parametrize("pooled", [True, False])
+def test_capture_exits_with_the_error_and_raises_it(monkeypatch, pooled):
+    """An error in the recording still ends the capture (capture_end, or
+    torch.cuda.graph's exit given the error), is raised, counts no
+    capture, and leaves the pool as it found it."""
+    fake = _Graphs(monkeypatch)
+    if not pooled:
+        fake.pool.lock.acquire()       # another solve holds the pool
+    before = dict(S.CAPTURES)
 
     def block():
         raise RuntimeError("op not allowed under capture")
 
     with pytest.raises(RuntimeError, match="under capture"):
-        S._capture(block)
-    assert fake.log == ["enter", ("exit", RuntimeError)]
+        S._capture(block, CUDA)
+    assert fake.log == (BEGIN + END if pooled else
+                        [("flush and begin", "thread_local"),
+                         ("exit", RuntimeError)])
+    assert fake.pool.lock.locked() is not pooled
+    assert _counted(before) == {"pooled": 0, "fresh": 0, "hidden": 0}
+
+
+@pytest.mark.parametrize("busy", [False, True])
+def test_capture_falls_back_to_the_flush_while_the_pool_is_held(monkeypatch,
+                                                               busy):
+    """With the pool held by another solve the capture takes
+    torch.cuda.graph's flushing entry, counts as fresh, and leaves the
+    pool to its holder; a pooled capture that ends while the card is
+    still busy counts as hidden."""
+    fake = _Graphs(monkeypatch, busy=busy)
+    fake.pool.lock.acquire()
+    before = dict(S.CAPTURES)
+    graph, pool = S._capture(lambda: fake.log.append("block"), CUDA)
+    assert pool is None and fake.pool.lock.locked()
+    assert fake.log == [("flush and begin", "thread_local"), "block",
+                        ("exit", None)]
+    fake.pool.lock.release()
+    graph, pool = S._capture(lambda: fake.log.append("block"), CUDA)
+    assert pool is fake.pool
+    pool.lock.release()
+    assert _counted(before) == {"pooled": 1, "fresh": 1,
+                                "hidden": 2 if busy else 0}
+
+
+@pytest.mark.parametrize("maxiter,reads_true,want", [
+    # three blocks: block 0, the capture, then a replay a later block
+    (12, 9, ["step"] * 4 + BEGIN + ["step"] * 4 + END
+     + ["read", "replay", "read", "replay", "read"]),
+    # ends in block 0: the graph is recorded and never replayed
+    (12, 0, ["step"] * 4 + BEGIN + ["step"] * 4 + END + ["read"]),
+    # one block: nothing recorded
+    (4, 9, ["step"] * 4 + ["read"]),
+])
+def test_iterate_records_the_graph_while_block_0_runs(monkeypatch, maxiter,
+                                                      reads_true, want):
+    """Block 0 is enqueued, then the graph is recorded, then the first
+    flag read; the replays follow their reads as before, and the pool is
+    free again at the return."""
+    fake = _Graphs(monkeypatch)
+    reads = []
+
+    def active():
+        reads.append(1)
+        fake.log.append("read")
+        return torch.tensor(len(reads) <= reads_true)
+
+    got = S._iterate(lambda: fake.log.append("step"), active, CUDA,
+                     maxiter, 4, graph=True)
+    assert fake.log == want
+    replays = want.count("replay")
+    assert got == (len(reads), 0.25 if replays else None)
+    assert not fake.pool.lock.locked()
+
+
+def test_iterate_frees_the_pool_when_a_read_raises(monkeypatch):
+    fake = _Graphs(monkeypatch)
+
+    def active():
+        raise RuntimeError("the card was lost")
+
+    with pytest.raises(RuntimeError, match="card was lost"):
+        S._iterate(lambda: None, active, CUDA, 8, 4, graph=True)
+    assert not fake.pool.lock.locked()
+
+
+def test_capture_refused_at_its_start_leaves_stream_and_pool(monkeypatch):
+    """capture_begin raising: the side stream is left again, the pool
+    unlocked, nothing counted, and the error raised."""
+    fake = _Graphs(monkeypatch, refuse_begin=True)
+    before = dict(S.CAPTURES)
+    with pytest.raises(RuntimeError, match="capture_begin refused"):
+        S._capture(lambda: fake.log.append("block"), CUDA)
+    assert fake.log == ["side stream", "back"]
+    assert not fake.pool.lock.locked()
+    assert _counted(before) == {"pooled": 0, "fresh": 0, "hidden": 0}
