@@ -229,7 +229,6 @@ import contextlib
 import io
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -915,12 +914,12 @@ def main() -> int:
     from merge_spmv_tpu_torch.tools import gather_rate as GR
     from merge_spmv_tpu_torch.tools import make_corpus as MC
     from merge_spmv_tpu_torch.tools import make_corpus_stats as MS
-    from merge_spmv_tpu_torch.tools import mm_ablation as MMA
     from merge_spmv_tpu_torch.tools import sm_ceiling as P
     from merge_spmv_tpu_torch.tools import split_compact_bench as SCB
     from merge_spmv_tpu_torch.utils.compare import compare_results
     from merge_spmv_tpu_torch.utils.cuda_build import (build_library,
                                                        device_context,
+                                                       ptxas_report,
                                                        raw_stream)
     from merge_spmv_tpu_torch.utils.device import (PEAK_FP32_GFLOPS,
                                                    device_info,
@@ -968,14 +967,16 @@ def main() -> int:
                 f"{g.carveout}%, {blocks} blocks per SM (launched: "
                 f"{g.blocks_per_sm})")
     # K1's instantiations (tile kernel and fix-up): any spilled bytes
-    k1_spills = [ln.strip() for ln in logs[0].splitlines()
-                 if "bytes spill" in ln and any(
-                     int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
-    # K1m's instantiations by -Xptxas=-v: registers and spilled bytes
-    mm_ptxas = MMA.ptxas_report(logs[5])
-    mm_spills = sorted(n for n, (_, s) in mm_ptxas.items() if s)
+    k1_spills = sorted(n for n, r in ptxas_report(logs[0]).items()
+                       if r.spill_stores or r.spill_loads)
+    # K1m's instantiations by -Xptxas=-v: registers and spill stores
+    mm_ptxas = {n[len("merge_tile_mm_kernel<"):-1]: r
+                for n, r in ptxas_report(logs[5]).items()
+                if n.startswith("merge_tile_mm_kernel<")}
+    mm_spills = sorted(n for n, r in mm_ptxas.items() if r.spill_stores)
     mm_named = "; ".join(
-        f"<{n}>: {mm_ptxas[n][0]} registers, {mm_ptxas[n][1]} B spilled"
+        f"<{n}>: {mm_ptxas[n].registers} registers, "
+        f"{mm_ptxas[n].spill_stores} B spilled"
         for n in ("float,4,1,2", "float,4,1,8", "float,4,1,16")
         if n in mm_ptxas)
     print(f"build: {len(sources)} sources in {build_s:.2f} s; "

@@ -16,15 +16,18 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_library",
-           "load_library", "on_cpu", "check_operand", "raise_on_launch",
-           "device_context", "raw_stream", "row_major", "alignment"]
+           "ptxas_report", "load_library", "on_cpu", "check_operand",
+           "raise_on_launch", "device_context", "raw_stream", "row_major",
+           "alignment"]
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -66,6 +69,60 @@ def build_library(name: str) -> str:
         raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
     os.replace(tmp, out)   # a concurrent loader never sees half a file
     return proc.stdout
+
+
+_TEMPLATE_ARG = re.compile(r"L[a-z](\d+)E|([fd])")
+
+
+def _readable(mangled: str) -> str:
+    """``name<args>`` of a kernel's mangled name, its template arguments
+    float, double or literals (a bool as 0 / 1): ``merge_tile_mm_kernel
+    <float,4,1,2>``; an ``extern "C"`` name, or one with other arguments,
+    as given."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    i, name = 3 if mangled.startswith("_ZN") else 2, None
+    while (m := re.match(r"\d+", mangled[i:])) is not None:
+        start = i + m.end()
+        i = start + int(m[0])
+        name = mangled[start:i]   # the last of the nested names
+    if name is None or not mangled.startswith("I", i):
+        return name or mangled
+    args, i = [], i + 1
+    while not mangled.startswith("E", i):
+        m = _TEMPLATE_ARG.match(mangled, i)
+        if m is None:
+            return mangled
+        args.append({"f": "float", "d": "double"}.get(m[2], m[1]))
+        i = m.end()
+    return f"{name}<{','.join(args)}>"
+
+
+class PtxasEntry(NamedTuple):
+    registers: int | None   # None for a function that is not an entry
+    spill_stores: int       # bytes
+    spill_loads: int        # bytes
+
+
+def ptxas_report(log: str) -> dict:
+    """{readable name: PtxasEntry} of every function in nvcc's
+    ``-Xptxas=-v`` output, as ``build_library`` returns it."""
+    out, name, entry = {}, None, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = _readable(ln.split("'")[1])
+        elif "Function properties for" in ln:
+            name = _readable(ln.split("Function properties for")[1].strip())
+        elif "bytes spill stores" in ln and name is not None:
+            stores, loads = (int(n) for n in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", ln))
+            out[name] = PtxasEntry(None, stores, loads)
+        elif entry is not None and (
+                m := re.search(r"Used (\d+) registers", ln)) is not None:
+            out[entry] = out.get(entry, PtxasEntry(None, 0, 0))._replace(
+                registers=int(m[1]))
+            entry = None
+    return out
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -7,6 +7,8 @@ overloads: the errors nvcc would report before it reaches PTX (a name
 shadowed in a kernel, a wrong argument type).  It checks nothing about
 the PTX, the device code's behaviour or sm_90a; those need the card
 (tests/test_torch_cuda.py).  Skips where g++ is absent.
+Also the parser of nvcc's ``-Xptxas=-v`` report behind chip_smoke.py's
+spill gates (utils/cuda_build.ptxas_report), on excerpts of that report.
 """
 
 import re
@@ -15,7 +17,7 @@ import subprocess
 
 import pytest
 
-from merge_spmv_tpu_torch.utils.cuda_build import CSRC_DIR
+from merge_spmv_tpu_torch.utils.cuda_build import CSRC_DIR, ptxas_report
 
 SOURCES = sorted(p.name for p in CSRC_DIR.glob("*.cu"))
 
@@ -223,3 +225,42 @@ def test_k1m_inline_ptx_is_well_formed():
             "mbarrier.try_wait.parity.shared::cta.b64",
             "fence.mbarrier_init.release.cluster",
             "atom.acq_rel.gpu.inc.u32"} <= seen
+
+
+# nvcc's -Xptxas=-v report for sm_90a, cut to one instantiation
+K1_PTXAS = """\
+ptxas info    : 4 bytes gmem
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__13b70a82_14_merge_csrmv_cu_f9dd90f217merge_tile_kernelIdLb1ELi1EEEvPKT_PKiS5_S3_S3_S5_S5_S1_S1_PS1_PiS6_iiiiPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__13b70a82_14_merge_csrmv_cu_f9dd90f217merge_tile_kernelIdLb1ELi1EEEvPKT_PKiS5_S3_S3_S5_S5_S1_S1_PS1_PiS6_iiiiPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 82 registers, used 1 barriers
+ptxas info    : Compile time = 183.400 ms
+"""
+
+# two instantiations; the second's spill line edited to nonzero bytes, as
+# no committed instantiation spills
+K1M_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__94afda1c_14_merge_csrmm_cu_90cc62aa20merge_tile_mm_kernelIfLi4ELb1ELi16EEEvPKT_PKiS5_S3_xS3_xS5_S5_S1_S1_PS1_xPiS6_iiiiiiiPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__94afda1c_14_merge_csrmm_cu_90cc62aa20merge_tile_mm_kernelIfLi4ELb1ELi16EEEvPKT_PKiS5_S3_xS3_xS5_S5_S1_S1_PS1_xPiS6_iiiiiiiPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 62 registers, used 1 barriers
+ptxas info    : Compile time = 191.315 ms
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__94afda1c_14_merge_csrmm_cu_90cc62aa20merge_tile_mm_kernelIdLi2ELb1ELi1EEEvPKT_PKiS5_S3_xS3_xS5_S5_S1_S1_PS1_xPiS6_iiiiiiiPj' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__94afda1c_14_merge_csrmm_cu_90cc62aa20merge_tile_mm_kernelIdLi2ELb1ELi1EEEvPKT_PKiS5_S3_xS3_xS5_S5_S1_S1_PS1_xPiS6_iiiiiiiPj
+    48 bytes stack frame, 44 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers
+ptxas info    : Compile time = 189.965 ms
+"""
+
+
+@pytest.mark.parametrize("log,want", [
+    (K1_PTXAS, {"merge_tile_kernel<double,1,1>": (82, 0, 0)}),
+    (K1M_PTXAS, {"merge_tile_mm_kernel<float,4,1,16>": (62, 0, 0),
+                 "merge_tile_mm_kernel<double,2,1,1>": (64, 44, 36)}),
+], ids=["merge_tile", "merge_tile_mm"])
+def test_ptxas_report_reads_each_instantiation(log, want):
+    """Each entry function of nvcc's report by its template arguments:
+    registers, spill-store and spill-load bytes, what chip_smoke.py's
+    spill gates test."""
+    assert {n: (r.registers, r.spill_stores, r.spill_loads)
+            for n, r in ptxas_report(log).items()} == want

@@ -4,8 +4,8 @@ version sums in k order, the sector count and the gather bound are the
 arithmetic their docstrings state, and measuring needs the card.  The
 probe has no counterpart in the JAX package; the kernel is held against
 the plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
-Also the text substitutions of the two measurement tools that vary the
-merge kernel's source (tools/tile_ablation.py, tools/tail_mutants.py).
+Also the text substitutions of the mutation check that breaks the merge
+kernel's tail (tools/tail_mutants.py).
 """
 
 import numpy as np
@@ -85,42 +85,6 @@ def test_gather_bound_arithmetic():
 def test_measuring_needs_the_card():
     with pytest.raises(RuntimeError, match="on the card"):
         GR.measure(device="cpu")
-
-
-def test_tile_ablation_variants_change_one_thing_each():
-    """tools/tile_ablation.py's variants of the kernel source: each is the
-    source with its one substitution (and the carveout entry appended);
-    a source without the substituted text is refused."""
-    from merge_spmv_tpu_torch.tools import tile_ablation as TA
-    from merge_spmv_tpu_torch.utils.cuda_build import CSRC_DIR
-    src = (CSRC_DIR / "merge_csrmv.cu").read_text()
-    v = TA.variants(src)
-    assert set(v) == {"A0", "A1", "A2_8192", "A2_32768", "A2_131072",
-                      "LEAD0", "EVL", "STAMP"}
-    assert v["A0"] == src + TA.CARVEOUT
-    assert "& 0x7FFFF" in v["A1"] and TA.GATHER not in v["A1"]
-    assert "(s_col[j] & 8191)" in v["A2_8192"]
-    assert v["LEAD0"].count("gather(") == src.count("gather(")
-    assert "ld.global.nc.L1::evict_last" in v["EVL"]
-    assert v["STAMP"].count("clock64()") == 5   # around four steps
-    with pytest.raises(ValueError):
-        TA.variants(src.replace(TA.GATHER, ""))
-    # the tail study's variants of the committed kernel: NOTAIL skips the
-    # last block's fix-up, TAILSTAMP times it into a side buffer; each
-    # keeps the fix-up's call and nothing else changes
-    t = TA.tail_variants(src)
-    assert set(t) == {"NOTAIL", "TAILSTAMP"}
-    assert t["NOTAIL"] == src.replace(TA.TAIL, "    if (false)\n")
-    assert t["NOTAIL"].count("fix_up_pairs(") == src.count("fix_up_pairs(")
-    stamp = t["TAILSTAMP"]
-    assert stamp.count("clock64()") == src.count("clock64()") + 2
-    assert stamp.count("global_ns()") == 3   # defined, read twice
-    assert "read_tail" in stamp
-    assert stamp.count("fix_up_pairs(") == src.count("fix_up_pairs(")
-    assert stamp.startswith(src[:src.index("__device__ unsigned int "
-                                           "g_tickets")])
-    with pytest.raises(ValueError):
-        TA.tail_variants(src.replace(TA.TAIL, ""))
 
 
 def test_tail_mutants_break_the_tail_once_each():

@@ -432,51 +432,3 @@ def test_mm_geometry_fits_every_k(k, dtype):
             assert g.blocks_per_sm * (g.shared_bytes
                                       + P.BLOCK_RESERVED_SHARED) \
                 <= _granted(g.carveout)
-
-
-def test_mm_ablation_variants_change_one_thing_each():
-    """tools/mm_ablation.py's variants of K1m's source: each is the source
-    with its substitutions, each of which matches one place; a source
-    without the text is refused."""
-    from merge_spmv_tpu_torch.tools import mm_ablation as MA
-    from merge_spmv_tpu_torch.utils.cuda_build import CSRC_DIR
-    src = (CSRC_DIR / "merge_csrmm.cu").read_text()
-    v = {name: fn() for name, fn in MA.variants(src).items()}
-    assert set(v) == {"A0", "NOTAIL", "COAL", "WIN", "TAIL0", "SEARCH2",
-                      "ELEM", "STAMP", "B2", "B3", "B4", "LB3", "T6", "T8",
-                      "P8", "RING4", "RING8", "RING16"}
-    assert v["A0"] == src
-    assert all(text != src for name, text in v.items() if name != "A0")
-    for name, new in (("COAL", "% 32768"), ("WIN", "& 1023"),
-                      ("B2", "return 2;"), ("B4", "return 4;"),
-                      ("NOTAIL", "\n  return;\n"),
-                      ("RING8", "cp.async.wait_group"),
-                      ("TAIL0", "r_next[u]"),
-                      ("ELEM", "cp.async.mbarrier.arrive.noinc")):
-        assert new in v[name] and new not in src, name
-    for name in ("COAL", "WIN", "B2", "B3", "B4", "NOTAIL"):
-        assert len(v[name].splitlines()) == len(src.splitlines()), name
-        assert v[name] != src, name
-    for depth in (4, 8, 16):
-        ring = v[f"RING{depth}"]
-        assert f"kDepth = {depth};" in ring and "walk_ring<" in ring
-        assert ring.count(f"static_cast<size_t>({depth}) * kThreads") == 2
-    assert v["SEARCH2"].count("merge_search(st.re") == 2
-    assert "s_start[warp + 1]" not in v["SEARCH2"]
-    assert "fix_up<V, kPer, kVector, kLanes>(\n" not in v["TAIL0"]
-    assert "mbar_init(bars, kThreads);" in v["ELEM"]
-    assert "kBlocksPerSm = 3;" in v["LB3"] and "return 4;" in v["LB3"]
-    assert "kTail = 6;" in v["T6"] and "kTail = 8;" in v["T8"]
-    assert "by_lanes<V, 8, true>" in v["P8"] and "struct float8" in v["P8"]
-    assert MA._layout("P8", 32, None) == P.MmLayout(8, True, 4)
-    assert v["STAMP"].count("clock64()") == 16
-    for anchor, name in ((MA.BATCH, "B2"), (MA.WALK_CALL, "RING8"),
-                         ("  if (!s_wflag[0]) return;", "NOTAIL"),
-                         ("  return X + static_cast<long long>(s_col[j]) * "
-                          "ldx;\n", "COAL")):
-        with pytest.raises(ValueError):
-            MA.variants(src.replace(anchor, ""))[name]()
-    with pytest.raises(ValueError):
-        MA.variants(src.replace("    int i_end = __shfl_down_sync", ""))
-    with pytest.raises(ValueError):   # STAMPB needs the previous text
-        MA.base_variants(src)["STAMPB"]()
