@@ -221,7 +221,16 @@ Phases, one line of output each (any failure exits non-zero and prints no
              call; against merge_csrmm_plain within 2 gamma_n |P| |X| per
              entry, its largest difference in float32 ulps of |P| |X|;
              op.mm and K1m alone timed beside cuSPARSE SpMM, the plain
-             version's time and the bytes bound.
+             version's time and the bytes bound.  Then FastRP's
+             normalise-and-accumulate (fastrp_normalize_report): the
+             main path, solvers.fastrp on that operator at the cell's
+             weights, with the counters reset just before, makes one
+             row_normalize launch and one "fused" step a product; then at
+             the cell's N [2^21, 256] float32 in its three modes (the
+             products' n(N); n(N) and E = w n(N); E += w n(N)) the kernel
+             of csrc/row_normalize.cu, one launch a call, against the
+             torch ops on the same N (n(N) and E within 8 float32 ulps of
+             their scale), each timed with its bytes bound.
 14. the kernels line, nvidia-smi's name and power limit, and the last line.
 """
 
@@ -283,6 +292,14 @@ LONG_ROW_NNZ = 4_000_000  # tests/test_fp64_audit.py:70
 FASTRP_CONFIG = os.path.join(REPO_DIR, "spmv_bench", "configs",
                              "kron_g500_logn21_sym.json")
 FASTRP_K, FASTRP_SEED, FASTRP_PLAIN_COLS = 256, 2 ** 31 + 22, 8
+# the cell's weights, and FastRP's normalise-and-accumulate in its three
+# modes, one a product: (name, w, E given, store_n, passes of N's bytes over
+# HBM: N read, N written, E written, E read)
+FASTRP_WEIGHTS = (0.0, 1.0, 1.0)
+FASTRP_NORMALIZE_MODES = (("n(N)", 0.0, False, True, 2),
+                          ("n(N), E = w n(N)", 1.0, False, True, 3),
+                          ("E += w n(N)", 1.0, True, False, 3))
+FASTRP_NORMALIZE_ULPS = 8
 # the corpus phase: one full-size matrix per generator family of the stats
 # corpus (tools/make_corpus_stats.py), CoV 0 to the wheel, banded to global
 # scatter, beside the 25 files of the mini corpus (tools/make_corpus.py)
@@ -747,7 +764,8 @@ def fastrp_k1m_report(peak_gbps):
     in float32 ulps (2^-24) of |P| |X|, with its row's degree.  Then op.mm
     (CUDA graph) and K1m alone in turns with cuSPARSE SpMM on the same X
     (K1m, cuSPARSE, cuSPARSE, K1m; best of each), the plain version's time
-    and the bytes bound (P, X and Y once).  Returns (ok, line, entry)."""
+    and the bytes bound (P, X and Y once).  Returns (ok, line, entry, op),
+    op for fastrp_normalize_report."""
     import numpy as np
     import torch
 
@@ -867,6 +885,127 @@ def fastrp_k1m_report(peak_gbps):
                         "layout": [lay.per, lay.vector, lay.lanes],
                         "batch_rows": geo.batch_rows,
                         "carveout": geo.carveout}}
+    return ok, line, entry, op
+
+
+def fastrp_normalize_report(peak_gbps, op):
+    """FastRP's normalise-and-accumulate (models/fastrp_cuda.py).  First on
+    the main path: solvers.fastrp on the cell's operator ``op`` (from
+    fastrp_k1m_report) with a projection R [rows, FASTRP_K] of +-sqrt(3)
+    and 0 (FastRP's, from FASTRP_SEED) at FASTRP_WEIGHTS, with
+    LAUNCHES reset and solvers.NORMALIZES read just before: one
+    row_normalize launch and one "fused" step a product, no "torch" step,
+    E float32 and finite.  Then at the kron_g500_logn21_sym.fastrp cell's
+    shape: N [2^21, FASTRP_K] float32, normal values with every 4096th
+    row 0, from FASTRP_SEED.  In each of
+    FASTRP_NORMALIZE_MODES, the kernel and the torch ops (the plain
+    version) on copies of the same N and E: one launch, n(N) and E within
+    FASTRP_NORMALIZE_ULPS float32 ulps of their scale (n(N)'s rows have
+    norm 1; E's scale is w plus its largest entry), finite, zero rows 0.
+    Then both timed eagerly on one N (kernel, torch, torch, kernel; best of
+    each; a call that stores n(N) divides an N already normalised, the
+    same work), the kernel beside its bytes bound (the mode's passes over
+    N's bytes at ``peak_gbps``).  Returns (ok, line, entry)."""
+    import torch
+
+    from merge_spmv_tpu_torch.models import fastrp_cuda as FR
+    from merge_spmv_tpu_torch.models import solvers as SV
+    from merge_spmv_tpu_torch.utils.timers import event_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(FASTRP_SEED)
+    u = torch.rand(op.plan.num_cols, FASTRP_K, generator=gen, device=dev)
+    r = torch.where(u < 1 / 6, 3 ** 0.5,
+                    torch.where(u >= 5 / 6, -3 ** 0.5, 0.0))
+    del u
+    FR.reset_launches()
+    before = dict(SV.NORMALIZES)
+    emb, _ = SV.fastrp(op, r, FASTRP_WEIGHTS)
+    torch.cuda.synchronize()
+    main_launches = FR.LAUNCHES["row_normalize"]
+    steps = {k: SV.NORMALIZES[k] - before[k] for k in before}
+    products = len(FASTRP_WEIGHTS)
+    main_ok = (main_launches == products
+               and steps == {"fused": products, "torch": 0}
+               and emb.dtype == torch.float32
+               and bool(torch.isfinite(emb).all()))
+    del r, emb
+    torch.cuda.empty_cache()
+    n0 = torch.randn(1 << 21, FASTRP_K, generator=gen, device=dev)
+    n0[::4096] = 0.0
+    e0 = torch.randn(n0.shape, generator=gen, device=dev) * 0.1
+    zero = torch.arange(0, n0.shape[0], 4096, device=dev)
+    eps = torch.finfo(torch.float32).eps
+    nbytes = n0.numel() * n0.element_size()
+    modes, ok = {}, main_ok
+    for name, w, given, store_n, passes in FASTRP_NORMALIZE_MODES:
+        got = {}
+        for side, step in (("kernel", FR.row_normalize),
+                           ("torch", FR.row_normalize_plain)):
+            n = n0.clone()
+            FR.reset_launches()
+            e = step(n, e0.clone() if given else None, w, store_n=store_n)
+            torch.cuda.synchronize()
+            got[side] = (n, e, FR.LAUNCHES["row_normalize"])
+        (nk, ek, launches), (nt, et, _) = got["kernel"], got["torch"]
+        good = launches == 1 and (ek is None) == (et is None)
+        n_err = e_err = n_ulps = e_ulps = 0.0
+        if store_n:
+            n_err = float((nk - nt).abs().max())
+            n_ulps = n_err / eps
+            good &= (n_ulps <= FASTRP_NORMALIZE_ULPS
+                     and bool(torch.isfinite(nk).all())
+                     and bool((nk[zero] == 0).all()))
+        else:
+            good &= torch.equal(nk, n0)
+        if ek is not None:
+            scale = w + (float(e0.abs().max()) if given else 0.0)
+            e_err = float((ek - et).abs().max())
+            e_ulps = e_err / (eps * scale)
+            good &= (e_ulps <= FASTRP_NORMALIZE_ULPS
+                     and bool(torch.isfinite(ek).all()))
+        del got, nk, ek, nt, et
+        n, e = n0.clone(), e0.clone() if given else None
+        times = {"kernel": [], "torch": []}
+        for side in ("kernel", "torch", "torch", "kernel"):
+            step = FR.row_normalize if side == "kernel" else \
+                FR.row_normalize_plain
+            times[side].append(event_ms(
+                lambda: step(n, e, w, store_n=store_n), iters=5, reps=3,
+                warmup=1, graph=False))
+        del n, e
+        torch.cuda.empty_cache()
+        ms = min(times["kernel"])
+        bound_ms = passes * nbytes / peak_gbps / 1e6
+        modes[name] = {"ms": ms, "torch_ms": min(times["torch"]),
+                       "bound_ms": bound_ms,
+                       "of_bound": 100 * bound_ms / ms, "passes": passes,
+                       "n_ulps": n_ulps, "e_ulps": e_ulps,
+                       "max_abs_err": max(n_err, e_err), "ok": good}
+        ok &= good
+    del n0, e0
+    torch.cuda.empty_cache()
+    line = (f"fastrp normalize: solvers.fastrp at weights "
+            f"{list(FASTRP_WEIGHTS)} on the cell's operator: "
+            f"{main_launches} row_normalize launches, steps {steps} (want "
+            f"{products} fused, 0 torch), ok={main_ok}; "
+            f"N [{1 << 21}, {FASTRP_K}] float32; " + "; ".join(
+                f"{name}: kernel {m['ms']:.4f} ms, bound {m['bound_ms']:.4f} "
+                f"ms ({m['passes']} passes at {peak_gbps:.0f} GB/s): "
+                f"{m['of_bound']:.1f}%, torch ops {m['torch_ms']:.4f} ms, "
+                f"n(N) {m['n_ulps']:.2f} ulps and E {m['e_ulps']:.2f} ulps "
+                f"of the torch ops', ok={m['ok']}"
+                for name, m in modes.items())
+            + f"; a call of the cell (the three): kernel "
+            f"{sum(m['ms'] for m in modes.values()):.4f} ms, torch ops "
+            f"{sum(m['torch_ms'] for m in modes.values()):.4f} ms; ok={ok}")
+    total = {k: sum(m[k] for m in modes.values())
+             for k in ("ms", "torch_ms", "bound_ms")}
+    entry = {"launches": main_launches, "max_abs_err": max(
+        m["max_abs_err"] for m in modes.values()),
+        "ms": total["ms"], "plain_ms": total["torch_ms"],
+        "bound_ms": total["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "main_path": True, "modes": modes}
     return ok, line, entry
 
 
@@ -888,6 +1027,7 @@ def main() -> int:
     from merge_spmv_tpu_torch.formats.coo import CooMatrix
     from merge_spmv_tpu_torch.formats.csr import CsrMatrix
     from merge_spmv_tpu_torch.models import cg_cuda as CG
+    from merge_spmv_tpu_torch.models import fastrp_cuda as FR
     from merge_spmv_tpu_torch.models import solvers as SV
     from merge_spmv_tpu_torch.ops import csrmv_cuda as K
     from merge_spmv_tpu_torch.ops import autotune as A
@@ -934,7 +1074,8 @@ def main() -> int:
     # ------------------------------------------------------------ 1 build
     t0 = time.perf_counter()
     sources = (K.KERNEL_SOURCE, DK.KERNEL_SOURCE, CG.KERNEL_SOURCE,
-               P.KERNEL_SOURCE, GR.KERNEL_SOURCE, K.MM_SOURCE)
+               P.KERNEL_SOURCE, GR.KERNEL_SOURCE, K.MM_SOURCE,
+               FR.KERNEL_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = list(pool.map(build_library, sources))
     build_s = time.perf_counter() - t0
@@ -2885,10 +3026,21 @@ def main() -> int:
     # K1m at the FastRP cell's width, on its graph (fastrp_k1m_report)
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    fastrp_ok, fastrp_line, fastrp_k1m = fastrp_k1m_report(peak_gbps)
+    fastrp_ok, fastrp_line, fastrp_k1m, fastrp_op = \
+        fastrp_k1m_report(peak_gbps)
     torch.cuda.empty_cache()
     print(f"{fastrp_line}; {time.perf_counter() - t_phase:.1f} s")
     if not fastrp_ok:
+        return 1
+    # FastRP's normalise-and-accumulate: solvers.fastrp on the cell's
+    # operator, then the kernel at the cell's N (fastrp_normalize_report)
+    t_phase = time.perf_counter()
+    norm_ok, norm_line, fastrp_norm = fastrp_normalize_report(peak_gbps,
+                                                             fastrp_op)
+    del fastrp_op
+    torch.cuda.empty_cache()
+    print(f"{norm_line}; {time.perf_counter() - t_phase:.1f} s")
+    if not norm_ok:
         return 1
 
     # ------------------------------------------------------------ 14 report
@@ -2956,6 +3108,12 @@ def main() -> int:
     kernels.append({"name": "merge_tile_mm@kron_g500_logn21_sym_k256",
                     "route": "cuda", "source": mm_src,
                     "replaces": mm_replaces, **fastrp_k1m})
+    # FastRP's normalise-and-accumulate, a launch a product: launches as
+    # solvers.fastrp made them at the cell's weights; times of the cell's
+    # three modes summed (a call); plain_ms is the torch ops'
+    kernels.append({"name": "row_normalize", "route": "cuda",
+                    "source": "merge_spmv_tpu_torch/csrc/row_normalize.cu",
+                    "replaces": None, **fastrp_norm})
     kernels.append(
         {"name": "dia_matmat", "route": "cuda",
          "source": "merge_spmv_tpu_torch/csrc/dia_matvec.cu",

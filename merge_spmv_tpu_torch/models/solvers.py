@@ -56,7 +56,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from merge_spmv_tpu_torch.models import cg_cuda
+from merge_spmv_tpu_torch.models import cg_cuda, fastrp_cuda
 from merge_spmv_tpu_torch.utils.device import torch_dtype
 from merge_spmv_tpu_torch.utils.tracing import (CAPTURE, CAPTURE_ENTER,
                                                 CAPTURE_EXIT, CAPTURE_RECORD,
@@ -65,13 +65,16 @@ from merge_spmv_tpu_torch.utils.tracing import (CAPTURE, CAPTURE_ENTER,
                                                 REPLAY, SOLVE, span)
 
 __all__ = ["conjugate_gradient", "bicgstab", "jacobi", "power_iteration",
-           "pagerank", "fastrp", "SolveInfo", "CAPTURES"]
+           "pagerank", "fastrp", "SolveInfo", "CAPTURES", "NORMALIZES"]
 
 # captures of a block as a CUDA graph: drawn from the device's kept pool
 # ("pooled") or through torch.cuda.graph's flush ("fresh", the pool being
 # held by another solve); "hidden": ended while the card still ran the
 # work before them
 CAPTURES = {"pooled": 0, "fresh": 0, "hidden": 0}
+# FastRP's normalise-and-accumulate steps, by the path each took: the
+# kernel of models/fastrp_cuda.py ("fused") or its torch ops ("torch")
+NORMALIZES = {"fused": 0, "torch": 0}
 
 
 class SolveInfo(NamedTuple):
@@ -459,13 +462,6 @@ def pagerank(op, damping: float = 0.85, tol: float = 1e-8,
     return pr, SolveInfo(k, diff, reads, step_ms)
 
 
-def _normalize_rows(n):
-    """Each row of ``n`` divided by its L2 norm, in place; a row of norm 0
-    stays 0 (no NaN)."""
-    norms = torch.linalg.vector_norm(n, dim=1, keepdim=True)
-    return n.div_(torch.where(norms > 0, norms, 1.0))
-
-
 @_solver
 def fastrp(op, r, iteration_weights=(0.0, 1.0, 1.0)):
     """FastRP node embeddings (Chen et al., "Fast and Accurate Network
@@ -483,11 +479,16 @@ def fastrp(op, r, iteration_weights=(0.0, 1.0, 1.0)):
     D^-1 only keeps each product's rows at the size of a mean.
 
     Each product is ``op.mm`` (K1m on the card, in blocks of 64 columns);
-    each normalise-and-accumulate runs in place in a span of its own, so
-    a call holds about three [num_rows, d] blocks: the normalised input,
-    the product and E.  Nothing waits for the card: ``info.iterations``
-    is the count of products on the host, ``info.residual`` is 0 (FastRP
-    has none), ``host_reads`` 0 and ``step_ms`` None.
+    each normalise-and-accumulate runs in place in a span of its own
+    (models/fastrp_cuda.py: one kernel launch on the card, which reads the
+    product once, the torch ops on the CPU; counted in ``NORMALIZES``),
+    so a call holds about three [num_rows, d] blocks: the normalised
+    input, the product and E.  The last product's n(N) is not stored,
+    since nothing reads it, and with a last weight of 0 its step is not
+    made.  E is made where the first nonzero weight meets it.  Nothing waits for the card:
+    ``info.iterations`` is the count of products on the host,
+    ``info.residual`` is 0 (FastRP has none), ``host_reads`` 0 and
+    ``step_ms`` None.
     """
     with span(PROLOGUE):
         weights = [float(w) for w in iteration_weights]
@@ -495,15 +496,16 @@ def fastrp(op, r, iteration_weights=(0.0, 1.0, 1.0)):
             raise ValueError("iteration_weights must not be empty")
         x = _vector(op, r)
         emb = None
-    for w in weights:
+    for i, w in enumerate(weights):
         n = op.mm(x)
-        with span(NORMALIZE):
-            _normalize_rows(n)
-            if w != 0.0:
-                if emb is None:
-                    emb = n * w
-                else:
-                    emb.add_(n, alpha=w)
+        store_n = i + 1 < len(weights)
+        if store_n or w != 0.0:
+            with span(NORMALIZE):
+                fused = fastrp_cuda.takes(n.device)
+                step = (fastrp_cuda.row_normalize if fused
+                        else fastrp_cuda.row_normalize_plain)
+                emb = step(n, emb, w, store_n=store_n)
+                NORMALIZES["fused" if fused else "torch"] += 1
         x = n
     if emb is None:
         emb = torch.zeros_like(x)

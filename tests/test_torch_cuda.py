@@ -1937,3 +1937,151 @@ def test_dia_mm_one_k3m_launch_repeat_and_graph_bitwise_equal(card):
     torch.cuda.synchronize()
     assert D.LAUNCHES["dia_matvec"] == 32
     torch.testing.assert_close(column, eager, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------ FastRP's normalise-and-accumulate
+
+# (w, E given): E untouched, E = w n(N) (a new E), E += w n(N)
+_E_MODES = {"none": (0.0, True), "set": (0.75, False), "add": (-1.5, True)}
+
+
+def _product_rows(card, rows, d, dtype, seed, offset=0):
+    """N [rows, d] on the card, ``offset`` values into its buffer (1: an
+    address no 16-byte vector load may use): normal values, rows 0, 5 and
+    the last all 0."""
+    gen = torch.Generator().manual_seed(seed)
+    vals = torch.randn((rows, d), generator=gen, dtype=torch.float64) * 3.0
+    vals[[0, 5, rows - 1]] = 0.0
+    buf = torch.empty(rows * d + offset, dtype=dtype, device=card)
+    n = buf[offset:].view(rows, d)
+    n.copy_(vals)
+    return n
+
+
+@pytest.mark.parametrize("store_n,mode", [(True, "none"), (True, "set"),
+                                          (True, "add"), (False, "set"),
+                                          (False, "add")])
+@pytest.mark.parametrize("d,offset", [(1, 0), (3, 0), (64, 0), (256, 0),
+                                      (260, 0), (256, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_row_normalize_kernel_vs_the_torch_path(card, dtype, d, offset,
+                                                store_n, mode):
+    """One launch against the plain version on the same N: n(N) within 8
+    ulps of its rows' norm 1 (the sums' order alone differs; in bfloat16
+    also the torch ops' norm rounded to bfloat16), zero rows exactly 0 and
+    no NaN, N untouched without ``store_n``; E within 8 ulps of its scale.
+    20,011 rows outlast one wave of resident blocks; d covers the scalar
+    path (1, 3, float64 and bfloat16 260, an unaligned N) and 1-4 vectors
+    a lane."""
+    from merge_spmv_tpu_torch.models import fastrp_cuda as F
+    rows = 20_011
+    w, given = _E_MODES[mode]
+    n = _product_rows(card, rows, d, dtype, seed=d, offset=offset)
+    e = _product_rows(card, rows, d, dtype, seed=d + 1) if given else None
+    before_n, before_e = n.clone(), None if e is None else e.clone()
+    want_n = n.clone()
+    want_e = F.row_normalize_plain(want_n, None if e is None else e.clone(),
+                                   w)
+    F.reset_launches()
+    got_e = F.row_normalize(n, e, w, store_n=store_n)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES == {"row_normalize": 1}
+    eps = torch.finfo(dtype).eps
+    if store_n:
+        assert float((n.double() - want_n.double()).abs().max()) <= 8 * eps
+        assert bool((n[[0, 5, rows - 1]] == 0).all())
+        assert not bool(torch.isnan(n).any())
+    else:
+        assert torch.equal(n, before_n)
+    if mode == "none":
+        assert got_e is e and torch.equal(e, before_e)
+        return
+    if given:
+        assert got_e is e
+    scale = abs(w) + (0.0 if before_e is None else
+                      float(before_e.double().abs().max()))
+    assert got_e.shape == (rows, d) and got_e.dtype == dtype
+    assert float((got_e.double() - want_e.double()).abs().max()) <= \
+        8 * eps * scale
+    assert not bool(torch.isnan(got_e).any())
+
+
+def _fastrp_graph(n=1 << 14, edges=120_000, seed=25):
+    """A symmetric power-law graph of unit values (FastRP's adjacency),
+    with isolated vertices."""
+    coo = CooMatrix.random_powerlaw(n, n, edges, seed=seed)
+    rows = np.r_[coo.rows, coo.cols]
+    cols = np.r_[coo.cols, coo.rows]
+    return CsrMatrix.from_coo(CooMatrix(n, n, rows, cols,
+                                        np.ones(rows.size)))
+
+
+@pytest.mark.parametrize("weights", [(0.0, 1.0, 1.0), (0.5, 1.0, 0.0)])
+def test_fastrp_normalizes_in_one_launch_a_product(card, monkeypatch,
+                                                   weights):
+    """fastrp in float32 at d = 256: one row_normalize launch and one
+    "fused" count a product that writes something (a last weight of 0
+    makes no last step), E within the FastRP cell's limit (1e-4) of the
+    float64 reference and within 8 float32 ulps of the torch path's E on
+    the card."""
+    from merge_spmv_tpu_torch.models import fastrp_cuda as F
+    from merge_spmv_tpu_torch.models import fastrp_reference as R
+    from merge_spmv_tpu_torch.models import solvers as S
+    from merge_spmv_tpu_torch.ops.operator import transition_operator
+    csr = _fastrp_graph()
+    op = transition_operator(csr, dtype="float32")
+    u = torch.rand((csr.num_cols, 256),
+                   generator=torch.Generator().manual_seed(7))
+    r = torch.where(u < 1 / 6, 3 ** 0.5,
+                    torch.where(u >= 5 / 6, -3 ** 0.5, 0.0))
+    steps = len(weights) - (weights[-1] == 0.0)
+    F.reset_launches()
+    before = dict(S.NORMALIZES)
+    emb, _ = S.fastrp(op, r.to(card), weights)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES == {"row_normalize": steps}
+    assert S.NORMALIZES == {"fused": before["fused"] + steps,
+                            "torch": before["torch"]}
+    want = R.fastrp(torch.from_numpy(csr.row_offsets),
+                    torch.from_numpy(csr.col_indices),
+                    torch.from_numpy(csr.values), r.double(), weights)
+    assert float((emb.double().cpu() - want).abs().max()) <= 1e-4
+    monkeypatch.setattr(F, "takes", lambda device: False)
+    plain, _ = S.fastrp(op, r.to(card), weights)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES == {"row_normalize": steps}
+    eps = torch.finfo(torch.float32).eps
+    assert float((emb - plain).abs().max()) <= 8 * eps * sum(weights)
+
+
+def test_bfloat16_fastrp_takes_the_kernel(card, monkeypatch):
+    """fastrp on a bfloat16 operator at d = 256: op.mm's products are
+    bfloat16 on the card, and each step is one row_normalize launch in
+    bfloat16 (no torch step on the card); E bfloat16, finite, and within 8
+    bfloat16 ulps of its scale of the torch path's E on the card."""
+    from merge_spmv_tpu_torch.models import fastrp_cuda as F
+    from merge_spmv_tpu_torch.models import solvers as S
+    from merge_spmv_tpu_torch.ops.operator import transition_operator
+    csr = _fastrp_graph()
+    op = transition_operator(csr, dtype="bfloat16")
+    u = torch.rand((csr.num_cols, 256),
+                   generator=torch.Generator().manual_seed(9))
+    r = torch.where(u < 1 / 6, 3 ** 0.5,
+                    torch.where(u >= 5 / 6, -3 ** 0.5, 0.0)).to(card)
+    weights = (0.0, 1.0, 1.0)
+    assert op.mm(r.to(torch.bfloat16)).dtype == torch.bfloat16
+    F.reset_launches()
+    before = dict(S.NORMALIZES)
+    emb, _ = S.fastrp(op, r, weights)
+    torch.cuda.synchronize()
+    assert F.LAUNCHES == {"row_normalize": 3}
+    assert S.NORMALIZES == {"fused": before["fused"] + 3,
+                            "torch": before["torch"]}
+    assert emb.dtype == torch.bfloat16 and bool(torch.isfinite(emb).all())
+    monkeypatch.setattr(F, "takes", lambda device: False)
+    plain, _ = S.fastrp(op, r, weights)
+    torch.cuda.synchronize()
+    eps = torch.finfo(torch.bfloat16).eps
+    assert float((emb.float() - plain.float()).abs().max()) <= \
+        8 * eps * sum(weights)

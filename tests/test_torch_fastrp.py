@@ -1,7 +1,11 @@
 """FastRP in the port: ``ops/operator.py::transition_operator`` (P = D^-1 A)
 and ``models/solvers.py::fastrp``, held on the CPU (the kernels' plain
 versions) to dense arithmetic and to the plain reference
-``models/fastrp_reference.py``, at 2^10-2^12 vertices from a seed.
+``models/fastrp_reference.py``, at 2^10-2^12 vertices from a seed; the
+normalise-and-accumulate wrapper (``models/fastrp_cuda.py``): its plain
+version bit for bit against the torch code the solver ran before it, its
+path choice and its operand checks.  The kernel itself runs only on the
+card (tests/test_torch_cuda.py).
 
 The ``cuda``-marked case holds the card's K1m path to the same reference
 at 2^16 vertices and skips without a card; run it there with
@@ -23,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 from merge_spmv_tpu_torch import transition_operator
 from merge_spmv_tpu_torch.formats.coo import CooMatrix
 from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+from merge_spmv_tpu_torch.models import fastrp_cuda as F
 from merge_spmv_tpu_torch.models import fastrp_reference as R
 from merge_spmv_tpu_torch.models import solvers as S
 from merge_spmv_tpu_torch.utils import tracing as T
@@ -257,6 +262,180 @@ def test_reference_imports_only_torch():
     assert "torch" in loaded
     assert not loaded & {"jax", "jaxlib", "merge_spmv_tpu",
                          "merge_spmv_tpu_torch"}
+
+
+def torch_step(n, emb, w):
+    """FastRP's normalise-and-accumulate as models/solvers.py ran it before
+    the kernel: the norms, the division in place, E's multiply or add."""
+    norms = torch.linalg.vector_norm(n, dim=1, keepdim=True)
+    n.div_(torch.where(norms > 0, norms, 1.0))
+    if w != 0.0:
+        emb = n * w if emb is None else emb.add_(n, alpha=w)
+    return emb
+
+
+ZERO_ROWS = (0, 5, 6)
+
+
+def block(rows, d, dtype, seed):
+    """A product's rows: normal values, ZERO_ROWS all 0."""
+    gen = torch.Generator().manual_seed(seed)
+    n = torch.randn((rows, d), generator=gen, dtype=torch.float64) * 3.0
+    n[list(ZERO_ROWS)] = 0.0
+    return n.to(dtype)
+
+
+# (w, E given): E untouched, E = w n(N) (a new E), E += w n(N)
+E_MODES = {"none": (0.0, True), "set": (0.75, False), "add": (-1.5, True)}
+
+
+@pytest.mark.parametrize("store_n", [True, False])
+@pytest.mark.parametrize("mode", list(E_MODES))
+@pytest.mark.parametrize("d", [1, 3, 8, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_plain_row_normalize_is_the_torch_step(dtype, d, mode, store_n):
+    """The plain version gives the torch step's E and n(N) bit for bit;
+    with ``store_n`` false N keeps its values; E is the one given where
+    it is added to or untouched."""
+    w, given = E_MODES[mode]
+    n = block(40, d, dtype, seed=d)
+    e = block(40, d, dtype, seed=d + 1) if given else None
+    want_n = n.clone()
+    want_e = torch_step(want_n, None if e is None else e.clone(), w)
+    before = n.clone()
+    got = F.row_normalize_plain(n, e, w, store_n=store_n)
+    assert torch.equal(n, want_n if store_n else before)
+    if given:
+        assert got is e
+    if want_e is None:
+        assert got is None
+    else:
+        assert got.dtype == dtype and torch.equal(got, want_e)
+    assert not torch.isnan(n).any() and bool((want_n[list(ZERO_ROWS)] == 0)
+                                              .all())
+
+
+@pytest.mark.parametrize("mode", ["set", "add"])
+def test_the_last_product_gives_the_same_e_stored_or_not(mode):
+    """E after a step is the same whether n(N) is written back or not; not
+    writing it leaves N as it was.  Zero rows add nothing to E."""
+    w, given = E_MODES[mode]
+    es = []
+    for store_n in (True, False):
+        n = block(64, 256, torch.float32, seed=3)
+        e = torch.ones(64, 256) if given else None
+        es.append(F.row_normalize_plain(n, e, w, store_n=store_n))
+        if not store_n:
+            assert torch.equal(n, block(64, 256, torch.float32, seed=3))
+    assert torch.equal(es[0], es[1])
+    zero = list(ZERO_ROWS)
+    assert bool((es[0][zero] == (1.0 if given else 0.0)).all())
+    assert bool(torch.isfinite(es[0]).all())
+
+
+def test_zero_rows_stay_zero_with_no_nan():
+    n = torch.zeros(8, 5, dtype=torch.float64)
+    n[3] = torch.tensor([3.0, 0.0, 4.0, 0.0, 0.0])
+    e = F.row_normalize_plain(n, None, 2.0)
+    assert torch.equal(n[3], torch.tensor([0.6, 0.0, 0.8, 0.0, 0.0],
+                                          dtype=torch.float64))
+    assert int((n != 0).sum()) == 2 and not torch.isnan(n).any()
+    assert torch.equal(e, 2.0 * n)
+
+
+def test_the_cpu_takes_the_torch_path_once_a_product():
+    """takes() is false on the CPU and true on every CUDA device, so on
+    the CPU fastrp counts one torch normalise-and-accumulate a product and
+    launches nothing; its E is the torch step's, bit for bit."""
+    assert not F.takes("cpu") and not F.takes(torch.device("cpu"))
+    assert F.takes("cuda") and F.takes("cuda:1")
+    csr = graph(1024, 3000)
+    op = transition_operator(csr, dtype="float32", device="cpu")
+    r = projection(csr.num_cols, 16, dtype=torch.float32)
+    weights = (0.0, 1.0, 0.5, 1.0)
+    before, launches = dict(S.NORMALIZES), dict(F.LAUNCHES)
+    emb, _ = S.fastrp(op, r, weights)
+    assert S.NORMALIZES == {"fused": before["fused"],
+                            "torch": before["torch"] + len(weights)}
+    assert F.LAUNCHES == launches
+    want, x = None, r
+    for w in weights:
+        x = op.mm(x)
+        want = torch_step(x, want, w)
+    assert torch.equal(emb, want)
+
+
+def test_a_last_weight_of_0_makes_no_last_step():
+    """With a last weight of 0 nothing reads the last product's rows, so
+    fastrp makes no step for it (no count, no normalize span); E is the
+    torch steps' over the others, bit for bit."""
+    csr = graph(1024, 3000)
+    op = transition_operator(csr, dtype="float32", device="cpu")
+    r = projection(csr.num_cols, 8, dtype=torch.float32)
+    weights = (0.5, 1.0, 0.0)
+    before = dict(S.NORMALIZES)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        emb, info = S.fastrp(op, r, weights)
+    spans = _spans(prof)
+    assert sum(s[0] == T.OP_MM for s in spans) == 3
+    assert sum(s[0] == T.NORMALIZE for s in spans) == 2
+    assert S.NORMALIZES == {"fused": before["fused"],
+                            "torch": before["torch"] + 2}
+    assert info.iterations == 3
+    want, x = None, r
+    for w in weights[:2]:
+        x = op.mm(x)
+        want = torch_step(x, want, w)
+    assert torch.equal(emb, want)
+
+
+@pytest.mark.parametrize("step", [F.row_normalize_plain, F.row_normalize])
+def test_the_wrapper_checks_its_operands(step):
+    n = torch.ones(6, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        step(torch.ones(8, 6).t(), None, 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        step(n, torch.ones(6, 7), 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        step(n, torch.ones(48), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        step(n, torch.ones(8, 6).t(), 1.0)
+    with pytest.raises(TypeError, match="float64"):
+        step(n, torch.ones(6, 8, dtype=torch.float64), 1.0)
+    with pytest.raises(ValueError, match=r"\[rows, d\]"):
+        step(torch.ones(6), None, 1.0)
+    assert torch.equal(n, torch.ones(6, 8))
+
+
+def test_the_kernel_wrapper_refuses_the_cpu_and_other_dtypes():
+    with pytest.raises(ValueError, match="CUDA device"):
+        F.row_normalize(torch.ones(4, 8), None, 1.0)
+    with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
+        F.row_normalize(torch.ones(4, 8, dtype=torch.float16), None, 1.0)
+
+
+@pytest.mark.parametrize("d,itemsize,align,want", [
+    (256, 4, 16, 2), (64, 4, 16, 1), (260, 4, 16, 3), (512, 4, 16, 4),
+    (256, 8, 16, 4), (128, 8, 16, 2), (4, 4, 16, 1), (2, 8, 16, 1),
+    (516, 4, 16, 0), (260, 8, 16, 0), (1, 4, 16, 0), (3, 4, 16, 0),
+    (6, 4, 16, 0), (256, 4, 8, 0), (256, 4, 4, 0), (0, 4, 16, 0)])
+def test_the_path_follows_the_row_alone(d, itemsize, align, want):
+    """The vector path where a row is a whole number of 16-byte vectors,
+    at most 2 KB, at 16-byte alignment: ceil(vectors / 32) a lane; else
+    the scalar path (0)."""
+    assert F.vectors_per_lane(d, itemsize, align) == want
+
+
+def test_the_grid_is_a_block_per_rows_of_its_warps():
+    """A block per 8 warps' rows: ROWS_IN_FLIGHT a warp on the vector
+    path, one on the scalar path."""
+    per_vector_block = (F.THREADS // 32) * F.ROWS_IN_FLIGHT
+    assert F.grid_blocks(2 ** 21, 2) == 2 ** 21 // per_vector_block
+    assert F.grid_blocks(10 * per_vector_block + 1, 2) == 11
+    assert F.grid_blocks(17, 0) == 3
+    assert F.grid_blocks(1, 4) == 1
+    assert F.grid_blocks(2 ** 40, 0) == F.MAX_BLOCKS
 
 
 @pytest.mark.cuda
