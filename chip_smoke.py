@@ -110,7 +110,20 @@ Phases, one line of output each (any failure exits non-zero and prints no
              same iterations, and each fused kernel's device time in the
              solve's own sequence (the profiler over replayed blocks)
              beside its HBM bytes bound and the torch step's vector work;
-             they join the kernels line.
+             they join the kernels line.  Then HPCG's preconditioned CG
+             at the hpcg_104_mg.pcg cell's shapes (multigrid_report):
+             build_multigrid on that matrix; at every level the V-cycle's
+             symgs_update (each colour), mg_restrict and mg_prolong,
+             through the launchers the V-cycle binds, bit-equal to their
+             plain versions; 4 fused PCG steps (pcg_pap, pcg_update,
+             pcg_rz, cg_direction with z) against pcg_torch_step from one
+             state; the cell's set (50 iterations, blocks of 16) with
+             every launch counter reset just before: the host's counts
+             by level and kind against the V-cycles it enqueued, the
+             card's (65 V-cycles) from the profiler, and each kernel's
+             device ms by level in that set beside its bytes bound, the
+             kernel and its plain version alone; they join the kernels
+             line.
 8. driver  — merge_spmv_tpu_torch.bench.driver.run_benchmark on grid2d(1000)
              with the scipy, xla (cuSPARSE), merge, dia, split and hotcold
              backends; every backend must verify.
@@ -234,6 +247,7 @@ Phases, one line of output each (any failure exits non-zero and prints no
 14. the kernels line, nvidia-smi's name and power limit, and the last line.
 """
 
+import collections
 import contextlib
 import io
 import json
@@ -280,6 +294,28 @@ FUSED_TOL, FUSED_SOLUTION_REL_MAX = 1e-10, 1e-9
 # them; cg_direction's r and p after cg_update)
 FUSED_PASSES = {"cg_pap": (2, 0), "cg_update": (4, 2),
                 "cg_direction": (1, 2)}
+# HPCG's preconditioned CG (models/multigrid.py) on the hpcg_104_mg cell's
+# hierarchy, float64: the V-cycle's three kernels bit-equal their plain
+# versions (one subtraction, division or addition a value, correctly
+# rounded on both sides); PCG's fused step against pcg_torch_step from one
+# state, each value within PCG_ULPS of its norm (CG's bound; pcg_update,
+# the largest, read 2.57 on an H100); the cell's set: 50 iterations in
+# blocks of 16, so 64 steps launched and 65 V-cycles with the prologue's
+PCG_ULPS = FUSED_ULPS
+PCG_MAXITER, PCG_EVERY, PCG_STEPS = 50, 16, 64
+# a PCG kernel's vector passes of n values from HBM in the solve's own
+# sequence, and those from L2: pcg_update's p and ap after pcg_pap read
+# them; cg_direction's z after pcg_rz read it.  The V-cycle between
+# pcg_update and pcg_rz streams ~0.9 GB, so r, z and p come from HBM after
+# it
+PCG_PASSES = {"pcg_pap": (2, 0), "pcg_update": (4, 2), "pcg_rz": (2, 0),
+              "cg_direction": (2, 1)}
+# the V-cycle's kernels: bytes a row each touches (int32 index, values of
+# 8 bytes): symgs_update reads rows, r, y, diag and x and writes x;
+# mg_restrict reads f2c, r and Axf and writes r_c and x_c; mg_prolong reads
+# f2c, x_c and x and writes x
+MG_ROW_BYTES = {"symgs_update": 4 + 5 * 8, "mg_restrict": 4 + 4 * 8,
+                "mg_prolong": 4 + 3 * 8}
 # PageRank on the kron class: stopped at an L1 step of 1e-6, which float32
 # reaches (its rounding floor over 1M ranks is ~1e-7); the L1 distance from
 # a float64 run of the same iterations at most 1e-4 of the total mass 1
@@ -748,6 +784,331 @@ def fused_cg_report(SV, CG, peak_gbps):
             f"ok={ok}")
     return ok, line, {"kernels": kernels, "plain_ms": torch_t["vector_ms"],
                       "fused_vector_ms": fused_t["vector_ms"]}
+
+
+def device_kernels(prof):
+    """The device activities of a ``torch.profiler`` run: (name, start ms,
+    duration ms), in start order."""
+    import torch
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            continue
+        if hasattr(e, "start_ns"):
+            out.append((e.name(), e.start_ns() * 1e-6, e.duration_ns() * 1e-6))
+        else:
+            out.append((e.name(), e.start_us() * 1e-3,
+                        e.duration_us() * 1e-3))
+    return sorted(out, key=lambda a: a[1])
+
+
+def kernel_is(name, kernel):
+    """Whether the device activity ``name`` is ``kernel``'s launch (not a
+    kernel whose name ends in it: cg_pap is not pcg_pap)."""
+    import re
+    return re.search(rf"(?<![A-Za-z0-9_]){kernel}_kernel\b", name) is not None
+
+
+def graph_ms(fn, reps=20):
+    """Device ms a call of ``fn`` (kernels only, no sync), from CUDA-graph
+    replays of ``reps`` calls, warm."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
+
+
+def multigrid_report(SV, CG, peak_gbps):
+    """HPCG's preconditioned CG at the hpcg_104_mg.pcg cell's shapes:
+    build_multigrid on the 104^3 stencil in float64.  At every level, on
+    card tensors, each colour's symgs_update (after its own K1 product),
+    the restriction and the prolongation through the launchers the
+    V-cycle binds, bit-equal to their plain versions.  Then FUSED_STEPS
+    fused PCG steps (pcg_pap, pcg_update, the V-cycle, pcg_rz,
+    cg_direction with z) beside pcg_torch_step from the same state, each
+    value within PCG_ULPS of its norm, k exact.  Then the cell's set,
+    conjugate_gradient(op, b, tol=0, maxiter=50, check_every=16,
+    preconditioner="multigrid"), warm, and once more under torch.profiler
+    with every launch counter reset just before: the host's counts
+    (multigrid.LAUNCHES by level and kind, multigrid_cuda.LAUNCHES,
+    cg_cuda's, K1's) against the V-cycles it enqueued, and the card's
+    (65 V-cycles: each kernel's launches by level, placed by device
+    order).  Each kernel's device ms a launch in that set, by level, and
+    its bytes bound from the set's own shapes; the plain versions timed
+    alone at each level (CUDA-graph replays), and the torch step's vector
+    work (its step less the fused one's, medians of 3 unprofiled sets
+    each, plus the fused kernels').
+    Returns (ok, line, report)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from merge_spmv_tpu_torch import build_multigrid
+    from merge_spmv_tpu_torch.models import multigrid as MG
+    from merge_spmv_tpu_torch.models import multigrid_cuda as MC
+    from merge_spmv_tpu_torch.ops import csrmv_cuda as K
+    dev, f64 = torch.device("cuda"), torch.float64
+    eps = torch.finfo(f64).eps
+    t0 = time.perf_counter()
+    op = build_multigrid(stencil27(HPCG_WIDTH), dtype="float64")
+    build_s = time.perf_counter() - t0
+
+    def uniform(n, seed):
+        return torch.from_numpy(
+            np.random.RandomState(seed).uniform(-1, 1, n)).to(dev)
+
+    # the V-cycle's kernels at every level's shapes, bit for bit; the
+    # plain versions timed alone there
+    exact, plain_ms, alone_ms = True, {}, {}
+    for lv, level in enumerate(op.levels):
+        n = level.op.shape[0]
+        x, r = uniform(n, 10 + lv), uniform(n, 20 + lv)
+        for c, colour in enumerate(level.colours):
+            y = colour.op(x)
+            got, want = x.clone(), x.clone()
+            launch = MC.bind_symgs_update(got, r, y, colour.rows, colour.diag)
+            launch()
+            MC.symgs_update_plain(want, r, y, colour.rows, colour.diag)
+            exact &= torch.equal(got, want)
+            if c == 0:
+                alone_ms[("symgs_update", lv)] = graph_ms(launch)
+                plain_ms[("symgs_update", lv)] = graph_ms(
+                    lambda: MC.symgs_update_plain(want, r, y, colour.rows,
+                                                  colour.diag))
+        if level.f2c is None:
+            continue
+        m, axf = level.f2c.numel(), level.op(x)
+        out = [torch.full((m,), 7.0, dtype=f64, device=dev)
+               for _ in range(4)]
+        launch = MC.bind_restrict(out[0], out[1], r, axf, level.f2c)
+        launch()
+        MC.restrict_plain(out[2], out[3], r, axf, level.f2c)
+        exact &= torch.equal(out[0], out[2]) and torch.equal(out[1], out[3])
+        alone_ms[("mg_restrict", lv)] = graph_ms(launch)
+        plain_ms[("mg_restrict", lv)] = graph_ms(
+            lambda: MC.restrict_plain(out[2], out[3], r, axf, level.f2c))
+        xc = uniform(m, 30 + lv)
+        got, want = x.clone(), x.clone()
+        launch = MC.bind_prolong(got, xc, level.f2c)
+        launch()
+        MC.prolong_plain(want, xc, level.f2c)
+        exact &= torch.equal(got, want)
+        alone_ms[("mg_prolong", lv)] = graph_ms(launch)
+        plain_ms[("mg_prolong", lv)] = graph_ms(
+            lambda: MC.prolong_plain(want, xc, level.f2c))
+    torch.cuda.synchronize()
+
+    # PCG's fused step beside the torch step, from the same state
+    n = op.shape[0]
+    b = uniform(n, 104)
+    z0 = op.precondition(b, torch.empty_like(b))
+    fused_state = [torch.zeros_like(b), b.clone(), z0.clone(), z0.clone(),
+                   torch.sum(b * b), torch.sum(b * z0),
+                   torch.zeros((), dtype=f64, device=dev),
+                   torch.zeros((), dtype=torch.int32, device=dev)]
+    torch_state = [t.clone() for t in fused_state]
+    fx, fr, fp, fz, frs, frz, ftol2, fk = fused_state
+    step = CG.FusedCgStep(fx, fr, fp, frs, ftol2, fk, FUSED_STEPS, fz, frz)
+
+    def err(got, want):
+        d = float((got - want).abs().max())
+        return d / (eps * float(torch.linalg.vector_norm(want)))
+
+    names = ("pcg_pap", "pcg_update", "pcg_rz", "cg_direction")
+    ulps = {name: 0.0 for name in names}
+    k_exact = True
+    for i in range(FUSED_STEPS):
+        p, rz = torch_state[2], torch_state[5]
+        alpha = rz / torch.sum(p * op(p))       # the torch step's alpha
+        step.step(op(fp), lambda: op.precondition(fr, fz))
+        SV.pcg_torch_step(op, *torch_state, FUSED_STEPS)
+        got = {"pcg_pap": [(step.work[0], alpha)],
+               "pcg_update": [(fused_state[j], torch_state[j])
+                              for j in (0, 1, 4)],      # x, r, rs
+               "pcg_rz": [(frz, torch_state[5])],
+               "cg_direction": [(fp, torch_state[2])]}
+        for name, pairs in got.items():
+            for g, w in pairs:
+                ulps[name] = max(ulps[name], err(g, w))
+        k_exact &= int(fk) == int(torch_state[7]) == i + 1
+        for f, t in zip(fused_state, torch_state):
+            f.copy_(t)
+    del step, fused_state, torch_state, fx, fr, fp, fz
+
+    # the cell's set: host counters and the card's launches
+    def solve():
+        out = SV.conjugate_gradient(op, b, tol=0.0, maxiter=PCG_MAXITER,
+                                    check_every=PCG_EVERY,
+                                    preconditioner="multigrid")
+        torch.cuda.synchronize()
+        return out
+
+    def torch_step():
+        return mock.patch.object(CG, "takes", lambda device, dtype: False)
+
+    solve()                                     # warm
+    for reset in (MG.reset_launches, MC.reset_launches, CG.reset_launches,
+                  K.reset_launches):
+        reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        x_f, info_f = solve()
+    host = {"multigrid": dict(MG.LAUNCHES), "kernels": dict(MC.LAUNCHES),
+            "cg": {**CG.LAUNCHES, **CG.PCG_LAUNCHES},
+            "k1": K.LAUNCHES["merge_tile_fused"]}
+    acts = device_kernels(prof)
+    # each side's step from unprofiled sets (the profiler slows replays)
+    fused_ms = [solve()[1].step_ms for _ in range(3)]
+    torch_ms = []
+    with torch_step():
+        solve()                                 # warm: its own capture
+        for _ in range(3):
+            x_t, info_t = solve()
+            torch_ms.append(info_t.step_ms)
+    step_f, step_t = float(np.median(fused_ms)), float(np.median(torch_ms))
+    sol_rel = float((x_f - x_t).abs().max() / x_t.abs().max())
+    iters = (int(info_f.iterations), int(info_t.iterations))
+    del x_f, x_t
+
+    # host: hv V-cycles enqueued (the prologue's, the eager block's and
+    # the recorded block's), each with every level's launches
+    last = len(op.levels) - 1
+    visits = {lv: 2 if lv == last else 4 for lv in range(last + 1)}
+    hv = host["multigrid"].get((0, "restrict"), 0)
+    want_mg = {}
+    for lv in range(last + 1):
+        want_mg[(lv, "product")] = want_mg[(lv, "update")] = \
+            hv * 8 * visits[lv]
+        if lv < last:
+            for kind in ("residual", "restrict", "prolong"):
+                want_mg[(lv, kind)] = hv
+    host_ok = (hv >= 2 and host["multigrid"] == want_mg
+               and host["kernels"] == {
+                   "symgs_update": hv * 8 * sum(visits.values()),
+                   "mg_restrict": hv * last, "mg_prolong": hv * last}
+               and host["cg"] == {"cg_pap": 0, "cg_update": 0,
+                                  "cg_direction": hv - 1, "pcg_pap": hv - 1,
+                                  "pcg_update": hv - 1, "pcg_rz": hv - 1}
+               and host["k1"] == hv * sum(8 * v + (lv < last)
+                                          for lv, v in visits.items())
+               + hv - 1 + 1)
+
+    # the card: each V-cycle kernel placed on its level by device order (a
+    # restriction opens the next level, a prolongation closes it)
+    kinds = ("symgs_update", "mg_restrict", "mg_prolong")
+    by = collections.defaultdict(list)     # (kind, level) -> ms
+    pcg = {name: [] for name in names}
+    depth, k1_count = 0, 0
+    for name, _, ms in acts:
+        if "merge_tile_kernel" in name:
+            k1_count += 1
+        if kernel_is(name, "mg_prolong"):
+            depth -= 1
+        for kind in kinds:
+            if kernel_is(name, kind):
+                by[(kind, depth)].append(ms)
+        if kernel_is(name, "mg_restrict"):
+            depth += 1
+        for kname in names:
+            if kernel_is(name, kname):
+                pcg[kname].append(ms)
+                depth = 0
+    vcycles = PCG_STEPS + 1
+    card_ok = (k1_count == vcycles * sum(8 * v + (lv < last)
+                                         for lv, v in visits.items())
+               + PCG_STEPS + 1
+               and all(len(v) == PCG_STEPS for v in pcg.values())
+               and all(len(by[("symgs_update", lv)]) == vcycles * 8 * v
+                       for lv, v in visits.items())
+               and all(len(by[(kind, lv)]) == (vcycles if lv < last else 0)
+                       for kind in kinds[1:] for lv in visits))
+
+    sizes = [lv_.op.shape[0] for lv_ in op.levels]
+
+    def rows_of(kind, lv):
+        # a launch's rows: a colour's (an eighth of the level on average),
+        # the next level's points for the grid transfers
+        return sizes[lv] / 8 if kind == "symgs_update" else sizes[lv + 1]
+
+    kernels, by_level = {}, {}
+    for kind in kinds:
+        total_ms = total_bound = 0.0
+        count = 0
+        levels = {}
+        for lv in visits:
+            times = by[(kind, lv)]
+            if not times:
+                continue
+            bound = rows_of(kind, lv) * MG_ROW_BYTES[kind] / peak_gbps / 1e6
+            levels[lv] = {"launches": len(times),
+                          "ms": float(np.mean(times)), "bound_ms": bound,
+                          "alone_ms": alone_ms[(kind, lv)],
+                          "plain_ms": plain_ms[(kind, lv)]}
+            total_ms += sum(times)
+            total_bound += bound * len(times)
+            count += len(times)
+        kernels[kind] = {"launches": count, "ms": total_ms / count,
+                         "bound_ms": total_bound / count,
+                         "plain_ms": sum(v["plain_ms"] * v["launches"]
+                                         for v in levels.values()) / count,
+                         "max_abs_err": 0.0 if exact else None}
+        by_level[kind] = levels
+    nbytes = n * 8
+    for name in names:
+        hbm, l2 = PCG_PASSES[name]
+        kernels[name] = {"launches": len(pcg[name]),
+                         "ms": float(np.mean(pcg[name])),
+                         "bound_ms": hbm * nbytes / peak_gbps / 1e6,
+                         "hbm_passes": hbm, "l2_passes": l2,
+                         "ulps_of_norm": ulps[name]}
+    fused_vector = sum(kernels[name]["ms"] for name in names)
+    torch_vector = step_t - step_f + fused_vector
+    ok = (exact and k_exact and host_ok and card_ok
+          and all(u <= PCG_ULPS for u in ulps.values())
+          and iters == (PCG_MAXITER, PCG_MAXITER)
+          and sol_rel <= FUSED_SOLUTION_REL_MAX)
+    per_kernel = "; ".join(
+        f"{k} {v['launches']} launches {v['ms']:.5f} ms (bound "
+        f"{v['bound_ms']:.5f} ms, {100 * v['bound_ms'] / v['ms']:.1f}%)"
+        for k, v in kernels.items())
+    per_level = "; ".join(
+        f"{kind} L{lv} {v['launches']}x {v['ms']:.5f} ms (bound "
+        f"{v['bound_ms']:.5f}, {100 * v['bound_ms'] / v['ms']:.1f}%; alone "
+        f"{v['alone_ms']:.5f}, plain {v['plain_ms']:.5f})"
+        for kind, levels in by_level.items() for lv, v in levels.items())
+    line = (f"multigrid pcg, HPCG-104 float64 (levels {sizes}, build "
+            f"{build_s:.2f} s, setup_s {op.setup_s}): V-cycle kernels "
+            f"bit-equal their plain versions {exact}; {FUSED_STEPS} fused PCG "
+            f"steps against pcg_torch_step, k exact {k_exact}, ulps of the "
+            f"norm {', '.join(f'{k} {v:.2f}' for k, v in ulps.items())} (at "
+            f"most {PCG_ULPS}); the cell's set: {iters[0]} iterations fused, "
+            f"{iters[1]} torch, solutions {sol_rel:.2e} apart; host counters "
+            f"({hv} V-cycles enqueued) {host_ok}: {host}; card launches "
+            f"({vcycles} V-cycles, K1 {k1_count}) {card_ok}; step "
+            f"{step_f:.4f} ms fused, {step_t:.4f} torch (medians of 3 "
+            f"unprofiled sets); "
+            f"vector work {fused_vector:.4f} ms fused, {torch_vector:.4f} "
+            f"torch; {per_kernel}; by level: {per_level}; ok={ok}")
+    del op
+    torch.cuda.empty_cache()
+    return ok, line, {"kernels": kernels, "by_level": by_level,
+                      "plain_ms": torch_vector, "host": host}
 
 
 def fastrp_k1m_report(peak_gbps):
@@ -2168,6 +2529,9 @@ def main() -> int:
     ok, text, cg_fused = fused_cg_report(SV, CG, info["peak_hbm_gbps"])
     print(text)
     solvers_ok &= ok
+    ok, text, mg_pcg = multigrid_report(SV, CG, info["peak_hbm_gbps"])
+    print(text)
+    solvers_ok &= ok
     print(f"solvers phase: {time.perf_counter() - t_phase:.1f} s")
     if not solvers_ok:
         return 1
@@ -3159,6 +3523,34 @@ def main() -> int:
              "library_ms": None, "main_path": True,
              "launches_by_path": {path: paths_sv[path][name]
                                   for path in ("cg_merge", "cg_dia")}})
+    # HPCG's V-cycle and PCG's step at the hpcg_104_mg.pcg cell's shapes in
+    # float64: launches as the host counted them in the cell's set, times
+    # there on the card (a launch's mean over the levels; by_level each
+    # level's, with the kernel and its plain version alone); the PCG
+    # kernels' plain_ms is the torch step's vector work, all four's
+    for name in ("symgs_update", "mg_restrict", "mg_prolong"):
+        e = mg_pcg["kernels"][name]
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "merge_spmv_tpu_torch/csrc/multigrid.cu",
+             "replaces": None, "launches": mg_pcg["host"]["kernels"][name],
+             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+             "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+             "bound_by": "bytes", "library_ms": None, "main_path": True,
+             "by_level": mg_pcg["by_level"][name]})
+    for name in ("pcg_pap", "pcg_update", "pcg_rz", "cg_direction"):
+        e = mg_pcg["kernels"][name]
+        kernels.append(
+            {"name": f"{name}@pcg" if name == "cg_direction" else name,
+             "route": "cuda",
+             "source": "merge_spmv_tpu_torch/csrc/cg_step.cu",
+             "replaces": None, "launches": mg_pcg["host"]["cg"][name],
+             "max_abs_err": None, "ulps_of_norm": e["ulps_of_norm"],
+             "ms": e["ms"], "plain_ms": mg_pcg["plain_ms"],
+             "plain_of": "all four", "bound_ms": e["bound_ms"],
+             "bound_by": "bytes", "hbm_passes": e["hbm_passes"],
+             "l2_passes": e["l2_passes"], "library_ms": None,
+             "main_path": True})
     print(json.dumps({"kernels": kernels}))
     print(info["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,9 @@ The port of merge_spmv_tpu (JAX / Pallas on a TPU), module for module:
   (dia_cuda, csrc/dia_matvec.cu); the banded and hot/cold split operators
   (split), the structure router (suggest) and the tile autotuner
   (autotune),
+* models/ — the solvers (CG, BiCGSTAB, Jacobi, power iteration, PageRank,
+  FastRP) and HPCG's multigrid preconditioner (multigrid:
+  ``build_multigrid``), with their kernels on the card,
 * bench/ and cli.py — the verify-then-time benchmark driver and its CLI,
   and the large-matrix generators (bench/matrices.py),
 * tools/ — the op-class throughput probe (sm_ceiling, csrc/sm_ceiling.cu)
@@ -43,6 +46,7 @@ from merge_spmv_tpu_torch.ops.split import (build_hotcold_operator,
 from merge_spmv_tpu_torch.ops.suggest import build_suggested, suggest_backend
 from merge_spmv_tpu_torch.ops.merge_path import (merge_path_search,
                                                  merge_tile_coordinates)
+from merge_spmv_tpu_torch.models.multigrid import build_multigrid
 
 __version__ = "0.1.0"
 
@@ -66,4 +70,5 @@ __all__ = [
     "csrmm",
     "merge_path_search",
     "merge_tile_coordinates",
+    "build_multigrid",
 ]

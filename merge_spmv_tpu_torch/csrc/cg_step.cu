@@ -22,6 +22,19 @@
 // is false no kernel writes x, r, p, rs or k, so the state keeps its bits, as
 // the torch step's masked commit keeps them.
 //
+// Preconditioned CG (HPCG's timed solve, z = M r by models/multigrid.py's
+// V-cycle) takes the same product and direction and three kernels of its own:
+//
+//   pcg_pap_kernel       act as above (on rs = r . r); alpha = rz / (p . ap);
+//   pcg_update_kernel    where act: x += alpha p, r -= alpha ap, rs = r . r,
+//                        k += 1 (no beta: it waits for z);
+//   (the V-cycle         z = M r, models/multigrid.py)
+//   pcg_rz_kernel        where act: rz_n = r . z, beta = rz_n / rz, rz = rz_n;
+//   cg_direction_kernel  where act: p = z + beta p (z in r's place).
+//
+// Each shares its body with its CG counterpart (pap_body, update_body), so
+// the CG kernels compute what they did, term for term.
+//
 // What bounds it: HBM bytes.  A step's vector passes are p and ap read
 // (cg_pap), x, r read and written, p and ap read (cg_update), r and p read, p
 // written (cg_direction): 11 passes of n values, against the ~20 of the torch
@@ -110,11 +123,15 @@ __device__ V sum_partials(const V* partials, V* s_warp) {
   return block_sum(v, s_warp);
 }
 
+// act = (rs > tol2) & (k < maxiter), stored for the step's later kernels;
+// where act, alpha = rho / (p . ap), rho being rs (CG) or rz (PCG).
 template <typename V>
-__global__ void __launch_bounds__(kThreads) cg_pap_kernel(
-    const V* __restrict__ p, const V* __restrict__ ap, long long n,
-    const V* __restrict__ rs, const V* __restrict__ tol2,
-    const int* __restrict__ k, int maxiter, int* flags, V* work) {
+__device__ void pap_body(const V* __restrict__ p, const V* __restrict__ ap,
+                         long long n, const V* __restrict__ rs,
+                         const V* __restrict__ rho,
+                         const V* __restrict__ tol2,
+                         const int* __restrict__ k, int maxiter, int* flags,
+                         V* work) {
   __shared__ V s_warp[kWarps];
   const bool act = (*rs > *tol2) && (*k < maxiter);
   if (blockIdx.x == 0 && threadIdx.x == 0) flags[kAct] = act;
@@ -129,14 +146,33 @@ __global__ void __launch_bounds__(kThreads) cg_pap_kernel(
   unsigned int* ticket = reinterpret_cast<unsigned int*>(flags + kTicket);
   if (!last_block(partial, work + kPartials, ticket)) return;
   const V pap = sum_partials(work + kPartials, s_warp);
-  if (threadIdx.x == 0) work[kAlpha] = *rs / pap;
+  if (threadIdx.x == 0) work[kAlpha] = *rho / pap;
 }
 
 template <typename V>
-__global__ void __launch_bounds__(kThreads) cg_update_kernel(
-    V* __restrict__ x, V* __restrict__ r, const V* __restrict__ p,
-    const V* __restrict__ ap, long long n, V* rs, int* k, int* flags,
-    V* work) {
+__global__ void __launch_bounds__(kThreads) cg_pap_kernel(
+    const V* __restrict__ p, const V* __restrict__ ap, long long n,
+    const V* __restrict__ rs, const V* __restrict__ tol2,
+    const int* __restrict__ k, int maxiter, int* flags, V* work) {
+  pap_body(p, ap, n, rs, rs, tol2, k, maxiter, flags, work);
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads) pcg_pap_kernel(
+    const V* __restrict__ p, const V* __restrict__ ap, long long n,
+    const V* __restrict__ rs, const V* __restrict__ rz,
+    const V* __restrict__ tol2, const int* __restrict__ k, int maxiter,
+    int* flags, V* work) {
+  pap_body(p, ap, n, rs, rz, tol2, k, maxiter, flags, work);
+}
+
+// Where act: x += alpha p, r -= alpha ap, rs = r . r (the new r), k += 1,
+// and with kWithBeta (CG) beta = rs_n / rs before rs is replaced.
+template <typename V, bool kWithBeta>
+__device__ void update_body(V* __restrict__ x, V* __restrict__ r,
+                            const V* __restrict__ p,
+                            const V* __restrict__ ap, long long n, V* rs,
+                            int* k, int* flags, V* work) {
   __shared__ V s_warp[kWarps];
   if (!flags[kAct]) return;
   const V alpha = work[kAlpha];
@@ -155,9 +191,48 @@ __global__ void __launch_bounds__(kThreads) cg_update_kernel(
   if (!last_block(partial, work + kPartials, ticket)) return;
   const V rs_n = sum_partials(work + kPartials, s_warp);
   if (threadIdx.x == 0) {
-    work[kBeta] = rs_n / *rs;
+    if (kWithBeta) work[kBeta] = rs_n / *rs;
     *rs = rs_n;
     *k += 1;
+  }
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads) cg_update_kernel(
+    V* __restrict__ x, V* __restrict__ r, const V* __restrict__ p,
+    const V* __restrict__ ap, long long n, V* rs, int* k, int* flags,
+    V* work) {
+  update_body<V, true>(x, r, p, ap, n, rs, k, flags, work);
+}
+
+template <typename V>
+__global__ void __launch_bounds__(kThreads) pcg_update_kernel(
+    V* __restrict__ x, V* __restrict__ r, const V* __restrict__ p,
+    const V* __restrict__ ap, long long n, V* rs, int* k, int* flags,
+    V* work) {
+  update_body<V, false>(x, r, p, ap, n, rs, k, flags, work);
+}
+
+// Where act, after z = M r: rz_n = r . z, beta = rz_n / rz, rz = rz_n.
+template <typename V>
+__global__ void __launch_bounds__(kThreads) pcg_rz_kernel(
+    const V* __restrict__ r, const V* __restrict__ z, long long n, V* rz,
+    int* flags, V* work) {
+  __shared__ V s_warp[kWarps];
+  if (!flags[kAct]) return;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  V acc = V(0);
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < n; i += stride)
+    acc += r[i] * z[i];
+  const V partial = block_sum(acc, s_warp);
+  unsigned int* ticket = reinterpret_cast<unsigned int*>(flags + kTicket);
+  if (!last_block(partial, work + kPartials, ticket)) return;
+  const V rz_n = sum_partials(work + kPartials, s_warp);
+  if (threadIdx.x == 0) {
+    work[kBeta] = rz_n / *rz;
+    *rz = rz_n;
   }
 }
 
@@ -216,6 +291,46 @@ int launch_direction(void* p, const void* r, long long n, const void* flags,
   return cudaGetLastError();
 }
 
+template <typename V>
+int launch_pcg_pap(const void* p, const void* ap, long long n,
+                   const void* rs, const void* rz, const void* tol2,
+                   const void* k, int maxiter, void* flags, void* work,
+                   int blocks, void* stream) {
+  if (!valid_grid(blocks)) return cudaErrorInvalidValue;
+  pcg_pap_kernel<V><<<blocks, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(p), static_cast<const V*>(ap), n,
+      static_cast<const V*>(rs), static_cast<const V*>(rz),
+      static_cast<const V*>(tol2), static_cast<const int*>(k), maxiter,
+      static_cast<int*>(flags), static_cast<V*>(work));
+  return cudaGetLastError();
+}
+
+template <typename V>
+int launch_pcg_update(void* x, void* r, const void* p, const void* ap,
+                      long long n, void* rs, void* k, void* flags,
+                      void* work, int blocks, void* stream) {
+  if (!valid_grid(blocks)) return cudaErrorInvalidValue;
+  pcg_update_kernel<V><<<blocks, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<V*>(x), static_cast<V*>(r), static_cast<const V*>(p),
+      static_cast<const V*>(ap), n, static_cast<V*>(rs),
+      static_cast<int*>(k), static_cast<int*>(flags),
+      static_cast<V*>(work));
+  return cudaGetLastError();
+}
+
+template <typename V>
+int launch_pcg_rz(const void* r, const void* z, long long n, void* rz,
+                  void* flags, void* work, int blocks, void* stream) {
+  if (!valid_grid(blocks)) return cudaErrorInvalidValue;
+  pcg_rz_kernel<V><<<blocks, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(r), static_cast<const V*>(z), n,
+      static_cast<V*>(rz), static_cast<int*>(flags), static_cast<V*>(work));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -240,6 +355,23 @@ extern "C" {
                          const void* flags, const void* work, int blocks,    \
                          void* stream) {                                     \
     return launch_direction<V>(p, r, n, flags, work, blocks, stream);        \
+  }                                                                          \
+  int pcg_pap_##SFX(const void* p, const void* ap, long long n,              \
+                    const void* rs, const void* rz, const void* tol2,        \
+                    const void* k, int maxiter, void* flags, void* work,     \
+                    int blocks, void* stream) {                              \
+    return launch_pcg_pap<V>(p, ap, n, rs, rz, tol2, k, maxiter, flags,      \
+                             work, blocks, stream);                          \
+  }                                                                          \
+  int pcg_update_##SFX(void* x, void* r, const void* p, const void* ap,      \
+                       long long n, void* rs, void* k, void* flags,          \
+                       void* work, int blocks, void* stream) {               \
+    return launch_pcg_update<V>(x, r, p, ap, n, rs, k, flags, work, blocks,  \
+                                stream);                                     \
+  }                                                                          \
+  int pcg_rz_##SFX(const void* r, const void* z, long long n, void* rz,      \
+                   void* flags, void* work, int blocks, void* stream) {      \
+    return launch_pcg_rz<V>(r, z, n, rz, flags, work, blocks, stream);       \
   }
 
 CG_STEP_ENTRIES(f32, float)

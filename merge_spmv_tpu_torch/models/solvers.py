@@ -29,7 +29,9 @@ and dot products are plain torch ops in the operand dtype, as they are XLA
 ops outside the Pallas kernel in the JAX package; the SpMVs are the
 operator's kernels.  CG's step on the card in float32 or float64 is the
 operator's product and three fused kernels (models/cg_cuda.py): four
-launches a step in place of ~25.
+launches a step in place of ~25.  With ``preconditioner="multigrid"`` a
+CG step also runs one V-cycle (models/multigrid.py) and two more fused
+kernels.
 
 All solvers return (solution, info); ``info.iterations`` and
 ``info.residual`` are the JAX package's, ``info.host_reads`` counts the
@@ -270,31 +272,57 @@ def _iterate(step, active, device, maxiter: int, check_every: int,
 @_solver
 def conjugate_gradient(op, b, x0=None, tol: float = 1e-6,
                        maxiter: int = 1000, check_every: int = 16,
-                       graph: Optional[bool] = None):
+                       graph: Optional[bool] = None,
+                       preconditioner: Optional[str] = None):
     """CG for symmetric positive-definite A (e.g. grid Laplacians).
 
     Standard Hestenes-Stiefel recurrence; one op(x) per iteration.  On a
     CUDA device in float32 or float64 the step's vector work is the fused
     kernels of models/cg_cuda.py; elsewhere torch ops.
+
+    ``preconditioner="multigrid"`` runs HPCG's preconditioned CG over an
+    operator of models/multigrid.py::build_multigrid: z = M r (one
+    V-cycle) in the prologue and after each step's update, alpha = r.z /
+    p.Ap, beta = (r.z)_new / (r.z)_old, p = z + beta p.  The stopping
+    test and ``info.residual`` stay on ||r||.
     """
+    if preconditioner not in (None, "multigrid"):
+        raise ValueError(f"unknown preconditioner {preconditioner!r}")
+    pre = preconditioner is not None
+    if pre and not hasattr(op, "precondition"):
+        raise ValueError("preconditioner='multigrid' takes an operator of "
+                         "build_multigrid")
     with span(PROLOGUE):
         b = _vector(op, b)
         x = torch.zeros_like(b) if x0 is None else _vector(op, x0).clone()
         r = b - op(x)
-        p = r.clone()
+        z = rz = None
+        if pre:
+            z = op.precondition(r, torch.empty_like(r))
+            p = z.clone()
+            rz = torch.sum(r * z)
+        else:
+            p = r.clone()
         rs = torch.sum(r * r)
         tol2 = torch.tensor(tol, dtype=b.dtype, device=b.device) ** 2 \
             * torch.sum(b * b)
         k = torch.zeros((), dtype=torch.int32, device=b.device)
-        fused = (cg_cuda.FusedCgStep(x, r, p, rs, tol2, k, maxiter)
+        fused = (cg_cuda.FusedCgStep(x, r, p, rs, tol2, k, maxiter, z, rz)
                  if cg_cuda.takes(b.device, b.dtype) else None)
 
     def active():
         return (rs > tol2) & (k < maxiter)
 
+    def precondition():
+        op.precondition(r, z)
+
     def step():
-        if fused is None:
+        if fused is None and pre:
+            pcg_torch_step(op, x, r, p, z, rs, rz, tol2, k, maxiter)
+        elif fused is None:
             cg_torch_step(op, x, r, p, rs, tol2, k, maxiter)
+        elif pre:
+            fused.step(op(p), precondition)
         else:
             fused.step(op(p))
 
@@ -314,6 +342,23 @@ def cg_torch_step(op, x, r, p, rs, tol2, k, maxiter: int):
     rs_n = torch.sum(r_n * r_n)
     p_n = r_n + (rs_n / rs) * p
     _commit(act, (x, x_n), (r, r_n), (p, p_n), (rs, rs_n))
+    k.add_(act.to(k.dtype))
+
+
+def pcg_torch_step(op, x, r, p, z, rs, rz, tol2, k, maxiter: int):
+    """One masked preconditioned CG step in torch ops, in place, z = M r
+    by ``op.precondition`` into the scratch z: the step everywhere the
+    fused one is not taken, and its plain version."""
+    act = (rs > tol2) & (k < maxiter)
+    ap = op(p)
+    alpha = rz / torch.sum(p * ap)
+    x_n = x + alpha * p
+    r_n = r - alpha * ap
+    rs_n = torch.sum(r_n * r_n)
+    z_n = op.precondition(r_n, z)
+    rz_n = torch.sum(r_n * z_n)
+    p_n = z_n + (rz_n / rz) * p
+    _commit(act, (x, x_n), (r, r_n), (p, p_n), (rs, rs_n), (rz, rz_n))
     k.add_(act.to(k.dtype))
 
 

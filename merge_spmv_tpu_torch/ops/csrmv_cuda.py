@@ -18,8 +18,11 @@ reference's three steps, with persistent blocks:
 
 ``merge_csrmv`` (op(x)'s route) launches the two as one kernel: the block
 that finishes last, counted by an integer ticket, runs the fix-up as its
-tail.  ``merge_tile`` and ``carry_fixup`` launch them apart, for the tests
-and the A/B timing; the fused kernel's bits are theirs.  The ticket counter
+tail; ``bind_merge_csrmv`` sets the same launch up once for a fixed x and
+y, so that each later launch is a single ctypes call (the multigrid
+V-cycle's ~100 products).  ``merge_tile`` and ``carry_fixup`` launch them
+apart, for the tests and the A/B timing; the fused kernel's bits are
+theirs.  The ticket counter
 is the caller's (``ticket_counter``: every operator allocates its own at
 build, so that no counter is allocated inside a CUDA-graph capture), or the
 module's one per device for a call given none.  The kernel leaves it at 0.
@@ -77,9 +80,9 @@ from merge_spmv_tpu_torch.utils.cuda_build import (alignment,
                                                    raise_on_launch,
                                                    raw_stream, row_major)
 
-__all__ = ["merge_tile", "carry_fixup", "merge_csrmv", "merge_tile_plain",
-           "carry_fixup_plain", "merge_csrmv_plain", "launch_geometry",
-           "kernel_occupancy", "ticket_counter", "LAUNCHES",
+__all__ = ["merge_tile", "carry_fixup", "merge_csrmv", "bind_merge_csrmv",
+           "merge_tile_plain", "carry_fixup_plain", "merge_csrmv_plain",
+           "launch_geometry", "kernel_occupancy", "ticket_counter", "LAUNCHES",
            "reset_launches", "KERNEL_SOURCE", "merge_csrmm",
            "merge_csrmm_plain", "mm_launch_geometry", "mm_kernel_occupancy",
            "COPIES", "MM_SOURCE"]
@@ -280,13 +283,10 @@ def merge_csrmm_plain(values, col_indices, row_end_offsets, X, tile_rows,
 # Kernel wrappers
 # ---------------------------------------------------------------------- #
 
-def _tile_call(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
-               tile_items, y_in, alpha, beta, run_tiles, fused, tickets=None,
-               policy="stream"):
-    """The checks and the launch of the tile kernel's unfused or fused
-    instantiation of the gather ``policy``; (y, carry_row, carry_val),
-    with the carries added into y when ``fused``, counting on
-    ``tickets``.  The plain version for CPU tensors."""
+def _tile_setup(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
+                tile_items, y_in, run_tiles, fused, tickets, policy):
+    """The checks of a tile kernel launch and its geometry: (on the CPU,
+    the launch geometry, the run length in tiles)."""
     num_rows = row_end_offsets.shape[0]
     num_tiles = tile_rows.shape[0] - 1
     want_tiles = num_merge_tiles(num_rows, values.shape[0], tile_items)
@@ -304,6 +304,64 @@ def _tile_call(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
     geo = launch_geometry(num_tiles, tile_items, dtype, values.device, fused,
                           policy)
     run = geo.run_tiles if run_tiles is None else int(run_tiles)
+    if not cpu:
+        _check("values", values, dtype)
+        _check("col_indices", col_indices, torch.int32, values.shape)
+        _check("row_end_offsets", row_end_offsets, torch.int32)
+        _check("x", x, dtype)
+        _check("tile_rows", tile_rows, torch.int32)
+        _check("tile_nnz", tile_nnz, torch.int32, tile_rows.shape)
+        if values.dim() != 1 or x.dim() != 1:
+            raise ValueError("values and x must be vectors")
+        if y_in is not None:
+            _check("y_in", y_in, dtype, (num_rows,))
+        if tickets is not None:
+            _check("tickets", tickets, torch.int32, (1,))
+    return cpu, geo, run
+
+
+def _tile_outputs(values, num_rows: int, num_tiles: int, run: int):
+    """A launch's y, carry_row and carry_val, uninitialised."""
+    num_runs = -(-num_tiles // run)
+    dev, dtype = values.device, values.dtype
+    return (torch.empty(num_rows, dtype=dtype, device=dev),
+            torch.empty(num_runs, dtype=torch.int32, device=dev),
+            torch.empty(num_runs, dtype=dtype, device=dev))
+
+
+def _tile_entry(values, col_indices, row_end_offsets, x, y_in, tile_rows,
+                tile_nnz, alpha, beta, outputs, geo, run, fused, policy,
+                tickets):
+    """The library entry of one launch and its arguments but the stream."""
+    y, carry_row, carry_val = outputs
+    num_tiles = tile_rows.shape[0] - 1
+    num_runs = carry_row.shape[0]
+    # the blocks of one SM walk neighbouring runs (csrc/merge_csrmv.cu)
+    sm_blocks = geo.blocks_per_sm if num_runs % geo.blocks_per_sm == 0 else 1
+    fn = getattr(_device_lib(values.device.index),
+                 f"merge_tile_{_SUFFIX[values.dtype]}")
+    return fn, (
+        values.data_ptr(), col_indices.data_ptr(),
+        row_end_offsets.data_ptr(), x.data_ptr(),
+        None if y_in is None else y_in.data_ptr(),
+        tile_rows.data_ptr(), tile_nnz.data_ptr(), float(alpha),
+        float(beta), y.data_ptr(), carry_row.data_ptr(),
+        carry_val.data_ptr(), row_end_offsets.shape[0], num_tiles, run,
+        sm_blocks, geo.threads, geo.shared_bytes, int(fused),
+        POLICIES.index(policy),
+        None if tickets is None else tickets.data_ptr())
+
+
+def _tile_call(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
+               tile_items, y_in, alpha, beta, run_tiles, fused, tickets=None,
+               policy="stream"):
+    """The checks and the launch of the tile kernel's unfused or fused
+    instantiation of the gather ``policy``; (y, carry_row, carry_val),
+    with the carries added into y when ``fused``, counting on
+    ``tickets``.  The plain version for CPU tensors."""
+    cpu, geo, run = _tile_setup(values, col_indices, row_end_offsets, x,
+                                tile_rows, tile_nnz, tile_items, y_in,
+                                run_tiles, fused, tickets, policy)
     if cpu:
         y, carry_row, carry_val = merge_tile_plain(
             values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
@@ -311,40 +369,62 @@ def _tile_call(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,
         if fused:
             carry_fixup_plain(y, carry_row, carry_val, alpha)
         return y, carry_row, carry_val
-    _check("values", values, dtype)
-    _check("col_indices", col_indices, torch.int32, values.shape)
-    _check("row_end_offsets", row_end_offsets, torch.int32)
-    _check("x", x, dtype)
-    _check("tile_rows", tile_rows, torch.int32)
-    _check("tile_nnz", tile_nnz, torch.int32, tile_rows.shape)
-    if values.dim() != 1 or x.dim() != 1:
-        raise ValueError("values and x must be vectors")
-    if y_in is not None:
-        _check("y_in", y_in, dtype, (num_rows,))
-    if tickets is not None:
-        _check("tickets", tickets, torch.int32, (1,))
+    outputs = _tile_outputs(values, row_end_offsets.shape[0],
+                            tile_rows.shape[0] - 1, run)
+    fn, args = _tile_entry(values, col_indices, row_end_offsets, x, y_in,
+                           tile_rows, tile_nnz, alpha, beta, outputs, geo,
+                           run, fused, policy, tickets)
     dev = values.device
-    num_runs = -(-num_tiles // run)
-    # the blocks of one SM walk neighbouring runs (csrc/merge_csrmv.cu)
-    sm_blocks = geo.blocks_per_sm if num_runs % geo.blocks_per_sm == 0 else 1
-    y = torch.empty(num_rows, dtype=dtype, device=dev)
-    carry_row = torch.empty(num_runs, dtype=torch.int32, device=dev)
-    carry_val = torch.empty(num_runs, dtype=dtype, device=dev)
-    lib = _device_lib(dev.index)
     with device_context(dev):
-        rc = getattr(lib, f"merge_tile_{_SUFFIX[dtype]}")(
-            values.data_ptr(), col_indices.data_ptr(),
-            row_end_offsets.data_ptr(), x.data_ptr(),
-            None if y_in is None else y_in.data_ptr(),
-            tile_rows.data_ptr(), tile_nnz.data_ptr(), float(alpha),
-            float(beta), y.data_ptr(), carry_row.data_ptr(),
-            carry_val.data_ptr(), num_rows, num_tiles, run, sm_blocks,
-            geo.threads, geo.shared_bytes, int(fused), POLICIES.index(policy),
-            None if tickets is None else tickets.data_ptr(), raw_stream(dev))
+        rc = fn(*args, raw_stream(dev))
     name = "merge_tile_fused" if fused else "merge_tile"
     raise_on_launch(KERNEL_SOURCE, rc, name)
     LAUNCHES[name] += 1
-    return y, carry_row, carry_val
+    return outputs
+
+
+def bind_merge_csrmv(values, col_indices, row_end_offsets, x, tile_rows,
+                     tile_nnz, tile_items, tickets=None, policy="stream"):
+    """y = A @ x with the checks, the geometry and the launch's arguments
+    worked out once: returns (launch, y).  Each ``launch(stream=None)``
+    writes A @ x, for the values x holds then, into the same y: one launch
+    of the fused kernel (``merge_csrmv``'s bits) on the given raw stream
+    (the caller's device current) or else on the current stream, the plain
+    version for CPU tensors.  Launches sharing ``tickets`` must be
+    stream-ordered, as for ``merge_csrmv``."""
+    cpu, geo, run = _tile_setup(values, col_indices, row_end_offsets, x,
+                                tile_rows, tile_nnz, tile_items, None, None,
+                                True, tickets, policy)
+    num_rows = row_end_offsets.shape[0]
+    if cpu:
+        y = torch.empty(num_rows, dtype=values.dtype, device=values.device)
+
+        def plain(stream=None):
+            y.copy_(merge_csrmv_plain(values, col_indices, row_end_offsets,
+                                      x, tile_rows, tile_nnz, tile_items,
+                                      run_tiles=run))
+        return plain, y
+    outputs = _tile_outputs(values, num_rows, tile_rows.shape[0] - 1, run)
+    fn, args = _tile_entry(values, col_indices, row_end_offsets, x, None,
+                           tile_rows, tile_nnz, 1.0, 0.0, outputs, geo, run,
+                           True, policy, tickets)
+    dev = values.device
+
+    def launch(stream=None):
+        if stream is None:
+            with device_context(dev):
+                rc = fn(*args, raw_stream(dev))
+        else:
+            rc = fn(*args, stream)
+        if rc:
+            raise_on_launch(KERNEL_SOURCE, rc, "merge_tile_fused")
+        LAUNCHES["merge_tile_fused"] += 1
+    # alive while the launch points at them
+    launch.operands = (values, col_indices, row_end_offsets, x, tile_rows,
+                       tile_nnz, tickets, outputs)
+    # for a CUDA graph of bound launches (models/multigrid_cuda.py::Graph)
+    launch.entry, launch.counter = (fn, args), (LAUNCHES, "merge_tile_fused")
+    return launch, outputs[0]
 
 
 def merge_tile(values, col_indices, row_end_offsets, x, tile_rows, tile_nnz,

@@ -25,8 +25,10 @@ import torch
 
 from merge_spmv_tpu_torch.ops.csrmv import (_csrmm_merge, _csrmv_merge,
                                             check_matrix_operands,
+                                            check_vector_operands,
                                             compute_dtype)
-from merge_spmv_tpu_torch.ops.csrmv_cuda import ticket_counter
+from merge_spmv_tpu_torch.ops.csrmv_cuda import (bind_merge_csrmv,
+                                                 ticket_counter)
 from merge_spmv_tpu_torch.ops.csrmv_torch import row_ids_from_offsets
 from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
@@ -111,6 +113,23 @@ class SpmvOperator:
                                 self._vec(x), self._vec(y_in), alpha, beta,
                                 (self.tile_rows, self.tile_nnz),
                                 self.tickets)
+
+    def bind(self, x):
+        """y = A @ x with its checks and launch set up once: returns
+        (launch, y), and each ``launch(stream=None)`` writes A @ x, for the
+        values x holds then, into the same y, in one launch of op(x)'s
+        kernel (on the given raw stream, else the current one; the plain
+        version on the CPU).  x must be a contiguous [num_cols]
+        vector of the compute dtype, alive and in place while launch is
+        used; the launches count on this operator's tickets, so they and
+        its calls must be stream-ordered."""
+        x = self._vec(x)
+        check_vector_operands(self.plan, x)
+        return bind_merge_csrmv(self.values, self.col_indices,
+                                self.row_end_offsets, x, self.tile_rows,
+                                self.tile_nnz, self.plan.tile_items,
+                                tickets=self.tickets,
+                                policy=self.plan.policy)
 
     def mm(self, X, Y_in=None, alpha=1.0, beta=0.0, interpret: bool = False,
            method: str = "auto"):

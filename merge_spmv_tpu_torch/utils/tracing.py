@@ -23,8 +23,9 @@ import torch
 
 __all__ = ["span", "SPANS", "SOLVE", "PROLOGUE", "EAGER_BLOCK", "CAPTURE",
            "CAPTURE_ENTER", "CAPTURE_RECORD", "CAPTURE_EXIT", "REPLAY",
-           "FLAG_READ", "RELEASE", "NORMALIZE", "OP_CALL", "OP_MM",
-           "BUILD_PLAN", "BUILD_PREPARE", "BUILD_TRANSITION"]
+           "FLAG_READ", "RELEASE", "NORMALIZE", "PRECONDITION", "MG_LEVELS",
+           "OP_CALL", "OP_MM", "BUILD_PLAN", "BUILD_PREPARE",
+           "BUILD_TRANSITION", "BUILD_MULTIGRID"]
 
 SOLVE = "merge_spmv.solve"
 PROLOGUE = "merge_spmv.solve.prologue"
@@ -37,11 +38,18 @@ REPLAY = "merge_spmv.solve.replay"
 FLAG_READ = "merge_spmv.solve.flag_read"
 RELEASE = "merge_spmv.solve.release"
 NORMALIZE = "merge_spmv.solve.normalize"
+PRECONDITION = "merge_spmv.solve.precondition"
+MG_LEVEL0 = "merge_spmv.mg.level0"
+MG_LEVEL1 = "merge_spmv.mg.level1"
+MG_LEVEL2 = "merge_spmv.mg.level2"
+MG_LEVEL3 = "merge_spmv.mg.level3"
+MG_LEVELS = (MG_LEVEL0, MG_LEVEL1, MG_LEVEL2, MG_LEVEL3)
 OP_CALL = "merge_spmv.op.call"
 OP_MM = "merge_spmv.op.mm"
 BUILD_PLAN = "merge_spmv.build.plan"
 BUILD_PREPARE = "merge_spmv.build.prepare"
 BUILD_TRANSITION = "merge_spmv.build.transition"
+BUILD_MULTIGRID = "merge_spmv.build.multigrid"
 
 SPANS = {
     SOLVE: "a solver call (models/solvers.py), entry to return",
@@ -65,6 +73,13 @@ SPANS = {
     NORMALIZE: "FastRP's dense work after a product: the rows of N_i "
                "L2-normalised in place and added, weighted, into the "
                "embedding",
+    PRECONDITION: "one multigrid V-cycle z = M r enqueued by the host "
+                  "(models/multigrid.py), in a solve's prologue, eager "
+                  "blocks or recording",
+    **{name: f"level {level}'s work inside a V-cycle: its zero start (level "
+             "0), smoothing, residual product, restriction and "
+             "prolongation; it holds the coarser levels' spans"
+       for level, name in enumerate(MG_LEVELS)},
     OP_CALL: "SpmvOperator.__call__: y = alpha A x + beta y_in, one launch",
     OP_MM: "SpmvOperator.mm: Y = alpha A X + beta Y_in",
     BUILD_PLAN: "build_operator's make_plan (op.setup_s['plan'])",
@@ -73,6 +88,10 @@ SPANS = {
     BUILD_TRANSITION: "transition_operator's row sums and scaling of the "
                       "values to D^-1 A, inside BUILD_PREPARE "
                       "(op.setup_s['transition'])",
+    BUILD_MULTIGRID: "build_multigrid's own set-up, two spans around the "
+                     "fine operator's build: the grid check before it; the "
+                     "coarse levels, the colours' operators and the scratch "
+                     "after it (op.setup_s['multigrid'], the two summed)",
 }
 
 _profiler_enabled = torch.autograd._profiler_enabled

@@ -60,6 +60,34 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int*, T*, int,
                                                           size_t);
 cudaError_t cudaGetLastError();
 const char* cudaGetErrorString(cudaError_t);
+cudaError_t cudaMemsetAsync(void*, int, size_t, cudaStream_t);
+typedef struct CUgraph_st* cudaGraph_t;
+typedef struct CUgraphExec_st* cudaGraphExec_t;
+typedef struct CUgraphNode_st* cudaGraphNode_t;
+enum cudaStreamCaptureMode { cudaStreamCaptureModeThreadLocal };
+enum cudaStreamCaptureStatus {
+  cudaStreamCaptureStatusNone, cudaStreamCaptureStatusActive,
+  cudaStreamCaptureStatusInvalidated
+};
+enum { cudaErrorStreamCaptureInvalidated = 901 };
+enum { cudaStreamSetCaptureDependencies = 1 };
+cudaError_t cudaStreamBeginCapture(cudaStream_t, cudaStreamCaptureMode);
+cudaError_t cudaStreamEndCapture(cudaStream_t, cudaGraph_t*);
+cudaError_t cudaGraphInstantiateWithFlags(cudaGraphExec_t*, cudaGraph_t,
+                                          unsigned long long);
+cudaError_t cudaStreamIsCapturing(cudaStream_t, cudaStreamCaptureStatus*);
+cudaError_t cudaGraphLaunch(cudaGraphExec_t, cudaStream_t);
+cudaError_t cudaStreamGetCaptureInfo(cudaStream_t, cudaStreamCaptureStatus*,
+                                     unsigned long long*, cudaGraph_t*,
+                                     const cudaGraphNode_t**, size_t*);
+cudaError_t cudaGraphAddChildGraphNode(cudaGraphNode_t*, cudaGraph_t,
+                                       const cudaGraphNode_t*, size_t,
+                                       cudaGraph_t);
+cudaError_t cudaStreamUpdateCaptureDependencies(cudaStream_t,
+                                                cudaGraphNode_t*, size_t,
+                                                unsigned int);
+cudaError_t cudaGraphExecDestroy(cudaGraphExec_t);
+cudaError_t cudaGraphDestroy(cudaGraph_t);
 template <class T> T __ldg(const T*);
 template <class T> T __ldcg(const T*);
 template <class T> T __shfl_up_sync(unsigned, T, int);
