@@ -113,14 +113,16 @@ Phases, one line of output each (any failure exits non-zero and prints no
              they join the kernels line.  Then HPCG's preconditioned CG
              at the hpcg_104_mg.pcg cell's shapes (multigrid_report):
              build_multigrid on that matrix; at every level the V-cycle's
-             symgs_update (each colour), mg_restrict and mg_prolong,
-             through the launchers the V-cycle binds, bit-equal to their
-             plain versions; 4 fused PCG steps (pcg_pap, pcg_update,
-             pcg_rz, cg_direction with z) against pcg_torch_step from one
-             state; the cell's set (50 iterations, blocks of 16) with
-             every launch counter reset just before: the host's counts
-             by level and kind against the V-cycles it enqueued, the
-             card's (65 V-cycles) from the profiler, and each kernel's
+             colour step (symgs_update, each colour: product and update in
+             one launch) within COLOUR_ULPS of its plain route, and
+             mg_restrict and mg_prolong bit-equal to their plain versions,
+             through the launchers the V-cycle binds; 4 fused PCG steps
+             (pcg_pap, pcg_update, pcg_rz, cg_direction with z) against
+             pcg_torch_step from one state; the cell's set (50
+             iterations, blocks of 16) with every launch counter reset
+             just before: the host's counts by level and kind against
+             the V-cycles it enqueued, the card's (65 V-cycles, no K1
+             right before a colour step) from the profiler, and each kernel's
              device ms by level in that set beside its bytes bound, the
              kernel and its plain version alone; they join the kernels
              line.
@@ -310,12 +312,17 @@ PCG_MAXITER, PCG_EVERY, PCG_STEPS = 50, 16, 64
 # it
 PCG_PASSES = {"pcg_pap": (2, 0), "pcg_update": (4, 2), "pcg_rz": (2, 0),
               "cg_direction": (2, 1)}
-# the V-cycle's kernels: bytes a row each touches (int32 index, values of
-# 8 bytes): symgs_update reads rows, r, y, diag and x and writes x;
-# mg_restrict reads f2c, r and Axf and writes r_c and x_c; mg_prolong reads
-# f2c, x_c and x and writes x
-MG_ROW_BYTES = {"symgs_update": 4 + 5 * 8, "mg_restrict": 4 + 4 * 8,
-                "mg_prolong": 4 + 3 * 8}
+# the V-cycle's grid transfers: bytes a row each touches (int32 index,
+# values of 8 bytes): mg_restrict reads f2c, r and Axf and writes r_c and
+# x_c; mg_prolong reads f2c, x_c and x and writes x.  A colour step's bound
+# is spmv_bench/roofline_mg.py::symgs_bytes' count for its level
+MG_ROW_BYTES = {"mg_restrict": 4 + 4 * 8, "mg_prolong": 4 + 3 * 8}
+# the colour step (one launch: the colour's product and update) against its
+# plain route (the colour operator's K1 product, then symgs_update_plain)
+# on the same x and r: each row of x within COLOUR_ULPS unit roundoffs of
+# (|A_c| |x| + |r|) / a_ii (the two sum a row's <= 27 products in other
+# orders; tests/test_torch_multigrid.py's bound), x equal off the colour
+COLOUR_ULPS = 16
 # PageRank on the kron class: stopped at an L1 step of 1e-6, which float32
 # reaches (its rounding floor over 1M ranks is ~1e-7); the L1 distance from
 # a float64 run of the same iterations at most 1e-4 of the total mass 1
@@ -836,9 +843,12 @@ def graph_ms(fn, reps=20):
 def multigrid_report(SV, CG, peak_gbps):
     """HPCG's preconditioned CG at the hpcg_104_mg.pcg cell's shapes:
     build_multigrid on the 104^3 stencil in float64.  At every level, on
-    card tensors, each colour's symgs_update (after its own K1 product),
-    the restriction and the prolongation through the launchers the
-    V-cycle binds, bit-equal to their plain versions.  Then FUSED_STEPS
+    card tensors, each colour's step (symgs_update: the colour's product
+    and update in one launch) against its plain route (the colour
+    operator's K1 product, then symgs_update_plain) within COLOUR_ULPS, x
+    unchanged off the colour's rows; the restriction and the prolongation
+    bit-equal to their plain versions; all through the launchers the
+    V-cycle binds.  Then FUSED_STEPS
     fused PCG steps (pcg_pap, pcg_update, the V-cycle, pcg_rz,
     cg_direction with z) beside pcg_torch_step from the same state, each
     value within PCG_ULPS of its norm, k exact.  Then the cell's set,
@@ -848,11 +858,14 @@ def multigrid_report(SV, CG, peak_gbps):
     (multigrid.LAUNCHES by level and kind, multigrid_cuda.LAUNCHES,
     cg_cuda's, K1's) against the V-cycles it enqueued, and the card's
     (65 V-cycles: each kernel's launches by level, placed by device
-    order).  Each kernel's device ms a launch in that set, by level, and
-    its bytes bound from the set's own shapes; the plain versions timed
-    alone at each level (CUDA-graph replays), and the torch step's vector
-    work (its step less the fused one's, medians of 3 unprofiled sets
-    each, plus the fused kernels').
+    order; no K1 right before a colour step).  Each kernel's device ms a
+    launch in that set, by level, and its bytes bound from the set's own
+    shapes (a colour step's: roofline_mg.symgs_bytes of its level over the
+    level's 16 colour steps); the kernels alone at each level (CUDA-graph
+    replays: the colour step's colour 0, and beside it that colour's K1
+    product alone and its plain route), the plain versions alone, and the
+    torch step's vector work (its step less the fused one's, medians of 3
+    unprofiled sets each, plus the fused kernels').
     Returns (ok, line, report)."""
     from unittest import mock
 
@@ -864,6 +877,7 @@ def multigrid_report(SV, CG, peak_gbps):
     from merge_spmv_tpu_torch.models import multigrid as MG
     from merge_spmv_tpu_torch.models import multigrid_cuda as MC
     from merge_spmv_tpu_torch.ops import csrmv_cuda as K
+    from spmv_bench.roofline_mg import symgs_bytes
     dev, f64 = torch.device("cuda"), torch.float64
     eps = torch.finfo(f64).eps
     t0 = time.perf_counter()
@@ -874,24 +888,49 @@ def multigrid_report(SV, CG, peak_gbps):
         return torch.from_numpy(
             np.random.RandomState(seed).uniform(-1, 1, n)).to(dev)
 
-    # the V-cycle's kernels at every level's shapes, bit for bit; the
-    # plain versions timed alone there
-    exact, plain_ms, alone_ms = True, {}, {}
+    def colour_ulps(got, want, colour, x, r):
+        # max over the colour's rows of |got - want| in unit roundoffs of
+        # (|A_c| |x| + |r|) / a_ii
+        sub, rows = colour.op, colour.rows.long()
+        lengths = torch.diff(sub.row_end_offsets.long(),
+                             prepend=sub.row_end_offsets.new_zeros(1).long())
+        of = torch.repeat_interleave(
+            torch.arange(rows.numel(), device=dev), lengths)
+        ax = torch.zeros(rows.numel(), dtype=f64, device=dev).index_add_(
+            0, of, sub.values.abs() * x[sub.col_indices.long()].abs())
+        scale = (ax + r[rows].abs()) / colour.diag.abs()
+        return float(((got[rows] - want[rows]).abs() /
+                      (eps / 2 * scale)).max())
+
+    # the V-cycle's kernels at every level's shapes: the colour step
+    # against its plain route, the transfers bit for bit; each alone
+    exact, plain_ms, alone_ms, k1_ms = True, {}, {}, {}
+    ulps_colour, off_colour = 0.0, True
     for lv, level in enumerate(op.levels):
         n = level.op.shape[0]
         x, r = uniform(n, 10 + lv), uniform(n, 20 + lv)
         for c, colour in enumerate(level.colours):
-            y = colour.op(x)
             got, want = x.clone(), x.clone()
-            launch = MC.bind_symgs_update(got, r, y, colour.rows, colour.diag)
+            launch = MC.bind_colour_step(got, r, colour.op, colour.rows,
+                                         colour.diag)
             launch()
-            MC.symgs_update_plain(want, r, y, colour.rows, colour.diag)
-            exact &= torch.equal(got, want)
+            MC.symgs_update_plain(want, r, colour.op(x), colour.rows,
+                                  colour.diag)
+            ulps_colour = max(ulps_colour,
+                              colour_ulps(got, want, colour, x, r))
+            off = torch.ones(n, dtype=torch.bool, device=dev)
+            off[colour.rows.long()] = False
+            off_colour &= torch.equal(got[off], x[off])
             if c == 0:
+                product, y = colour.op.bind(want)
                 alone_ms[("symgs_update", lv)] = graph_ms(launch)
-                plain_ms[("symgs_update", lv)] = graph_ms(
-                    lambda: MC.symgs_update_plain(want, r, y, colour.rows,
-                                                  colour.diag))
+                k1_ms[lv] = graph_ms(product)
+
+                def plain_route():
+                    product()
+                    MC.symgs_update_plain(want, r, y, colour.rows,
+                                          colour.diag)
+                plain_ms[("symgs_update", lv)] = graph_ms(plain_route)
         if level.f2c is None:
             continue
         m, axf = level.f2c.numel(), level.op(x)
@@ -993,31 +1032,34 @@ def multigrid_report(SV, CG, peak_gbps):
     hv = host["multigrid"].get((0, "restrict"), 0)
     want_mg = {}
     for lv in range(last + 1):
-        want_mg[(lv, "product")] = want_mg[(lv, "update")] = \
-            hv * 8 * visits[lv]
+        want_mg[(lv, "colour")] = hv * 8 * visits[lv]
         if lv < last:
             for kind in ("residual", "restrict", "prolong"):
                 want_mg[(lv, kind)] = hv
+    colour_launches = {lv: host["multigrid"].get((lv, "colour"), 0)
+                       for lv in visits}
+    # K1: the residual products, PCG's A p a step and the first residual
     host_ok = (hv >= 2 and host["multigrid"] == want_mg
                and host["kernels"] == {
-                   "symgs_update": hv * 8 * sum(visits.values()),
+                   "symgs_colour": hv * 8 * sum(visits.values()),
                    "mg_restrict": hv * last, "mg_prolong": hv * last}
                and host["cg"] == {"cg_pap": 0, "cg_update": 0,
                                   "cg_direction": hv - 1, "pcg_pap": hv - 1,
                                   "pcg_update": hv - 1, "pcg_rz": hv - 1}
-               and host["k1"] == hv * sum(8 * v + (lv < last)
-                                          for lv, v in visits.items())
-               + hv - 1 + 1)
+               and host["k1"] == hv * last + hv - 1 + 1)
 
     # the card: each V-cycle kernel placed on its level by device order (a
     # restriction opens the next level, a prolongation closes it)
     kinds = ("symgs_update", "mg_restrict", "mg_prolong")
     by = collections.defaultdict(list)     # (kind, level) -> ms
     pcg = {name: [] for name in names}
-    depth, k1_count = 0, 0
+    depth, k1_count, k1_before_colour, prev = 0, 0, 0, ""
     for name, _, ms in acts:
         if "merge_tile_kernel" in name:
             k1_count += 1
+        if kernel_is(name, "symgs_update") and "merge_tile_kernel" in prev:
+            k1_before_colour += 1
+        prev = name
         if kernel_is(name, "mg_prolong"):
             depth -= 1
         for kind in kinds:
@@ -1030,9 +1072,8 @@ def multigrid_report(SV, CG, peak_gbps):
                 pcg[kname].append(ms)
                 depth = 0
     vcycles = PCG_STEPS + 1
-    card_ok = (k1_count == vcycles * sum(8 * v + (lv < last)
-                                         for lv, v in visits.items())
-               + PCG_STEPS + 1
+    card_ok = (k1_count == vcycles * last + PCG_STEPS + 1
+               and k1_before_colour == 0
                and all(len(v) == PCG_STEPS for v in pcg.values())
                and all(len(by[("symgs_update", lv)]) == vcycles * 8 * v
                        for lv, v in visits.items())
@@ -1041,10 +1082,16 @@ def multigrid_report(SV, CG, peak_gbps):
 
     sizes = [lv_.op.shape[0] for lv_ in op.levels]
 
-    def rows_of(kind, lv):
-        # a launch's rows: a colour's (an eighth of the level on average),
-        # the next level's points for the grid transfers
-        return sizes[lv] / 8 if kind == "symgs_update" else sizes[lv + 1]
+    def bound_ms(kind, lv):
+        # a colour step's: its level's colour steps' bytes (symgs_bytes of
+        # the level alone counts its 8 colours twice) over the 16; a
+        # transfer's: the next level's points
+        if kind == "symgs_update":
+            nbytes = symgs_bytes({"levels": [op.levels[lv].dims]},
+                                 "float64") / 16
+        else:
+            nbytes = sizes[lv + 1] * MG_ROW_BYTES[kind]
+        return nbytes / peak_gbps / 1e6
 
     kernels, by_level = {}, {}
     for kind in kinds:
@@ -1055,11 +1102,14 @@ def multigrid_report(SV, CG, peak_gbps):
             times = by[(kind, lv)]
             if not times:
                 continue
-            bound = rows_of(kind, lv) * MG_ROW_BYTES[kind] / peak_gbps / 1e6
+            bound = bound_ms(kind, lv)
             levels[lv] = {"launches": len(times),
                           "ms": float(np.mean(times)), "bound_ms": bound,
                           "alone_ms": alone_ms[(kind, lv)],
                           "plain_ms": plain_ms[(kind, lv)]}
+            if kind == "symgs_update":
+                levels[lv].update(colour_launches=colour_launches[lv],
+                                  k1_alone_ms=k1_ms[lv])
             total_ms += sum(times)
             total_bound += bound * len(times)
             count += len(times)
@@ -1069,6 +1119,8 @@ def multigrid_report(SV, CG, peak_gbps):
                                          for v in levels.values()) / count,
                          "max_abs_err": 0.0 if exact else None}
         by_level[kind] = levels
+    kernels["symgs_update"].update(max_abs_err=None,
+                                   ulps_of_scale=ulps_colour)
     nbytes = n * 8
     for name in names:
         hbm, l2 = PCG_PASSES[name]
@@ -1079,7 +1131,8 @@ def multigrid_report(SV, CG, peak_gbps):
                          "ulps_of_norm": ulps[name]}
     fused_vector = sum(kernels[name]["ms"] for name in names)
     torch_vector = step_t - step_f + fused_vector
-    ok = (exact and k_exact and host_ok and card_ok
+    ok = (exact and k_exact and host_ok and card_ok and off_colour
+          and ulps_colour <= COLOUR_ULPS
           and all(u <= PCG_ULPS for u in ulps.values())
           and iters == (PCG_MAXITER, PCG_MAXITER)
           and sol_rel <= FUSED_SOLUTION_REL_MAX)
@@ -1090,17 +1143,25 @@ def multigrid_report(SV, CG, peak_gbps):
     per_level = "; ".join(
         f"{kind} L{lv} {v['launches']}x {v['ms']:.5f} ms (bound "
         f"{v['bound_ms']:.5f}, {100 * v['bound_ms'] / v['ms']:.1f}%; alone "
-        f"{v['alone_ms']:.5f}, plain {v['plain_ms']:.5f})"
+        f"{v['alone_ms']:.5f} ({100 * v['bound_ms'] / v['alone_ms']:.1f}%), "
+        f"plain {v['plain_ms']:.5f}"
+        + (f"; K1 on the colour alone {v['k1_alone_ms']:.5f}; "
+           f"LAUNCHES[({lv}, 'colour')] {v['colour_launches']}"
+           if kind == "symgs_update" else "") + ")"
         for kind, levels in by_level.items() for lv, v in levels.items())
     line = (f"multigrid pcg, HPCG-104 float64 (levels {sizes}, build "
-            f"{build_s:.2f} s, setup_s {op.setup_s}): V-cycle kernels "
+            f"{build_s:.2f} s, setup_s {op.setup_s}): colour steps within "
+            f"{ulps_colour:.2f} ulps of (|A_c| |x| + |r|) / a_ii of their "
+            f"plain route (at most {COLOUR_ULPS}), x unchanged off the "
+            f"colour {off_colour}; transfers "
             f"bit-equal their plain versions {exact}; {FUSED_STEPS} fused PCG "
             f"steps against pcg_torch_step, k exact {k_exact}, ulps of the "
             f"norm {', '.join(f'{k} {v:.2f}' for k, v in ulps.items())} (at "
             f"most {PCG_ULPS}); the cell's set: {iters[0]} iterations fused, "
             f"{iters[1]} torch, solutions {sol_rel:.2e} apart; host counters "
             f"({hv} V-cycles enqueued) {host_ok}: {host}; card launches "
-            f"({vcycles} V-cycles, K1 {k1_count}) {card_ok}; step "
+            f"({vcycles} V-cycles, K1 {k1_count}, K1 right before a colour "
+            f"step {k1_before_colour}) {card_ok}; step "
             f"{step_f:.4f} ms fused, {step_t:.4f} torch (medians of 3 "
             f"unprofiled sets); "
             f"vector work {fused_vector:.4f} ms fused, {torch_vector:.4f} "
@@ -3526,15 +3587,19 @@ def main() -> int:
     # HPCG's V-cycle and PCG's step at the hpcg_104_mg.pcg cell's shapes in
     # float64: launches as the host counted them in the cell's set, times
     # there on the card (a launch's mean over the levels; by_level each
-    # level's, with the kernel and its plain version alone); the PCG
+    # level's, with the kernel and its plain version alone); the colour
+    # step's plain route is its K1 product and symgs_update_plain; the PCG
     # kernels' plain_ms is the torch step's vector work, all four's
-    for name in ("symgs_update", "mg_restrict", "mg_prolong"):
+    for name, entry in (("symgs_update", "symgs_colour"),
+                        ("mg_restrict", "mg_restrict"),
+                        ("mg_prolong", "mg_prolong")):
         e = mg_pcg["kernels"][name]
         kernels.append(
             {"name": name, "route": "cuda",
              "source": "merge_spmv_tpu_torch/csrc/multigrid.cu",
-             "replaces": None, "launches": mg_pcg["host"]["kernels"][name],
-             "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+             "replaces": None, "launches": mg_pcg["host"]["kernels"][entry],
+             "max_abs_err": e["max_abs_err"],
+             "ulps_of_scale": e.get("ulps_of_scale"), "ms": e["ms"],
              "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
              "bound_by": "bytes", "library_ms": None, "main_path": True,
              "by_level": mg_pcg["by_level"][name]})

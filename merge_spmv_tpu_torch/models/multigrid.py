@@ -22,13 +22,16 @@ colour order, not row order.  Colour = (ix mod 2) + 2 (iy mod 2) +
 7.  Colour 0 holds exactly the points f2c injects from, (2i, 2j, 2k): a
 sweep that ended on it (forward 0 to 7, backward 7 to 0) would leave the
 residual there 0 to rounding, and with it r_c and every coarse level's
-correction.  Rows of one colour share no nonzero, so a colour's update is
-one product over its rows and one update of them: the colour's operator
-(a gathered copy of its rows, through ``build_operator``: K1 on the card),
-then ``symgs_update`` (models/multigrid_cuda.py).  The restriction and
-prolongation are that module's other two kernels; each level's residual
-product is its own operator's.  models/hpcg_reference.py is the plain
-version, with its own hierarchy.
+correction.  Rows of one colour share no nonzero but their own diagonal,
+so a colour's step is one product over its rows and one update of them,
+and on the card one launch computes both: ``bind_colour_step``
+(models/multigrid_cuda.py; csrc/multigrid.cu's symgs_update_kernel) over
+the colour's gathered copy of its rows (through ``build_operator``, whose
+CSR arrays it reads; on the CPU the copy's product, then
+``symgs_update_plain``).  The restriction and prolongation are that
+module's other two kernels; each level's residual product is its own
+operator's (K1).  models/hpcg_reference.py is the plain version, with its
+own hierarchy.
 
     op = build_multigrid(hpcg_csr, dtype="float64")   # on the card
     x, info = conjugate_gradient(op, b, preconditioner="multigrid")
@@ -43,12 +46,12 @@ stream-ordered, as an operator's ticket counter asks of its calls.
 The V-cycle is bound once, at build: each level's work before the
 coarser level (the first sweep, the residual product, the restriction)
 and after it (the prolongation, the second sweep) is a ``Segment``, on
-the card one CUDA graph of ~35-70 launches (models/multigrid_cuda.py::
+the card one CUDA graph of ~17-36 launches (models/multigrid_cuda.py::
 Graph), so that a V-cycle costs the host 7 graph launches, and a solver
-recording its block 7 child-graph nodes, instead of ~235 kernel
+recording its block 7 child-graph nodes, instead of ~123 kernel
 launches: the card, not the host's speed, sets the pace of PCG.
-``LAUNCHES`` counts what the card ran, by (level, kind): the colours'
-products and updates, the residual products, the restrictions and
+``LAUNCHES`` counts what the card ran, by (level, kind): the colour steps
+("colour", 112 a V-cycle), the residual products, the restrictions and
 prolongations, each time a segment runs or is recorded (a launch recorded
 into a CUDA graph counts once, at capture); each kernel's own counter
 gains the same.  The CPU runs the same segments on the plain versions,
@@ -79,8 +82,8 @@ NUM_LEVELS = 4              # HPCG's main.cpp: numberOfMgLevels
 DIAGONAL, OFF_DIAGONAL = 26.0, -1.0
 FORWARD = tuple(range(7, -1, -1))   # the forward sweep's colour order
 BACKWARD = FORWARD[::-1]
-# (level, kind) -> launches on the card: kind "product" (a colour's K1),
-# "update" (its symgs_update), "residual", "restrict", "prolong"
+# (level, kind) -> launches on the card: kind "colour" (a colour step, one
+# symgs_update_kernel), "residual" (K1), "restrict", "prolong"
 LAUNCHES: dict = {}
 
 
@@ -242,7 +245,8 @@ class Segment:
 class Bound(NamedTuple):
     """A level's V-cycle work with its operands bound (``bind`` below):
     launchers that take no argument, and the segments made of them."""
-    colours: tuple          # (product, update) by colour; None where empty
+    colours: tuple          # the colour step's launcher by colour; None
+    #                         where empty
     sweep: tuple            # (launcher, kind) of one symmetric sweep
     pre: Segment            # level 0: x = 0; the sweep; on a level with a
     #                         coarser one, the residual and the restriction
@@ -258,9 +262,9 @@ class MultigridOperator:
 
     Every launch of a V-cycle is bound once, at build, onto each level's
     own r and x (``SpmvOperator.bind`` and models/multigrid_cuda.py's
-    ``bind_*``: the checks and arguments worked out, each colour's product
-    written into a y of its own), and each level's runs of them are
-    ``Segment``s: CUDA graphs on the card."""
+    ``bind_*``: the checks and arguments worked out, one launcher a colour
+    step), and each level's runs of them are ``Segment``s: CUDA graphs on
+    the card."""
 
     def __init__(self, levels, setup_s: dict):
         self.levels = tuple(levels)
@@ -293,20 +297,14 @@ class MultigridOperator:
         """Level ``lv``'s V-cycle work bound to its residual r and iterate
         x (the coarser levels' own r and x below it)."""
         level = self.levels[lv]
-        colours, sweep = [], []
-        for colour in level.colours:
-            if colour is None:
-                colours.append(None)
-                continue
-            product, y = colour.op.bind(x)
-            colours.append((product, multigrid_cuda.bind_symgs_update(
-                x, r, y, colour.rows, colour.diag)))
-        # one symmetric Gauss-Seidel sweep in colour order: each colour's
-        # product, then x[rows] += (r[rows] - y) / diag
-        for c in FORWARD + BACKWARD:
-            if colours[c] is not None:
-                sweep += [(colours[c][0], "product"),
-                          (colours[c][1], "update")]
+        colours = tuple(
+            None if colour is None else multigrid_cuda.bind_colour_step(
+                x, r, colour.op, colour.rows, colour.diag)
+            for colour in level.colours)
+        # one symmetric Gauss-Seidel sweep in colour order, each colour's
+        # step x[rows] += (r[rows] - A[rows] x) / diag
+        sweep = [(colours[c], "colour") for c in FORWARD + BACKWARD
+                 if colours[c] is not None]
         pre = list(sweep)
         if lv == 0:     # coarser levels start at 0 in the restriction
             pre.insert(0, (multigrid_cuda.bind_zero(x), None))
@@ -319,7 +317,7 @@ class MultigridOperator:
                                                   level.f2c), "restrict")]
             post = Segment(lv, [(multigrid_cuda.bind_prolong(
                 x, coarse.x, level.f2c), "prolong")] + sweep, self.device)
-        return Bound(tuple(colours), tuple(sweep),
+        return Bound(colours, tuple(sweep),
                      Segment(lv, pre, self.device), post)
 
     def precondition(self, r, z):

@@ -1,11 +1,12 @@
-"""The multigrid V-cycle's vector kernels on the card: the wrappers of
+"""The multigrid V-cycle's kernels on the card: the wrappers of
 csrc/multigrid.cu, and their plain versions.
 
-``models/multigrid.py`` runs HPCG's V-cycle as the merge-path products of
-each level (K1, through each level's and each colour's SpmvOperator) and
-these three kernels between them:
+``models/multigrid.py`` runs HPCG's V-cycle as these kernels and each
+level's residual product (K1, through the level's SpmvOperator):
 
-    bind_symgs_update(x, r, y, rows, diag)   x[rows] += (r[rows] - y) / diag
+    bind_colour_step(x, r, op, rows, diag)   y = A_c x over the colour's
+                                             gathered rows (op), then
+                                             x[rows] += (r[rows] - y) / diag
     bind_restrict(rc, xc, r, axf, f2c)       rc = r[f2c] - axf[f2c]; xc = 0
     bind_prolong(x, xc, f2c)                 x[f2c] += xc
     bind_zero(x)                             x = 0 (a memset on the card)
@@ -15,14 +16,16 @@ int32 index vectors, on one device.  Each checks its operands once and
 returns a launcher: ``launch(stream=None)`` runs the kernel for CUDA
 tensors and its plain version (the same arithmetic in torch ops, the CPU
 tests' route) for CPU tensors; a dtype the kernel lacks raises on the
-card.  An empty index vector launches nothing.  A card launcher carries
-its C entry and arguments (``entry``) and the count it adds to
-(``counter``), so that ``Graph`` can capture a run of launchers, these
-and K1's (``csrmv_cuda.bind_merge_csrmv``), into one CUDA graph: the
-V-cycle then costs the host one call a level's run, not one a kernel.
-``LAUNCHES`` counts the kernels' launches by name; a launch recorded into
-a CUDA graph counts once, at capture, and ``Graph`` leaves the counting
-to its caller.
+card.  A colour step is one launch on the card (symgs_update_kernel);
+on the CPU it is the colour operator's bound product, then
+``symgs_update_plain``.  An empty index vector launches nothing.  A card
+launcher carries its C entry and arguments (``entry``) and the count it
+adds to (``counter``), so that ``Graph`` can capture a run of launchers,
+these and K1's (``csrmv_cuda.bind_merge_csrmv``), into one CUDA graph:
+the V-cycle then costs the host one call a level's run, not one a
+kernel.  ``LAUNCHES`` counts the kernels' launches by entry; a launch
+recorded into a CUDA graph counts once, at capture, and ``Graph`` leaves
+the counting to its caller.
 """
 
 from __future__ import annotations
@@ -37,13 +40,13 @@ from merge_spmv_tpu_torch.utils.cuda_build import (check_operand,
                                                    raise_on_launch,
                                                    raw_stream)
 
-__all__ = ["bind_symgs_update", "bind_restrict", "bind_prolong", "bind_zero",
+__all__ = ["bind_colour_step", "bind_restrict", "bind_prolong", "bind_zero",
            "Graph", "symgs_update_plain",
            "restrict_plain", "prolong_plain", "LAUNCHES", "reset_launches",
            "KERNEL_SOURCE", "THREADS"]
 
 KERNEL_SOURCE = "multigrid"
-LAUNCHES = {"symgs_update": 0, "mg_restrict": 0, "mg_prolong": 0}
+LAUNCHES = {"symgs_colour": 0, "mg_restrict": 0, "mg_prolong": 0}
 THREADS = 256   # csrc/multigrid.cu::kThreads
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -59,7 +62,7 @@ def _lib():
     lib = load_library(KERNEL_SOURCE)
     if not getattr(lib, "_typed", False):
         for sfx in _SUFFIX.values():
-            for name, args in (("symgs_update", [_P] * 5),
+            for name, args in (("symgs_colour", [_P] * 7),
                                ("mg_restrict", [_P] * 5),
                                ("mg_prolong", [_P] * 3)):
                 f = getattr(lib, f"{name}_{sfx}")
@@ -105,9 +108,8 @@ def _bind(name, plain, vectors, indices, n, pointers):
     None)``: a call of the kernel on ``pointers`` for CUDA tensors, on the
     given raw stream (the caller's device current) or else on the current
     stream; ``plain`` for CPU ones.  ``vectors``: (name, tensor, length or
-    None) of the value type; ``indices``: (name, tensor) int32 of length
-    n."""
-    tensors = [t for _, t, _ in vectors] + [t for _, t in indices]
+    None) of the value type; ``indices``: (name, tensor, length) int32."""
+    tensors = [t for _, t, _ in vectors] + [t for _, t, _ in indices]
     if on_cpu(*tensors):
         return plain
     dtype = vectors[0][1].dtype
@@ -117,8 +119,8 @@ def _bind(name, plain, vectors, indices, n, pointers):
         check_operand(label, t, dtype, None if length is None else (length,))
         if t.dim() != 1:
             raise ValueError(f"{label} must be a vector")
-    for label, t in indices:
-        check_operand(label, t, torch.int32, (n,))
+    for label, t, length in indices:
+        check_operand(label, t, torch.int32, (length,))
     if n == 0:
         return _nothing
     dev = vectors[0][1].device
@@ -139,17 +141,32 @@ def _bind(name, plain, vectors, indices, n, pointers):
     return launch
 
 
-def bind_symgs_update(x, r, y, rows, diag):
-    """A launcher of x[rows] += (r[rows] - y) / diag, in place: one
-    colour's Gauss-Seidel update after its product y = A[rows] x.  y, rows
-    and diag have one entry a row of the colour; the tensors must stay
-    alive and in place while the launcher is used."""
+def bind_colour_step(x, r, op, rows, diag):
+    """A launcher of one colour's Gauss-Seidel step, in place: y = A_c x
+    over the colour's rows, then x[rows] += (r[rows] - y) / diag.  ``op``
+    is the SpmvOperator of the colour's gathered rows (all columns), rows
+    and diag have one entry a row of it; the tensors must stay alive and in
+    place while the launcher is used.  On the card one launch of
+    symgs_update_kernel over op's CSR arrays; on the CPU op's bound
+    product (into a y of its own), then symgs_update_plain."""
     n = rows.shape[0]
-    return _bind("symgs_update",
-                 lambda stream=None: symgs_update_plain(x, r, y, rows, diag),
-                 [("x", x, None), ("r", r, x.shape[0]), ("y", y, n),
-                  ("diag", diag, n)], [("rows", rows)], n,
-                 (x, r, y, rows, diag))
+    if op.shape != (n, x.shape[0]):
+        raise ValueError(f"op must be {n} x {x.shape[0]}, got {op.shape}")
+    if on_cpu(x, r, rows, diag, op.values):
+        product, y = op.bind(x)
+
+        def plain(stream=None):
+            product(stream)
+            symgs_update_plain(x, r, y, rows, diag)
+        return plain
+    nnz = op.values.shape[0]
+    return _bind("symgs_colour", None,
+                 [("x", x, None), ("r", r, x.shape[0]),
+                  ("values", op.values, nnz), ("diag", diag, n)],
+                 [("rows", rows, n), ("row_ends", op.row_end_offsets, n),
+                  ("cols", op.col_indices, nnz)], n,
+                 (x, r, op.values, op.col_indices, op.row_end_offsets, rows,
+                  diag))
 
 
 def bind_restrict(rc, xc, r, axf, f2c):
@@ -159,7 +176,7 @@ def bind_restrict(rc, xc, r, axf, f2c):
     return _bind("mg_restrict",
                  lambda stream=None: restrict_plain(rc, xc, r, axf, f2c),
                  [("rc", rc, n), ("xc", xc, n), ("r", r, None),
-                  ("axf", axf, r.shape[0])], [("f2c", f2c)], n,
+                  ("axf", axf, r.shape[0])], [("f2c", f2c, n)], n,
                  (rc, xc, r, axf, f2c))
 
 
@@ -167,7 +184,7 @@ def bind_prolong(x, xc, f2c):
     """A launcher of x[f2c] += xc, in place."""
     n = f2c.shape[0]
     return _bind("mg_prolong", lambda stream=None: prolong_plain(x, xc, f2c),
-                 [("x", x, None), ("xc", xc, n)], [("f2c", f2c)], n,
+                 [("x", x, None), ("xc", xc, n)], [("f2c", f2c, n)], n,
                  (x, xc, f2c))
 
 

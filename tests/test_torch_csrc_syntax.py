@@ -90,9 +90,10 @@ cudaError_t cudaGraphExecDestroy(cudaGraphExec_t);
 cudaError_t cudaGraphDestroy(cudaGraph_t);
 template <class T> T __ldg(const T*);
 template <class T> T __ldcg(const T*);
+template <class T> T __ldcs(const T*);
 template <class T> T __shfl_up_sync(unsigned, T, int);
 template <class T> T __shfl_sync(unsigned, T, int);
-template <class T> T __shfl_down_sync(unsigned, T, int);
+template <class T> T __shfl_down_sync(unsigned, T, int, int = 32);
 template <class T>
 cudaError_t cudaMemcpyFromSymbol(void*, const T&, size_t, size_t = 0);
 void __syncthreads();
@@ -131,6 +132,20 @@ def _front_end(tmp_path, source: str):
 def test_cuda_source_passes_a_cpp_front_end(name, tmp_path):
     proc = _front_end(tmp_path, (CSRC_DIR / name).read_text())
     assert proc.returncode == 0, proc.stdout
+
+
+def test_multigrid_names_the_colour_step_as_the_benchmark_reads_it():
+    """The benchmark finds HPCG's colour step on the device trace by
+    spmv_bench/roofline_mg.py::UPDATE: csrc/multigrid.cu defines a
+    __global__ kernel whose name holds it, the colour step's, so that a
+    rename fails here before any run on the card."""
+    from spmv_bench import roofline_mg
+    text = (CSRC_DIR / "multigrid.cu").read_text()
+    kernels = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\("
+                         r"[^)]*\)\s+)?(\w+)\(", text)
+    assert "mg_restrict_kernel" in kernels
+    assert [k for k in kernels if roofline_mg.UPDATE in k] == [
+        "symgs_update_kernel"]
 
 
 def test_the_front_end_catches_a_shadowed_name(tmp_path):

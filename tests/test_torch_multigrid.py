@@ -4,8 +4,8 @@ against the plain reference (models/hpcg_reference.py, its own hierarchy),
 at small grids on the CPU: the hierarchy, the colouring, one colour step,
 one sweep, one V-cycle and PCG; what build_multigrid refuses; CG's bits
 without a preconditioner.  The tests marked ``cuda`` run the same path on
-the card (graph against eager, the kernels' launch counts) and skip
-without one:
+the card (graph against eager, the colour step's one launch against its
+plain route, the kernels' launch counts) and skip without one:
 
     python -m pytest --noconftest tests/test_torch_multigrid.py -m cuda -q
 
@@ -21,6 +21,15 @@ unit roundoff: 2^-53 in float64, 2^-24 in float32.  float32 PCG at 50
 iterations runs with tol = 1e-5, so that it stops at convergence: run on
 at tol = 0 its recurrence underflows to 0 / 0 in program and reference
 alike.  PCG at 50 iterations runs on the 8^3 grid.
+
+The card's colour step (one launch: the colour's product and update)
+against its plain route (the colour operator's K1 product, then
+symgs_update_plain) on the same x and r: the two sum a row's <= 27
+products in other orders, so a row of x differs by up to 2 gamma_27 of
+(|A_c| |x|)_i / a_ii and a few roundings of the update, ~62 unit
+roundoffs of s_i = (|A_c| |x| + |r|)_i / a_ii at worst; rounding errors
+of that many terms grow like their square root, and the kernel is held
+to COLOUR_ULPS = 16 of s_i in every row (chip_smoke.py's bound).
 
 The V-cycle is thousands of small torch ops; the file's tests run with
 one intra-op thread, so that idle threads spinning after an op do not
@@ -45,6 +54,7 @@ from merge_spmv_tpu_torch.utils import tracing as T
 
 GRIDS = [(8, 8, 8), (16, 8, 8)]
 DTYPES = [torch.float64, torch.float32]
+COLOUR_ULPS = 16
 _BUILT: dict = {}
 
 
@@ -157,9 +167,7 @@ def test_one_colour_step_equals_the_reference(dims, dtype):
         x = _uniform(n, dtype, 2 + c)
         want = R.colour_step(ref[0], c, r, x.clone())
         got = x.clone()
-        product, update = op.bind(0, r, got).colours[c]
-        product()
-        update()
+        op.bind(0, r, got).colours[c]()
         assert _close(got, want, 64, dtype, scale=1.0), c
         untouched = torch.ones(n, dtype=torch.bool)
         untouched[ref[0].colour_rows[c]] = False
@@ -433,11 +441,56 @@ def test_plain_vector_kernels_compute_their_formulas():
     want[[0, 3, 7]] += rc
     multigrid_cuda.bind_prolong(x, rc, f2c)()
     assert torch.equal(x, want)
-    y, diag = rc * 0.5, torch.full((3,), 26.0, dtype=torch.float64)
+    # a colour step over rows 0, 3 and 7 (a gathered copy, all columns)
+    sub = CsrMatrix(3, 10, np.array([0, 2, 3, 6]),
+                    np.array([0, 5, 3, 1, 7, 9]),
+                    np.array([26.0, -1.0, 26.0, -1.0, 26.0, -1.0]))
+    colour = build_operator(sub, dtype="float64", device="cpu")
+    diag = torch.full((3,), 26.0, dtype=torch.float64)
     want = x.clone()
-    want[[0, 3, 7]] += (r[[0, 3, 7]] - y) / diag
-    multigrid_cuda.bind_symgs_update(x, r, y, f2c, diag)()
+    want[[0, 3, 7]] += (r[[0, 3, 7]] - colour(x)) / diag
+    multigrid_cuda.bind_colour_step(x, r, colour, f2c, diag)()
     assert torch.equal(x, want)
+    with pytest.raises(ValueError, match="op must be 3 x 9"):
+        multigrid_cuda.bind_colour_step(x[:9], r[:9], colour, f2c, diag)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dims", GRIDS)
+def test_bound_colour_step_on_the_cpu_is_the_two_step_plain_route(dims,
+                                                                   dtype):
+    """On CPU tensors a colour step's launcher is the colour operator's
+    product, then symgs_update_plain: their bits, at every level and
+    colour."""
+    op, _ = _mg(dims, dtype)
+    for lv, level in enumerate(op.levels):
+        n = level.op.shape[0]
+        r = _uniform(n, dtype, 80 + lv)
+        for c, colour in enumerate(level.colours):
+            if colour is None:      # a coarse grid of side 1
+                continue
+            x = _uniform(n, dtype, 90 + 8 * lv + c)
+            got, want = x.clone(), x.clone()
+            multigrid_cuda.bind_colour_step(got, r, colour.op, colour.rows,
+                                            colour.diag)()
+            multigrid_cuda.symgs_update_plain(want, r, colour.op(x),
+                                              colour.rows, colour.diag)
+            assert torch.equal(got, want), (lv, c)
+
+
+def test_a_sweep_is_one_colour_launcher_a_colour():
+    """A level's bound sweep: one launcher, of kind "colour", for each of
+    the forward and backward passes' colours that the level has, in their
+    order (8 x 4 x 4 and coarser levels of 16 x 8 x 8 lack some)."""
+    op, _ = _mg((16, 8, 8), torch.float64)
+    for lv, level in enumerate(op.levels):
+        work = op._bound[lv]
+        order = [c for c in MG.FORWARD + MG.BACKWARD
+                 if level.colours[c] is not None]
+        assert len(order) == (16 if lv < 3 else 4)
+        assert [kind for _, kind in work.sweep] == ["colour"] * len(order)
+        assert [launch for launch, _ in work.sweep] == [
+            work.colours[c] for c in order]
 
 
 def test_spans_mark_each_vcycle_and_its_levels():
@@ -483,9 +536,10 @@ def card():
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_card_pcg_graph_equals_eager_and_takes_the_kernels(card, dtype):
     """PCG on the card: the graph path's x, residual and count bit-equal
-    the eager path's, the same again on a second call; the colour
-    products, updates, residuals, restrictions and prolongations of every
-    level, and the fused PCG kernels, were launched."""
+    the eager path's, the same again on a second call; the colour steps
+    (one launch each, no colour product or update apart), residuals,
+    restrictions and prolongations of every level, and the fused PCG
+    kernels, were launched."""
     from merge_spmv_tpu_torch.ops import csrmv_cuda
     op = _mg((32, 32, 16), dtype, card)[0]
     b = _uniform(op.shape[0], dtype, 70).to(card)
@@ -502,12 +556,14 @@ def test_card_pcg_graph_equals_eager_and_takes_the_kernels(card, dtype):
         assert torch.equal(x, x0) and torch.equal(info.residual, i0.residual)
     assert runs[1][1].step_ms is not None
     for lv in range(3):
-        for kind in ("product", "update", "residual", "restrict",
-                     "prolong"):
+        for kind in ("colour", "residual", "restrict", "prolong"):
             assert MG.LAUNCHES[(lv, kind)] > 0, (lv, kind)
-    assert MG.LAUNCHES[(3, "update")] > 0
-    assert MG.LAUNCHES[(0, "update")] == multigrid_cuda.LAUNCHES[
-        "symgs_update"] - sum(MG.LAUNCHES[(lv, "update")] for lv in (1, 2, 3))
+    assert MG.LAUNCHES[(3, "colour")] > 0
+    for lv in range(4):     # the colour step is one launch: no K1 product
+        for kind in ("product", "update"):
+            assert MG.LAUNCHES.get((lv, kind), 0) == 0, (lv, kind)
+    assert MG.LAUNCHES[(0, "colour")] == multigrid_cuda.LAUNCHES[
+        "symgs_colour"] - sum(MG.LAUNCHES[(lv, "colour")] for lv in (1, 2, 3))
     assert min(cg_cuda.PCG_LAUNCHES.values()) > 0
     assert csrmv_cuda.LAUNCHES["merge_tile_fused"] > 0
 
@@ -604,3 +660,84 @@ def test_card_unpreconditioned_cg_keeps_four_launches_a_step(card, dtype):
     assert launched == 4 * steps
     assert set(cg_cuda.PCG_LAUNCHES.values()) == {0}
     assert MG.LAUNCHES == {} and set(multigrid_cuda.LAUNCHES.values()) == {0}
+
+
+def _colour_scale(colour, x, r):
+    """(|A_c| |x| + |r|)_i / a_ii over the colour's rows, in float64."""
+    sub = colour.op
+    lengths = torch.diff(sub.row_end_offsets.long(),
+                         prepend=sub.row_end_offsets.new_zeros(1).long())
+    of = torch.repeat_interleave(
+        torch.arange(lengths.numel(), device=x.device), lengths)
+    ax = torch.zeros(lengths.numel(), dtype=torch.float64,
+                     device=x.device).index_add_(
+        0, of, (sub.values.abs() * x[sub.col_indices.long()].abs()).double())
+    return (ax + r[colour.rows.long()].abs().double()) / \
+        colour.diag.abs().double()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_card_colour_step_is_its_plain_route_within_its_bound(card, dtype):
+    """Every level's every colour: one launch of the colour step against
+    the plain two-step route (the colour operator's K1 product, then
+    symgs_update_plain) on the same x and r, each row of x within
+    COLOUR_ULPS unit roundoffs of (|A_c| |x| + |r|)_i / a_ii; x unchanged
+    off the colour's rows."""
+    op = _mg((32, 32, 16), dtype, card)[0]
+    worst = 0.0
+    for lv, level in enumerate(op.levels):
+        n = level.op.shape[0]
+        r = _uniform(n, dtype, 100 + lv).to(card)
+        for c, colour in enumerate(level.colours):
+            x = _uniform(n, dtype, 110 + 8 * lv + c).to(card)
+            got, want = x.clone(), x.clone()
+            multigrid_cuda.bind_colour_step(got, r, colour.op, colour.rows,
+                                            colour.diag)()
+            multigrid_cuda.symgs_update_plain(want, r, colour.op(x),
+                                              colour.rows, colour.diag)
+            rows = colour.rows.long()
+            off = torch.ones(n, dtype=torch.bool, device=card)
+            off[rows] = False
+            assert torch.equal(got[off], x[off]), (lv, c)
+            diff = (got[rows] - want[rows]).abs().double()
+            ulps = diff / (_unit(dtype) * _colour_scale(colour, x, r))
+            worst = max(worst, float(ulps.max()))
+            assert float(ulps.max()) <= COLOUR_ULPS, (lv, c, float(ulps.max()))
+    assert worst > 0.0 or dtype == torch.float64     # orders do differ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_card_two_vcycles_from_one_r_give_the_same_bits(card, dtype):
+    op = _mg((32, 32, 16), dtype, card)[0]
+    r = _uniform(op.shape[0], dtype, 120).to(card)
+    z1 = op.precondition(r, torch.empty_like(r)).clone()
+    z2 = op.precondition(r, torch.empty_like(r))
+    torch.cuda.synchronize()
+    assert torch.equal(z1, z2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_card_vcycle_counts_one_launch_a_colour_step(card, dtype):
+    """A V-cycle on the 4 levels of 32 x 32 x 16, each with 8 colours:
+    112 colour steps (32 on levels 0-2, 16 on level 3), each one
+    symgs_update launch; no colour product or update apart; 3 K1
+    launches, the residual products."""
+    from merge_spmv_tpu_torch.ops import csrmv_cuda
+    op = _mg((32, 32, 16), dtype, card)[0]
+    r = _uniform(op.shape[0], dtype, 121).to(card)
+    MG.reset_launches()
+    multigrid_cuda.reset_launches()
+    csrmv_cuda.reset_launches()
+    op.precondition(r, torch.empty_like(r))
+    torch.cuda.synchronize()
+    assert {lv: MG.LAUNCHES[(lv, "colour")] for lv in range(4)} == {
+        0: 32, 1: 32, 2: 32, 3: 16}
+    assert not any(kind in ("product", "update") for _, kind in MG.LAUNCHES)
+    assert multigrid_cuda.LAUNCHES == {"symgs_colour": 112, "mg_restrict": 3,
+                                       "mg_prolong": 3}
+    assert {lv: MG.LAUNCHES[(lv, "residual")] for lv in range(3)} == {
+        0: 1, 1: 1, 2: 1}
+    assert csrmv_cuda.LAUNCHES["merge_tile_fused"] == 3
