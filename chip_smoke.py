@@ -178,8 +178,9 @@ Phases, one line of output each (any failure exits non-zero and prints no
              entry not verified or an error key (bench/measure.py::
              record_faults), or no K1 launch in the phase.
    pagerank — PageRank through K1 on the kron class's column-stochastic
-             transpose, stopped at an L1 step of 1e-6, against a float64
-             SciPy run of the same iterations (L1 distance).
+             transpose (pagerank_operator in float32), stopped at an L1
+             step of 1e-6, against a float64 SciPy run of the same
+             iterations (L1 distance).
 11. router — build_suggested on grid3d(100) and the local-uniform fixture of
              tests/test_suggest.py:48-57 (and the two matrices above): each
              pick verified and timed against merge op(x).
@@ -246,6 +247,22 @@ Phases, one line of output each (any failure exits non-zero and prints no
              of csrc/row_normalize.cu, one launch a call, against the
              torch ops on the same N (n(N) and E within 8 float32 ulps of
              their scale), each timed with its bytes bound.
+   pagerank cell — the graph500_24.pagerank cell's path (pagerank_report):
+             pagerank_operator's transpose on a directed graph with
+             dangling vertices (the generator's graph at scale 20, its
+             links u -> v with u < v) equal to the sparse COO transpose of
+             D^-1 A, bit for bit in float64, its columns summing to 1 or
+             empty; then the cell's graph500-24 (the generator at the
+             configuration's parameters, seed 0: its counts) through
+             pagerank_operator in float64, P equal to A D^-1 bit for bit;
+             K1 on P against its plain version within the backward-error
+             bound and 2 gamma_n |P| |x| (bench/measure.py::card_spmv),
+             timed beside cuSPARSE and the bytes bound; then the cell's
+             job, solvers.pagerank(op, 0.85, tol=0, maxiter=10) with K1's
+             counters reset just before: 16 fused launches, one host read,
+             10 iterations, no graph captured, and its ranks within the
+             cell's rank_err limit (L1) of models/pagerank_reference.py in
+             float64, the float32 reference outside it.
 14. the kernels line, nvidia-smi's name and power limit, and the last line.
 """
 
@@ -343,6 +360,17 @@ FASTRP_NORMALIZE_MODES = (("n(N)", 0.0, False, True, 2),
                           ("n(N), E = w n(N)", 1.0, False, True, 3),
                           ("E += w n(N)", 1.0, True, False, 3))
 FASTRP_NORMALIZE_ULPS = 8
+# the graph500_24.pagerank cell's path (spmv_bench): its configuration,
+# traffic and limits, the seed its configuration's counts are the
+# generator's at, and the scale of the directed graph the transpose is
+# checked on
+PAGERANK_CONFIG = os.path.join(REPO_DIR, "spmv_bench", "configs",
+                               "graph500_24.json")
+PAGERANK_TRAFFIC = os.path.join(REPO_DIR, "spmv_bench", "traffic",
+                                "pagerank.json")
+PAGERANK_LIMITS = os.path.join(REPO_DIR, "spmv_bench", "limits",
+                               "graph500_24.pagerank.json")
+PAGERANK_SEED, PAGERANK_DIRECTED_SCALE, PAGERANK_JOBS = 0, 20, 5
 # the corpus phase: one full-size matrix per generator family of the stats
 # corpus (tools/make_corpus_stats.py), CoV 0 to the wheel, banded to global
 # scatter, beside the 25 files of the mini corpus (tools/make_corpus.py)
@@ -1431,6 +1459,200 @@ def fastrp_normalize_report(peak_gbps, op):
     return ok, line, entry
 
 
+def pagerank_report():
+    """The graph500_24.pagerank cell's path on the card.  First
+    pagerank_operator's transpose on a directed graph with dangling
+    vertices: the generator's graph at PAGERANK_DIRECTED_SCALE, its links
+    u -> v with u < v, in float64; P's arrays equal, bit for bit, those of
+    the sparse COO transpose of D^-1 A (coalesce's sort, 1 / outdeg(u)),
+    each column sums to 1 within its length's rounding, or is empty for a
+    dangling vertex.  Then the cell's graph (spmv_bench/generators/
+    graph500.py at its configuration's parameters, PAGERANK_SEED) through
+    pagerank_operator in the configuration's float64: its counts the
+    configuration's, P equal to A D^-1 bit for bit (the graph is
+    symmetric), its columns summing to 1; K1 on P and x uniform in
+    [0, 1) against its plain version within |P| |x| and 2 gamma_n |P| |x|
+    per row, timed warm and cold beside cuSPARSE and the bytes bound
+    (bench/measure.py::card_spmv).  Then the cell's job,
+    solvers.pagerank(op, damping, **solver_args) at the traffic's
+    settings, with K1's counters reset and solvers.CAPTURES read just
+    before: one fused launch a step (masked steps included), one host
+    read, maxiter iterations, no graph captured; its ranks against
+    models/pagerank_reference.py over the link graph in float64, the L1
+    distance within the cell's rank_err limit, and the reference in
+    float32 outside it (the control); PAGERANK_JOBS jobs timed on the
+    host clock.  Returns (ok, line, entry)."""
+    import numpy as np
+    import torch
+
+    from merge_spmv_tpu_torch.bench import measure as M
+    from merge_spmv_tpu_torch.formats.csr import CsrMatrix
+    from merge_spmv_tpu_torch.models import solvers as SV
+    from merge_spmv_tpu_torch.models.pagerank_reference import pagerank
+    from merge_spmv_tpu_torch.ops import csrmv_cuda as K
+    from merge_spmv_tpu_torch.ops.operator import pagerank_operator
+    from spmv_bench.generators import graph500
+
+    dev = torch.device("cuda")
+    with open(PAGERANK_CONFIG) as f:
+        config = json.load(f)
+    with open(PAGERANK_TRAFFIC) as f:
+        traffic = json.load(f)
+    with open(PAGERANK_LIMITS) as f:
+        limit = json.load(f)["rank_err"]
+    damping, args = float(traffic["damping"]), traffic["solver_args"]
+
+    def host(g, offsets, cols, values):
+        return CsrMatrix.from_arrays(
+            g, g, offsets.to(torch.int32).cpu().numpy(),
+            cols.to(torch.int32).cpu().numpy(), values.cpu().numpy())
+
+    def column_sums_ok(op, outdeg):
+        sums = torch.zeros(op.plan.num_cols, dtype=torch.float64,
+                           device=dev).index_add_(
+            0, op.col_indices.long(), op.values)
+        full = outdeg > 0
+        # a column's d terms of 1/d summed in float64: within d u of 1
+        slack = outdeg[full].double() * 2.0 ** -53 * 2
+        return (bool(((sums[full] - 1).abs() <= slack).all())
+                and bool((sums[~full] == 0).all()))
+
+    # the transpose on a directed graph with dangling vertices
+    g = graph500.generate({**config["params"],
+                           "scale": PAGERANK_DIRECTED_SCALE},
+                          PAGERANK_SEED, dev)
+    n_d = g["num_rows"]
+    offs = g["row_offsets"]
+    u = torch.repeat_interleave(torch.arange(n_d, device=dev),
+                                offs[1:] - offs[:-1])
+    v = g["col_indices"].long()
+    del g, offs
+    keep = u < v
+    u, v = u[keep], v[keep]
+    del keep
+    outdeg_d = torch.bincount(u, minlength=n_d)
+    offs_d = torch.zeros(n_d + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(outdeg_d, 0, out=offs_d[1:])
+    op_d = pagerank_operator(
+        host(n_d, offs_d, v, torch.ones(v.numel(), dtype=torch.float64)),
+        dtype="float64", device=dev)
+    want = torch.sparse_coo_tensor(
+        torch.stack([v, u]), 1.0 / outdeg_d[u].double(),
+        (n_d, n_d), check_invariants=True).coalesce()
+    w_rows, w_cols = want.indices()
+    w_ends = torch.cumsum(torch.bincount(w_rows, minlength=n_d), 0)
+    dangling = int((outdeg_d == 0).sum())
+    directed_ok = (torch.equal(op_d.row_end_offsets.long(), w_ends)
+                   and torch.equal(op_d.col_indices.long(), w_cols)
+                   and torch.equal(op_d.values, want.values())
+                   and op_d.plan.num_nonzeros == u.numel()
+                   and column_sums_ok(op_d, outdeg_d) and dangling > 0)
+    nnz_d = u.numel()
+    del u, v, want, w_rows, w_cols, w_ends, op_d, offs_d, outdeg_d
+    torch.cuda.empty_cache()
+
+    # the cell's graph and operator
+    t0 = time.perf_counter()
+    g = graph500.generate(config["params"], PAGERANK_SEED, dev)
+    n, offsets, cols = g["num_rows"], g["row_offsets"], g["col_indices"]
+    csr = host(n, offsets, cols, g["values"])
+    del g
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = pagerank_operator(csr, dtype=config["dtype"], device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del csr
+    nnz, describe, setup = op.plan.num_nonzeros, op.plan.describe(), \
+        op.setup_s
+    outdeg = offsets[1:] - offsets[:-1]
+    # P = A D^-1 for the symmetric graph: A's pattern, 1 / deg(column)
+    p_ok = (torch.equal(op.row_end_offsets.long(), offsets[1:].long())
+            and torch.equal(op.col_indices, cols)
+            and torch.equal(op.values,
+                            1.0 / outdeg.double()[cols.long()])
+            and column_sums_ok(op, outdeg))
+    counts_ok = (n == config["num_rows"]
+                 and nnz == config["num_nonzeros"])
+
+    # K1 on P against its plain version, timed
+    gen = torch.Generator(device=dev).manual_seed(PAGERANK_SEED)
+    x = torch.rand(n, dtype=torch.float64, generator=gen, device=dev)
+    k1 = M.card_spmv(op, x)
+    del x
+    torch.cuda.empty_cache()
+    policy = k1["policy"]
+    k1_ms = k1["k1_ms"][policy]
+
+    # the cell's job, counted from 0
+    K.reset_launches()
+    before = dict(SV.CAPTURES)
+    pr, info = SV.pagerank(op, damping, **args)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    captures = {k: SV.CAPTURES[k] - before[k] for k in before}
+    reads, iterations = info.host_reads, int(info.iterations)
+    steps = reads * int(args["check_every"])
+    want_launches = {k: steps if k == "merge_tile_fused" else 0
+                     for k in launches}
+    ref = pagerank(offsets, cols, damping, int(args["maxiter"]),
+                   torch.float64)
+    rank_err = float((pr.double() - ref).abs().sum())
+    control = pagerank(offsets, cols, damping, int(args["maxiter"]),
+                       torch.float32)
+    control_err = float((control.double() - ref).abs().sum())
+    del pr, ref, control
+    jobs = []
+    for _ in range(PAGERANK_JOBS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        SV.pagerank(op, damping, **args)
+        jobs.append(1e3 * (time.perf_counter() - t))
+    job_ok = (launches == want_launches and reads == 1
+              and iterations == int(args["maxiter"])
+              and not any(captures.values()) and rank_err <= limit
+              and control_err > limit)
+    ok = directed_ok and p_ok and counts_ok and k1["plain_ok"] and job_ok
+    del op, offsets, cols, outdeg
+    torch.cuda.empty_cache()
+    fp64 = k1.get("plain_err_over_fp64_bound", float("nan"))
+    line = (f"pagerank cell: the transpose on a directed graph (scale "
+            f"{PAGERANK_DIRECTED_SCALE}, {n_d} vertices, {nnz_d} links u < "
+            f"v, {dangling} dangling) equal to the sparse COO transpose of "
+            f"D^-1 A, columns summing to 1 or empty: {directed_ok}; "
+            f"{config['name']} {n} vertices {nnz} nnz {config['dtype']} "
+            f"generated in {gen_s:.1f} s (counts the configuration's: "
+            f"{counts_ok}), pagerank_operator {build_s:.1f} s "
+            f"({describe}), setup_s {setup}, P equal "
+            f"to A D^-1: {p_ok}; K1 policy {policy} warm {k1_ms:.4f} ms "
+            f"({k1['k1_ms']}), cold {k1['k1_cold_ms'][policy]:.4f} ms, "
+            f"cuSPARSE {k1['cusparse_ms']:.4f} warm, "
+            f"{k1['cusparse_cold_ms']:.4f} cold; bytes bound "
+            f"{k1['bytes_bound_ms']:.4f} ms for {k1['bytes']} B "
+            f"({100 * k1['bytes_bound_ms'] / k1_ms:.1f}%); plain "
+            f"{k1['plain_ms']:.1f} ms, max|err| "
+            f"{k1['plain_max_abs_err']:.3e}, {100 * fp64:.4f}% of 2 gamma_n "
+            f"|P| |x|, ok={k1['plain_ok']}; the job "
+            f"pagerank(op, {damping}, {args}): launches {launches} (want "
+            f"{want_launches}), {reads} host read, {iterations} "
+            f"iterations, captures {captures}, L1 from the float64 "
+            f"reference {rank_err:.3e} (limit {limit}), the float32 "
+            f"reference's {control_err:.3e}; jobs "
+            f"{[round(t, 2) for t in jobs]} ms on the host clock; ok={ok}")
+    entry = {"launches": launches["merge_tile_fused"],
+             "max_abs_err": k1["plain_max_abs_err"], "ms": k1_ms,
+             "plain_ms": k1["plain_ms"], "bound_ms": k1["bytes_bound_ms"],
+             "bound_by": "bytes", "library_ms": k1["cusparse_ms"],
+             "main_path": True, "policy": policy,
+             "cold_ms": k1["k1_cold_ms"][policy],
+             "job": {"launches": launches["merge_tile_fused"],
+                     "host_reads": reads, "iterations": iterations,
+                     "rank_err": rank_err, "control_err": control_err,
+                     "ms": sorted(jobs)[len(jobs) // 2]}}
+    return ok, line, entry
+
+
 def main() -> int:
     import torch
 
@@ -1457,7 +1679,8 @@ def main() -> int:
     from merge_spmv_tpu_torch.ops import split as S
     from merge_spmv_tpu_torch.ops.dia import build_dia_operator
     from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
-    from merge_spmv_tpu_torch.ops.operator import build_operator
+    from merge_spmv_tpu_torch.ops.operator import (build_operator,
+                                                   pagerank_operator)
     from merge_spmv_tpu_torch.ops.plan import (DEFAULT_TILE_ITEMS,
                                                L1_TILE_ITEMS,
                                                L1_WIDE_TILE_ITEMS, POLICIES,
@@ -3030,20 +3253,21 @@ def main() -> int:
     del large, bl, bh, sc
 
     # ------------------------------------------------------------ pagerank
-    # the kron class as a link graph (row -> column), its column-stochastic
-    # transpose P[c, r] = 1 / outdeg(r) through K1, against a float64 run
-    # of the same iterations on the host with SciPy
+    # the kron class as a 0/1 link graph (row -> column), its
+    # column-stochastic transpose P[c, r] = 1 / outdeg(r) built on the card
+    # by pagerank_operator in float32 and applied through K1, against a
+    # float64 run of the same iterations on the host with SciPy
     t_phase = time.perf_counter()
-    adj = scipy_csr(kron)
-    adj.data[:] = 1.0
+    links = CsrMatrix(nk_, nk_, kron.row_offsets, kron.col_indices,
+                      np.ones(kron.num_nonzeros, np.float32))
+    adj = scipy_csr(links)
     pt = adj.T.tocsr()
     del adj
     outdeg = np.diff(kron.row_offsets).astype(np.float64)
     pt.data = 1.0 / outdeg[pt.indices]
-    p_csr = CsrMatrix(nk_, nk_, pt.indptr, pt.indices, pt.data).astype(
-        np.float32)
     del kron
-    op_pr = build_operator(p_csr)
+    op_pr = pagerank_operator(links, dtype="float32")
+    del links
     pr_op_ms = chained_rate_ms(op_pr, torch.full((nk_,), 1.0 / nk_,
                                                  device=dev))
     (pr, _), rep_ = run_solver(
@@ -3060,7 +3284,7 @@ def main() -> int:
     ok_pr = (l1 <= PAGERANK_L1_MAX and rep_["graph_equals_eager"]
              and rep_["iterations"] < 200
              and rep_["launches_per_iteration"] == {"merge_tile_fused": 1})
-    print(solver_line(rep_, pr_op_ms, f"{p_csr.num_nonzeros} nnz, "
+    print(solver_line(rep_, pr_op_ms, f"{op_pr.plan.num_nonzeros} nnz, "
                       f"{op_pr.plan.describe()}; L1 distance {l1:.3e} from "
                       f"the float64 run (at most {PAGERANK_L1_MAX}; "
                       f"{ref_s:.1f} s on the host), tol {PAGERANK_TOL} "
@@ -3069,7 +3293,7 @@ def main() -> int:
     print(f"pagerank phase: {time.perf_counter() - t_phase:.1f} s")
     if not ok_pr:
         return 1
-    del p_csr, pt, op_pr, pr, pr64, outdeg
+    del pt, op_pr, pr, pr64, outdeg
 
     # ------------------------------------------------------------ 11 router
     # build_suggested on each class (the circuit and kron rows above), each
@@ -3468,6 +3692,17 @@ def main() -> int:
     if not norm_ok:
         return 1
 
+    # ------------------------------------------------------------ pagerank cell
+    # the graph500_24.pagerank cell's path: pagerank_operator's transpose,
+    # K1 on its P and the cell's job (pagerank_report)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    pr_ok, pr_line, pr_cell = pagerank_report()
+    torch.cuda.empty_cache()
+    print(f"{pr_line}; {time.perf_counter() - t_phase:.1f} s")
+    if not pr_ok:
+        return 1
+
     # ------------------------------------------------------------ 14 report
     # main_path: false marks the unfused instantiation and the separate
     # fix-up, which op(x) no longer launches (their launches are 0 there)
@@ -3506,6 +3741,12 @@ def main() -> int:
                                   dia_launches["baseline_spmm"]}},
     ]
     kernels += [k1_c, k1_k, k1_b, k1_w]
+    # K1 on the graph500_24.pagerank cell's P in float64: launches as the
+    # cell's job made them (one a step, masked steps included)
+    kernels.append({"name": "merge_tile_fused@graph500_24_f64",
+                    "route": "cuda", "source": src,
+                    "replaces": "merge_spmv_tpu/ops/csrmv_pallas.py:150",
+                    **pr_cell})
     # K1m: launches from the main phase's op.mm, by path, and per SpMM
     # config (counted around that config's op.mm); times at cant, k = 32
     mm_src = "merge_spmv_tpu_torch/csrc/merge_csrmm.cu"

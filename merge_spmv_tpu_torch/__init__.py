@@ -10,11 +10,11 @@ The port of merge_spmv_tpu (JAX / Pallas on a TPU), module for module:
 * ops/ — the merge-path search, the plan, the segment-sum oracle
   (csrmv_torch), the CUDA merge kernels and their plain versions
   (csrmv_cuda, csrc/merge_csrmv.cu), the public csrmv/csrmm API and the
-  SpmvOperator and the transition operator D^-1 A of a graph
-  (operator); the DIA split operator (dia) with its CUDA kernel
-  (dia_cuda, csrc/dia_matvec.cu); the banded and hot/cold split operators
-  (split), the structure router (suggest) and the tile autotuner
-  (autotune),
+  SpmvOperator, the transition operator D^-1 A of a graph and
+  PageRank's column-stochastic A^T D^-1 (operator); the DIA split
+  operator (dia) with its CUDA kernel (dia_cuda, csrc/dia_matvec.cu);
+  the banded and hot/cold split operators (split), the structure router
+  (suggest) and the tile autotuner (autotune),
 * models/ — the solvers (CG, BiCGSTAB, Jacobi, power iteration, PageRank,
   FastRP) and HPCG's multigrid preconditioner (multigrid:
   ``build_multigrid``), with their kernels on the card,
@@ -38,6 +38,7 @@ from merge_spmv_tpu_torch.formats.stats import GraphStats
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.ops.csrmv import csrmv, csrmm
 from merge_spmv_tpu_torch.ops.operator import (SpmvOperator, build_operator,
+                                               pagerank_operator,
                                                transition_operator)
 from merge_spmv_tpu_torch.ops.dia import DiaSpmvOperator, build_dia_operator
 from merge_spmv_tpu_torch.ops.split import (build_hotcold_operator,
@@ -58,6 +59,7 @@ __all__ = [
     "SpmvOperator",
     "build_operator",
     "transition_operator",
+    "pagerank_operator",
     "DiaSpmvOperator",
     "build_dia_operator",
     "build_hotcold_operator",

@@ -8,7 +8,7 @@ operator, DIA, the split and hot/cold operators.
     op = build_operator(csr)
     x, info = conjugate_gradient(op, b, tol=1e-6)
     lam, v, info = power_iteration(op, v0)
-    pr, info = pagerank(build_operator(csr_transposed_stochastic))
+    pr, info = pagerank(pagerank_operator(link_csr))
     emb, info = fastrp(transition_operator(adjacency_csr), r)
 
 The JAX package runs each loop as ``lax.while_loop`` on the device.
@@ -478,7 +478,8 @@ def pagerank(op, damping: float = 0.85, tol: float = 1e-8,
              graph: Optional[bool] = None):
     """PageRank over a column-stochastic transition operator.
 
-    ``op`` must apply P (out-degree-normalized adjacency transpose):
+    ``op`` must apply P (out-degree-normalized adjacency transpose,
+    ops/operator.py::pagerank_operator):
     pr <- damping * P pr + (1 - damping)/n.  Dangling mass is redistributed
     uniformly so the total stays 1.
     """

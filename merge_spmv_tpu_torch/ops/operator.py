@@ -11,6 +11,7 @@ kernel directly, once per call (ops/csrmv_cuda.py).
     y = op(x, y_in=y0, alpha=2.0, beta=1.0)
     Y = op.mm(X)                                   # SpMM, one K1m launch
     P = transition_operator(adjacency_csr)         # D^-1 A, rows by degree
+    P = pagerank_operator(link_csr)                # A^T D^-1, columns
 
 The operator always runs the merge-path decomposition: the CUDA kernels for
 a matrix on the card, their plain PyTorch versions for a matrix on the CPU
@@ -34,11 +35,13 @@ from merge_spmv_tpu_torch.ops.merge_path import merge_tile_coordinates
 from merge_spmv_tpu_torch.ops.plan import SpmvPlan, make_plan
 from merge_spmv_tpu_torch.utils.device import resolve_device, torch_dtype
 from merge_spmv_tpu_torch.utils.tracing import (BUILD_PLAN, BUILD_PREPARE,
+                                                BUILD_STOCHASTIC,
                                                 BUILD_TRANSITION, OP_CALL,
                                                 OP_MM, span)
 
 __all__ = ["SpmvOperator", "build_operator", "transition_operator",
-           "assemble_operator", "row_abs_sums", "row_stochastic"]
+           "pagerank_operator", "assemble_operator", "row_abs_sums",
+           "row_stochastic", "column_stochastic"]
 
 
 def row_abs_sums(values, row_end_offsets, num_rows: int):
@@ -61,6 +64,23 @@ def row_stochastic(values, row_end_offsets, num_rows: int):
         raise ValueError("a row with stored values sums to 0: D^-1 A is "
                          "undefined there")
     return values / per_nonzero
+
+
+def column_stochastic(values, row_end_offsets, col_indices, num_rows: int,
+                      num_cols: int):
+    """The CSR of P = A^T D^-1 on the arrays' device: (values in float64,
+    row end offsets, column indices) of the transpose of D^-1 A
+    (``row_stochastic``), so that column u of P is row u of A over its
+    sum.  A stable sort of the nonzeros by column keeps each row of P in
+    A's row order; an empty row of A leaves its column of P empty."""
+    scaled = row_stochastic(values, row_end_offsets, num_rows)
+    order = torch.sort(col_indices, stable=True).indices
+    scaled = scaled[order]
+    rows = row_ids_from_offsets(row_end_offsets, values.shape[0])[order]
+    del order
+    counts = torch.bincount(col_indices.long(), minlength=num_cols)
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    return scaled, ends, rows.to(torch.int32)
 
 
 class SpmvOperator:
@@ -233,6 +253,43 @@ def transition_operator(csr, dtype="float32", backend: str = "auto",
     in ``build_operator``."""
     return _build(csr, dtype, backend, tile_items, resolve_device(device),
                   {}, transition=True)
+
+
+def pagerank_operator(csr, dtype="float32", backend: str = "auto",
+                      tile_items: Optional[int] = None,
+                      device=None) -> SpmvOperator:
+    """The operator of PageRank's transition matrix P = A^T D^-1 of the
+    link graph's CSR ``csr`` (row u holds u's out-links, square), the
+    column-stochastic operator ``models/solvers.py::pagerank`` takes:
+    P[v, u] = a_uv / (row u's sum of values), so that for a 0/1 graph
+    P @ pr spreads each vertex's rank evenly over its out-links.  A
+    vertex with no out-link (dangling) leaves its column empty.  The
+    values are copied to the device in float64, scaled and transposed
+    there (``column_stochastic``, timed into ``op.setup_s["stochastic"]``
+    inside ``"prepare"``), then rounded to ``dtype``; the plan is made on
+    P's pattern, after the transpose, so ``"prepare"`` is the sum of its
+    halves before and after it.  For a symmetric graph P = A D^-1.
+    ``backend``, ``tile_items`` and ``device`` as in ``build_operator``."""
+    if csr.num_rows != csr.num_cols:
+        raise ValueError(f"a link graph is square, got {csr.num_rows} x "
+                         f"{csr.num_cols}")
+    dev = resolve_device(device)
+    setup_s = {}
+    with span(BUILD_PREPARE, into=setup_s, key="prepare"):
+        arrays = csr.to_device(dtype=torch.float64, device=dev)
+        with span(BUILD_STOCHASTIC, into=setup_s, key="stochastic"):
+            values, rowends, cols = column_stochastic(
+                *arrays, csr.num_rows, csr.num_cols)
+        del arrays
+    with span(BUILD_PLAN, into=setup_s, key="plan"):
+        plan = make_plan(csr.num_rows, csr.num_cols, csr.num_nonzeros,
+                         dtype=dtype, tile_items=tile_items, backend=backend,
+                         col_indices=cols, device=dev)
+    with span(BUILD_PREPARE, into=setup_s, key="prepare"):
+        op = assemble_operator(plan, values.to(torch_dtype(plan.dtype)),
+                               rowends, cols)
+    op.setup_s = {k: round(v, 3) for k, v in setup_s.items()}
+    return op
 
 
 def _build(csr, dtype, backend, tile_items, dev, ignored,

@@ -6,7 +6,7 @@ or ``torch.autograd.profiler.emit_nvtx`` under Nsight Systems) it is
 the profiler's clock, beside the device's kernels.  Otherwise it is one
 shared no-op context, after a single check of the profiler's flag: no
 dispatcher call and no allocation.  ``span(name, into=d, key=k)`` also
-stores the phase's host seconds in ``d[k]``, profiler or not.
+adds the phase's host seconds to ``d[k]``, profiler or not.
 
     with span(SOLVE):
         ...
@@ -25,7 +25,7 @@ __all__ = ["span", "SPANS", "SOLVE", "PROLOGUE", "EAGER_BLOCK", "CAPTURE",
            "CAPTURE_ENTER", "CAPTURE_RECORD", "CAPTURE_EXIT", "REPLAY",
            "FLAG_READ", "RELEASE", "NORMALIZE", "PRECONDITION", "MG_LEVELS",
            "OP_CALL", "OP_MM", "BUILD_PLAN", "BUILD_PREPARE",
-           "BUILD_TRANSITION", "BUILD_MULTIGRID"]
+           "BUILD_TRANSITION", "BUILD_STOCHASTIC", "BUILD_MULTIGRID"]
 
 SOLVE = "merge_spmv.solve"
 PROLOGUE = "merge_spmv.solve.prologue"
@@ -49,6 +49,7 @@ OP_MM = "merge_spmv.op.mm"
 BUILD_PLAN = "merge_spmv.build.plan"
 BUILD_PREPARE = "merge_spmv.build.prepare"
 BUILD_TRANSITION = "merge_spmv.build.transition"
+BUILD_STOCHASTIC = "merge_spmv.build.stochastic"
 BUILD_MULTIGRID = "merge_spmv.build.multigrid"
 
 SPANS = {
@@ -84,10 +85,14 @@ SPANS = {
     OP_MM: "SpmvOperator.mm: Y = alpha A X + beta Y_in",
     BUILD_PLAN: "build_operator's make_plan (op.setup_s['plan'])",
     BUILD_PREPARE: "build_operator's copy to the device, tile search and "
-                   "row norm (op.setup_s['prepare'])",
+                   "row norm (op.setup_s['prepare']); pagerank_operator's "
+                   "two halves, before and after the plan, summed",
     BUILD_TRANSITION: "transition_operator's row sums and scaling of the "
                       "values to D^-1 A, inside BUILD_PREPARE "
                       "(op.setup_s['transition'])",
+    BUILD_STOCHASTIC: "pagerank_operator's row sums, scaling and transpose "
+                      "of the values to A^T D^-1 on the device, inside "
+                      "BUILD_PREPARE's first half (op.setup_s['stochastic'])",
     BUILD_MULTIGRID: "build_multigrid's own set-up, two spans around the "
                      "fine operator's build: the grid check before it; the "
                      "coarse levels, the colours' operators and the scratch "
@@ -113,7 +118,7 @@ _OFF = _Off()
 
 
 class _Timed:
-    """A span that also stores its host seconds in ``into[key]``."""
+    """A span that also adds its host seconds to ``into[key]``."""
 
     __slots__ = ("name", "into", "key", "mark", "t0")
 
@@ -126,13 +131,14 @@ class _Timed:
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
-        self.into[self.key] = time.perf_counter() - self.t0
+        seconds = time.perf_counter() - self.t0
+        self.into[self.key] = self.into.get(self.key, 0.0) + seconds
         return self.mark.__exit__(*exc)
 
 
 def span(name: str, into: dict | None = None, key=None):
     """A context manager marking the phase ``name`` (one of ``SPANS``);
-    with ``into``, it stores the phase's host seconds in ``into[key]``."""
+    with ``into``, it adds the phase's host seconds to ``into[key]``."""
     if into is not None:
         return _Timed(name, into, key)
     if _profiler_enabled():

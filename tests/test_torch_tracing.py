@@ -147,6 +147,19 @@ def test_timed_span_stores_seconds_with_and_without_a_profiler():
     assert T.span(T.SOLVE) is T.span(T.REPLAY)      # the shared no-op
 
 
+def test_timed_span_adds_up_a_phase_timed_twice():
+    """A key timed by two spans holds the sum of their seconds
+    (pagerank_operator's prepare, before and after its plan)."""
+    times = {}
+    with T.span(T.BUILD_PREPARE, into=times, key="prepare"):
+        sum(range(1000))
+    first = times["prepare"]
+    with T.span(T.BUILD_PREPARE, into=times, key="prepare"):
+        sum(range(1000))
+    assert times["prepare"] > first > 0.0
+    assert list(times) == ["prepare"]
+
+
 def test_span_passes_an_exception_on():
     for on in (False, True):
         with pytest.raises(KeyError):
